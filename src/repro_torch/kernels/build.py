@@ -1,0 +1,99 @@
+"""Build the CUDA kernels of ``csrc/`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles with one
+``nvcc`` call into ``build/repro_torch/<name>-<hash>.so`` under the
+repository root (the hash covers the source and the flags, so an edited
+source is rebuilt).  Nothing is built or loaded at import: a wrapper calls
+:func:`load` at its first CUDA launch, and :func:`build` compiles several
+sources at once, one ``nvcc`` process each, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# source name -> (C entry point, its argument types); every entry point
+# returns the cudaError_t of its launch as an int
+SIGNATURES = {
+    "quant_matmul": ("qmm_launch", [_P] * 5 + [_I] * 5 + [_P]),
+    "paged_attention": ("paged_decode_launch",
+                        [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P]),
+    "paged_prefill": ("paged_prefill_launch",
+                      [_P] * 5 + [_I] * 11 + [_F, _F, _I, _P]),
+}
+
+_LOADED: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           "/usr/local/cuda/bin); the CUDA kernels cannot "
+                           "be built")
+    return path
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names=tuple(SIGNATURES)) -> dict:
+    """Compile every named source that has no library yet, all nvcc
+    processes at once.  Returns ``{name: nvcc output}`` for the sources
+    compiled by this call; raises if any compile failed."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so)
+    failed, reports = [], {}
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc failed for {name}.cu ---\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str):
+    """The C entry point of ``csrc/<name>.cu``, built on first use."""
+    fn = _LOADED.get(name)
+    if fn is None:
+        build((name,))
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LOADED[name] = fn
+    return fn
+
+
+def check(rc: int, what: str):
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")

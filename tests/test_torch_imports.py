@@ -1,0 +1,84 @@
+"""The port stands alone: importing it loads neither JAX nor ``repro``,
+no file of it (or ``chip_smoke.py``) imports them, and its entry points
+refuse to fall back to the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")  # the port's optional dependency
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def test_import_loads_no_jax_and_no_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch\n"
+        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.bridge, repro_torch.api.plan\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, n)
+
+
+def test_entry_points_refuse_cpu_fallback():
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    cfg = registry.get("llama3.2-1b-smoke")
+    params = lm.init_params(cfg, device="cpu")
+    if torch.cuda.is_available():
+        assert engine.InferenceServer(cfg, params, max_len=16,
+                                      max_batch=1).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.InferenceServer(cfg, params, max_len=16, max_batch=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(cfg)
+
+
+def test_unported_families_name_their_roadmap_item():
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    for arch, item in (("mamba2-780m-smoke", "C2"),
+                       ("llama4-scout-17b-a16e-smoke", "C1"),
+                       ("seamless-m4t-medium-smoke", "C3")):
+        with pytest.raises(NotImplementedError, match=item):
+            lm.init_params(registry.get(arch), device="cpu")
+
+
+def test_device_sampling_is_greedy_only():
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+    cfg = registry.get("llama3.2-1b-smoke")
+    srv = engine.InferenceServer(cfg, lm.init_params(cfg, device="cpu"),
+                                 max_len=16, max_batch=1, device="cpu")
+    req = Request(uid=0, prompt=[1, 2, 3],
+                  sampling=SamplingParams(temperature=0.7, max_tokens=2))
+    with pytest.raises(NotImplementedError, match="A6"):
+        srv.serve([req])
