@@ -5,19 +5,28 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device  -- a CUDA device is required; prints its name and power limit.
-2. build   -- compiles the three CUDA kernels (one nvcc each, all at
+2. build   -- compiles the four CUDA kernels (one nvcc each, all at
               once) and prints ptxas' registers / shared memory / spills.
-3. kernels -- each kernel against its plain PyTorch version at the main
-              path's full-width shapes (K1 bitwise; K2, K3 within 2e-5 in
-              f32), plus one full-width layer packed on the card vs on the
-              CPU (byte-identical); then each kernel timed with CUDA events
-              (L2 flushed before every launch) beside its plain version,
-              its PyTorch yardstick and its bound.
-4. serve   -- llama3.2-1b at full width (random weights, seed 0) served
-              through a synthetic mixed-precision plan on a paged cache
-              (16 greedy requests), then float (4 requests); launch counts
-              read around each run; paged vs dense prefill logits agree.
-5. report  -- one JSON line of kernels, the card's name and power limit,
+3. kernels -- each kernel against its plain PyTorch version at its path's
+              full-width shapes (K1 and K4 bitwise; K2, K3 within 2e-5 in
+              f32; K4's backward within rtol 1e-4), plus one full-width
+              layer packed on the card vs on the CPU (byte-identical);
+              then each kernel timed with CUDA events (L2 flushed before
+              every launch) beside its plain version, its PyTorch
+              yardstick where one call computes the same function, and
+              its bound.
+4. serve   -- path 1: llama3.2-1b at full width (random weights, seed 0)
+              served through a synthetic mixed-precision plan on a paged
+              cache (16 greedy requests), then float (4 requests); launch
+              counts read around each run; paged vs dense prefill logits
+              agree.
+5. search  -- path 2: the paper's joint search on resnet18 at full width
+              (Tiny-ImageNet shapes, 200 classes, batch 32, data made on
+              the card) through Compressor.run([Warmup, JointSearch,
+              Finetune]); K4's launch count read around the run must be
+              21 weight nodes x search steps; finite losses; a plan with
+              bits in pw and the classifier unpruned.
+6. report  -- one JSON line of kernels, the card's name and power limit,
               and last the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -170,10 +179,15 @@ def phase_kernels(dev, flush):
     wp0 = copies[0][0]
     ms512 = time_ms(lambda: qops.quant_matmul(xq2, wp0, sw, sx, w_bits=4),
                     20, flush)
+    xb2 = xq2.to(torch.bfloat16)
+    lib512 = time_ms(lambda: torch.matmul(xb2, deq[0].T), 20, flush)
     b512, by512 = bound(m2 * kk + n * kk // 2 + n * 4 + m2 * n * 4,
                         2 * m2 * n * kk, "int8")
+    rows["quant_matmul"].update(prefill_ms=ms512, prefill_library_ms=lib512,
+                                prefill_bound_ms=b512)
     log(f"[kernels] K1 at prefill M=512 K=2048 N=8192 4-bit: "
-        f"{ms512:.4f} ms (bound {b512:.4f} ms, {by512})")
+        f"{ms512:.4f} ms, library (bf16 torch.matmul on the dequantized "
+        f"weight) {lib512:.4f} ms (bound {b512:.4f} ms, {by512})")
 
     # -- K2: decode at the main path's shapes ------------------------------
     h, hkv, d, ps, width = 32, 8, 64, 16, 64
@@ -259,11 +273,89 @@ def phase_kernels(dev, flush):
                                                          is_causal=True),
                            50, flush),
         bound_ms=bms, bound_by=by)
+
+    # -- K4: every resnet18 search weight shape, bitwise; backward --------
+    rows["mps_combine"] = phase_k4(dev, flush)
     for k, r in rows.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
         log(f"[kernels] {k} at {r['shape']}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+K4_PW = (0, 2, 4, 8)
+
+
+def k4_shapes():
+    """Each distinct (C_out, C_in * kh * kw) of resnet18's 21 weight
+    nodes, the shapes the search hands K4."""
+    from repro_torch.models import cnn
+    g = cnn.resnet18()
+    ch, _ = cnn._trace_shapes(g)
+    shapes = []
+    for n in g.weight_nodes():
+        k = ch[n.inputs[0]] * (n.k[0] * n.k[1] if n.kind == "conv" else 1)
+        if (n.cout, k) not in shapes:
+            shapes.append((n.cout, k))
+    return shapes
+
+
+def phase_k4(dev, flush):
+    from repro_torch.kernels.mps_combine import ops as mops
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    err = 0.0
+    shapes = k4_shapes()
+    for m, k in shapes:
+        w = torch.randn(m, k, generator=g, device=dev) * 0.05
+        probs = torch.softmax(torch.randn(m, len(K4_PW), generator=g,
+                                          device=dev), -1)
+        got = mops.mps_combine_fwd(w, probs, K4_PW)
+        torch.cuda.synchronize()
+        want = mops.mps_combine_ref(w, probs, K4_PW)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K4 not bitwise at {m}x{k}: max |diff| "
+                f"{(got - want).abs().max().item()}")
+        up = torch.randn(m, k, generator=g, device=dev)
+        wk, pk = w.clone().requires_grad_(), probs.clone().requires_grad_()
+        (mops.mps_combine(wk, pk, K4_PW) * up).sum().backward()
+        wr, pr = w.clone().requires_grad_(), probs.clone().requires_grad_()
+        (mops.mps_combine_ref(wr, pr, K4_PW) * up).sum().backward()
+        for a, b in ((wk.grad, wr.grad), (pk.grad, pr.grad)):
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-5 * b.abs().max().item())
+            err = max(err, (a - b).abs().max().item())
+    log(f"[kernels] K4 mps_combine: forward bitwise equal to the plain "
+        f"version at every resnet18 weight shape {shapes}, |P| = 4, pw "
+        f"{K4_PW}; backward (autograd.Function) within rtol 1e-4 of "
+        f"autograd through the plain version (max |diff| {err:.3g})")
+    # timed at the largest search weight (st3b*: 512 x 4608)
+    m, k = max(shapes, key=lambda s: s[0] * s[1])
+    copies = [(torch.randn(m, k, generator=g, device=dev) * 0.05,
+               torch.softmax(torch.randn(m, len(K4_PW), generator=g,
+                                         device=dev), -1))
+              for _ in range(4)]
+    it = iter(range(10 ** 9))
+
+    def pick():
+        return copies[next(it) % len(copies)]
+
+    nbytes = 2 * m * k * 4 + m * len(K4_PW) * 4
+    # per element and nonzero precision: divide, round, two clamps, two
+    # multiplies, one add
+    ops = 7 * m * k * sum(1 for b in K4_PW if b)
+    bms, by = bound(nbytes, ops, "f32")
+    return dict(shape=f"{m}x{k} f32, pw {K4_PW}", max_abs_err=0.0,
+                ms=time_ms(lambda: mops.mps_combine_fwd(*pick(), K4_PW), 50,
+                           flush),
+                plain_ms=time_ms(lambda: mops.mps_combine_ref(*pick(),
+                                                              K4_PW),
+                                 20, flush),
+                library_ms=None, bound_ms=bms, bound_by=by,
+                backward_max_abs_diff=err)
 
 
 def phase_pack(cfg, params, plan):
@@ -378,6 +470,131 @@ def phase_serve(dev, counters):
     return runs
 
 
+class StepTimer:
+    """Compressor hook: wall time of every step (synchronised), each
+    step's metrics, per phase."""
+
+    def __init__(self):
+        self.steps, self.metrics, self._t = {}, {}, None
+
+    def on_phase_start(self, phase, state):
+        torch.cuda.synchronize()
+        self._t = time.perf_counter()
+
+    def on_step(self, phase, state, step, metrics, train_state):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.steps.setdefault(phase.name, []).append(now - self._t)
+        self.metrics.setdefault(phase.name, []).append(
+            {k: float(v) for k, v in metrics.items()})
+        self._t = now
+
+    def on_phase_end(self, phase, state):
+        pass
+
+
+def phase_search(dev, counters, smi):
+    from repro_torch.api import compressor, phases
+    from repro_torch.api.plan import CompressionPlan
+    from repro_torch.core import mps, sampling
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn
+    from repro_torch.optim import optimizers
+
+    g = cnn.resnet18()
+    spec = synthetic.TINYIMAGENET_LIKE
+    pw, px, batch = K4_PW, (8,), 32
+    n_w, n_s, n_f = 4, 6, 4
+    n_nodes = len(g.weight_nodes())
+    comp = compressor.Compressor(g, spec, pw=pw, px=px, batch=batch, seed=0)
+    if comp.device.type != torch.device(dev).type:
+        raise AssertionError(f"Compressor chose {comp.device}, not {dev}")
+    timer = StepTimer()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = comp.run([phases.Warmup(steps=n_w),
+                    phases.JointSearch(steps=n_s, lam=5.0),
+                    phases.Finetune(steps=n_f)], hooks=[timer])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    if got["mps_combine"] != n_nodes * n_s:
+        raise AssertionError(f"search: K4 launched {got['mps_combine']} "
+                             f"times, need {n_nodes} x {n_s}")
+    if any(v for k, v in got.items() if k != "mps_combine"):
+        raise AssertionError(f"search launched serving kernels: {got}")
+    for name, rows in timer.metrics.items():
+        for r in rows:
+            if not all(np.isfinite(v) for v in r.values()):
+                raise AssertionError(f"search: {name} metrics {r} not "
+                                     f"finite")
+    plan = res.plan
+    bits = set(int(b) for v in plan.channel_bits.values() for b in v)
+    if not isinstance(plan, CompressionPlan) or not bits <= set(pw) or \
+            not (plan.channel_bits["fc"] > 0).all() or \
+            len(plan.channel_bits["fc"]) != spec.num_classes:
+        raise AssertionError(f"search: bad plan {plan.summary()}, bits "
+                             f"{sorted(bits)}")
+    if not (np.isfinite(res.acc_float) and np.isfinite(res.acc_final)):
+        raise AssertionError(f"search: accuracies {res.acc_float}, "
+                             f"{res.acc_final}")
+    # the searched network on the card (K4 in search mode) against the
+    # port's plain path on the CPU, two images: logits that agree
+    x, _ = synthetic.class_batch(spec, 123, 2, 0, dev)
+    ctx = mps.SearchCtx(sampling.SOFTMAX, 0.5)
+    gpu_mps = res.mps_params
+    assignment = plan.to_assignment()
+    def cpu(tree):
+        return optimizers.tree_map(lambda a: a.cpu(), tree)
+
+    errs = {}
+    with torch.no_grad():
+        for mode, net in (("search", res.folded), ("quant", res.net)):
+            kw = dict(mode=mode, folded=True, pw=pw, px=px,
+                      assignment=assignment, ctx=ctx)
+            before = counters["mps_combine"].launches
+            on_card, _ = cnn.apply(g, net, x, mps_params=gpu_mps, **kw)
+            if mode == "search" and counters["mps_combine"].launches != \
+                    before + n_nodes:
+                raise AssertionError("search mode on the card bypassed K4")
+            on_cpu, _ = cnn.apply(g, cpu(net), x.cpu(),
+                                  mps_params=cpu(gpu_mps), **kw)
+            on_card = on_card.cpu()
+            rel = float((on_card - on_cpu).norm() / on_cpu.norm())
+            if on_card.shape != (2, spec.num_classes) or \
+                    not torch.isfinite(on_card).all() or rel > 1e-2:
+                raise AssertionError(f"search: {mode}-mode logits on the card "
+                                     f"vs the CPU: shape "
+                                     f"{tuple(on_card.shape)}, relative L2 "
+                                     f"error {rel} > 1e-2")
+            errs[mode] = rel
+    log(f"[search] searched resnet18 on the card (K4) vs the port's plain "
+        f"CPU path, 2 images: relative L2 error of the logits "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + " (bound 1e-2: f32 convolutions in another order, and a PACT "
+        "step where an activation sits on a grid boundary)")
+    per_step = {name: (float(np.mean(v[1:])) if len(v) > 1 else v[0])
+                for name, v in timer.steps.items()}
+    log(f"[search] resnet18 (21 weight nodes, "
+        f"{cnn.param_count(res.net) / 1e6:.2f} M params) on "
+        f"{spec.name} {spec.shape}, batch {batch}, pw {pw}, px {px}: "
+        f"{n_w} warmup / {n_s} search / {n_f} finetune steps in {dt:.1f} "
+        f"s; K4 launches {got['mps_combine']} = {n_nodes} x {n_s}")
+    log(f"[search] mean step time after the first (ms): " + ", ".join(
+        f"{k} {1e3 * v:.1f}" for k, v in per_step.items())
+        + f"; phase wall (s, with evaluation): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in res.timings.items())
+        + f"; on {torch.cuda.get_device_name(dev)} ({smi})")
+    log(f"[search] losses: " + "; ".join(
+        f"{k} {[round(r.get('loss', r.get('task', 0.0)), 4) for r in v]}"
+        for k, v in timer.metrics.items()))
+    log(f"[search] {plan.summary()}; acc float {res.acc_float:.4f}, final "
+        f"{res.acc_final:.4f}; size {res.size_bytes / 1e6:.3f} MB")
+    return got, per_step
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -392,6 +609,7 @@ def main():
         f"{torch.version.cuda}; nvidia-smi: {smi}")
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.mps_combine import ops as mops
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.quant_matmul import ops as qops
 
@@ -407,10 +625,12 @@ def main():
 
     counters = {"quant_matmul": qops.quant_matmul,
                 "paged_attention": pops.paged_attention_fwd,
-                "paged_prefill": pops.paged_prefill_fwd}
+                "paged_prefill": pops.paged_prefill_fwd,
+                "mps_combine": mops.mps_combine_fwd}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = phase_kernels(dev, flush)
     runs = phase_serve(dev, counters)
+    search_launches, _ = phase_search(dev, counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -419,17 +639,25 @@ def main():
                             "src/repro/kernels/paged_attention/kernel.py:158"),
         "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                           "src/repro/kernels/paged_attention/prefill.py:179"),
+        "mps_combine": ("src/repro_torch/csrc/mps_combine.cu",
+                        "src/repro/kernels/mps_combine/kernel.py:40"),
     }
     kernels = []
     for k, r in rows.items():
         src, rep = meta[k]
-        kernels.append({
-            "name": k, "route": "cuda", "source": src, "replaces": rep,
-            "launches": runs["plan"][k], "launches_float": runs["float"][k],
+        row = {"name": k, "route": "cuda", "source": src, "replaces": rep}
+        if k == "mps_combine":      # path 2: the search
+            row.update(launches=search_launches[k], path="search")
+        else:                       # path 1: serving
+            row.update(launches=runs["plan"][k],
+                       launches_float=runs["float"][k], path="serve")
+        row.update({
             "max_abs_err": r["max_abs_err"], "max_abs_diff": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"]})
+        row.update({k2: v for k2, v in r.items() if k2 not in row})
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,13 +59,29 @@ class CompressionPlan:
             meta=dict(meta or {}),
         )
 
-    def to_assignment(self) -> dict:
-        return {"gamma": {k: np.asarray(v)
-                          for k, v in self.channel_bits.items()},
-                "delta": dict(self.act_bits), "alpha": dict(self.alphas)}
+    def to_assignment(self, as_tensor: bool = False, device=None) -> dict:
+        """Assignment dict for ``cnn.apply`` / ``core.discretize``; with
+        ``as_tensor`` the bits and clip values are tensors on
+        ``device``."""
+        if as_tensor:
+            import torch
+            gamma = {k: torch.as_tensor(v, device=device)
+                     for k, v in self.channel_bits.items()}
+            alpha = {k: torch.tensor(v, dtype=torch.float32, device=device)
+                     for k, v in self.alphas.items()}
+        else:
+            gamma = {k: np.asarray(v) for k, v in self.channel_bits.items()}
+            alpha = dict(self.alphas)
+        return {"gamma": gamma, "delta": dict(self.act_bits), "alpha": alpha}
+
+    def size_bytes(self, geoms) -> float:
+        return discretize.assignment_size_bytes(geoms, self.to_assignment())
 
     def prune_fraction(self) -> float:
         return discretize.prune_fraction(self.to_assignment())
+
+    def bits_histogram(self) -> dict:
+        return discretize.bits_histogram(self.to_assignment(), self.pw)
 
     def sublayer_split(self) -> dict:
         """Per-precision contiguous sub-layers after the Fig. 3 reorder,
@@ -85,6 +101,13 @@ class CompressionPlan:
     @property
     def groups(self) -> tuple[str, ...]:
         return tuple(sorted(self.channel_bits))
+
+    def bind(self, weights: dict) -> dict:
+        """Pack ``weights`` (group name -> (C_out, C_in) float matrix) for
+        serving with this plan's channel bits and stored Fig. 3
+        permutations; see ``serve.engine.export_plan_layers``."""
+        from repro_torch.serve import engine
+        return engine.export_plan_layers(self, weights)
 
     def scalars(self) -> dict:
         """The JSON-able (non-array) half of the plan."""
@@ -131,6 +154,24 @@ class CompressionPlan:
                    channel_bits=bits, act_bits=dict(sc["act_bits"]),
                    alphas=dict(sc["alphas"]), permutations=perms,
                    meta=dict(sc.get("meta", {})))
+
+    def to_tree(self) -> dict:
+        """Array-only tree (checkpointing); pairs with :meth:`scalars`."""
+        return {"bits": {k: np.asarray(v, np.int64)
+                         for k, v in self.channel_bits.items()},
+                "perm": {k: np.asarray(v, np.int64)
+                         for k, v in self.permutations.items()}}
+
+    @classmethod
+    def from_tree(cls, tree: dict, scalars: dict) -> "CompressionPlan":
+        return cls(pw=tuple(scalars["pw"]), px=tuple(scalars["px"]),
+                   channel_bits={k: np.asarray(v, np.int64)
+                                 for k, v in tree["bits"].items()},
+                   act_bits=dict(scalars["act_bits"]),
+                   alphas=dict(scalars["alphas"]),
+                   permutations={k: np.asarray(v, np.int64)
+                                 for k, v in tree["perm"].items()},
+                   meta=dict(scalars.get("meta", {})))
 
     def equals(self, other: "CompressionPlan") -> bool:
         """Exact equality of everything that affects deployment."""

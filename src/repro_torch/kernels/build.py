@@ -23,6 +23,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64 = ctypes.c_ulonglong
 # source name -> (C entry point, its argument types); every entry point
 # returns the cudaError_t of its launch as an int
 SIGNATURES = {
@@ -31,6 +32,7 @@ SIGNATURES = {
                         [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P]),
     "paged_prefill": ("paged_prefill_launch",
                       [_P] * 5 + [_I] * 11 + [_F, _F, _I, _P]),
+    "mps_combine": ("mps_combine_launch", [_P] * 3 + [_I] * 3 + [_U64, _P]),
 }
 
 _LOADED: dict = {}

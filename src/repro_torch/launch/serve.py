@@ -9,8 +9,9 @@
 
 Weights are random (``lm.init_params``, seeded); ``--plan`` takes a saved
 CompressionPlan stem (either package's) or ``demo`` for a synthetic
-mixed-precision plan.  Device sampling is greedy only until ROADMAP A6;
-``--host-sampling`` samples with temperature / top-k on the host.
+mixed-precision plan.  Temperature / top-k sampling runs on the device
+(threefry2x32 Gumbel noise, the JAX package's stream); ``--host-sampling``
+samples with the host's numpy generator instead.
 """
 from __future__ import annotations
 
@@ -64,8 +65,8 @@ def main(argv=None):
     ap.add_argument("--pages", type=int, default=None,
                     help="page-pool size (default: dense-equivalent)")
     ap.add_argument("--host-sampling", action="store_true",
-                    help="sample on the host per token (needed for "
-                         "temperature > 0 until ROADMAP A6)")
+                    help="sample on the host per token (numpy "
+                         "generator) instead of on the device")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)

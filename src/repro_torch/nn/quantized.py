@@ -23,9 +23,12 @@ def quantize_activations_per_row(x: torch.Tensor):
     x: (M, K) float. Returns (xq int8 (M, K), sx (M, 1) f32).
     """
     x = x.float()
-    # a tensor divisor: CUDA divides by a Python scalar via its reciprocal
-    sx = torch.clamp_min(x.abs().amax(-1, keepdim=True), 1e-8) / \
-        torch.full((), 127.0, device=x.device)
+    # ``absmax / 127`` as the reference computes it under jax.jit: XLA
+    # turns the division by the constant into a multiplication by its
+    # float32 reciprocal, and an ulp in sx can move x / sx across a
+    # rounding boundary
+    sx = torch.clamp_min(x.abs().amax(-1, keepdim=True), 1e-8) * \
+        quantizers.recip(127.0, x)
     xq = torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8)
     return xq, sx
 

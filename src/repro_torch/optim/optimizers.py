@@ -1,0 +1,169 @@
+"""Functional optimizers (optax-style init/update pairs) over nested dicts
+of tensors (``repro.optim.optimizers``): ``update`` returns new tensors
+and a new state, as the JAX package's does; nothing is updated in place.
+
+``adam_int8`` and ``state_logical_axes`` serve LM training and are not
+ported yet (ROADMAP, slice B queue head).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class Optimizer(NamedTuple):
+    init: Callable
+    update: Callable   # (grads, state, params, step) -> (new_params, state)
+
+
+def tree_map(f, *trees):
+    """Map ``f`` over the leaves of nested dicts of identical structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(f, *(t[k] for t in trees)) for k in trees[0]}
+    return f(*trees)
+
+
+def tree_map_with_path(f, tree, path=()):
+    """``tree_map`` whose ``f`` also gets the leaf's tuple of keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(f, v, path + (k,))
+                for k, v in tree.items()}
+    return f(path, tree)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def _f32(v, like):
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def sgd(lr: Callable | float, momentum: float = 0.0,
+        weight_decay: float = 0.0) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        if momentum == 0.0:
+            return ()
+        return tree_map(torch.zeros_like, params)
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        lr_t = lr_fn(step)
+        if weight_decay:
+            grads = tree_map(lambda g, p: g + weight_decay * p, grads,
+                             params)
+        if momentum == 0.0:
+            new_params = tree_map(lambda p, g: p - lr_t * g, params, grads)
+            return new_params, state
+        new_state = tree_map(lambda m, g: momentum * m + g, state, grads)
+        new_params = tree_map(lambda p, m: p - lr_t * m, params, new_state)
+        return new_params, new_state
+
+    return Optimizer(init, update)
+
+
+def adam(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """AdamW when weight_decay > 0 (decoupled decay), the JAX package's
+    update and bias-correction form: ``p - lr * ((m / bc1) /
+    (sqrt(v / bc2) + eps) + wd * p)`` with ``bc = 1 - b ** (step + 1)``
+    in float32."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        return {"m": tree_map(torch.zeros_like, params),
+                "v": tree_map(torch.zeros_like, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        t = step + 1
+        lr_t = lr_fn(step)
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"],
+                     grads)
+
+        def step_fn(p, m_, v_):
+            bc1 = 1 - _f32(b1, p) ** t
+            bc2 = 1 - _f32(b2, p) ** t
+            upd = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            if weight_decay:
+                upd = upd + weight_decay * p
+            return p - lr_t * upd
+
+        new_params = tree_map(step_fn, params, m, v)
+        return new_params, {"m": m, "v": v}
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, lr) -> Optimizer:
+    if name == "adam":
+        return adam(lr)
+    if name == "sgd":
+        return sgd(lr, momentum=0.9)
+    if name == "adam_int8":
+        raise NotImplementedError(
+            "adam_int8 is not ported yet (ROADMAP slice B queue head, "
+            "with LM training)")
+    raise ValueError(name)
+
+
+def _select(tree, labels, key):
+    """The sub-tree of leaves labelled ``key`` (empty dicts dropped)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            sub = _select(v, labels[k], key)
+            if sub is not None:
+                out[k] = sub
+        return out or None
+    return tree if labels == key else None
+
+
+def _merge(base, sub):
+    if sub is None:
+        return base
+    if isinstance(base, dict):
+        return {k: _merge(v, sub.get(k)) for k, v in base.items()}
+    return sub
+
+
+def multi_optimizer(partition_fn, optimizers: dict) -> Optimizer:
+    """Route different leaves to different optimizers.
+
+    ``partition_fn(path, leaf) -> key in optimizers``, ``path`` the tuple
+    of dict keys.  Used for the search phase: DNN weights -> Adam,
+    selection parameters -> SGD(0.9) with their own LR (paper Sec.
+    5.1.1).  Each optimizer keeps state for the leaves it owns only; the
+    JAX package keeps a full-tree state per optimizer and masks the
+    gradients, which updates the owned leaves identically.
+    """
+    def init(params):
+        labels = tree_map_with_path(partition_fn, params)
+        state = {}
+        for key, opt in optimizers.items():
+            sub = _select(params, labels, key)
+            state[key] = opt.init(sub) if sub is not None else ()
+        return state
+
+    def update(grads, state, params, step):
+        labels = tree_map_with_path(partition_fn, params)
+        new_params = params
+        new_states = {}
+        for key, opt in optimizers.items():
+            sub_p = _select(params, labels, key)
+            if sub_p is None:
+                new_states[key] = state[key]
+                continue
+            sub_g = _select(grads, labels, key)
+            p_upd, new_states[key] = opt.update(sub_g, state[key], sub_p,
+                                                step)
+            new_params = _merge(new_params, p_upd)
+        return new_params, new_states
+
+    return Optimizer(init, update)

@@ -29,9 +29,9 @@ from repro_torch.launch import steps
 from repro_torch.models import lm
 from repro_torch.nn import quantized as nnq
 from repro_torch.serve import cache as cache_mod
-from repro_torch.serve.sampling import (SamplingParams, make_rng,
-                                        require_device_sampling,
-                                        sample_token, sample_tokens_device)
+from repro_torch.serve.sampling import (SamplingParams, batch_need_top_k,
+                                        make_rng, sample_token,
+                                        sample_tokens_device)
 from repro_torch.serve.scheduler import Request, Scheduler, SlotState
 
 
@@ -193,25 +193,38 @@ class InferenceServer:
         self._nan_detected = False
 
     # ------------------------------------------------------- sampling glue
-    def _sample_rows(self, logits, states):
-        """One token per row of ``logits`` (R, V_pad), as host ints:
-        greedy on the device, or with the host sampler for ``states``, a
-        (request, rng) pair per row.  Flags NaN logits."""
-        rows = logits[:, : self.cfg.vocab].float()
+    def _sample_rows(self, logits, rows):
+        """One token per row of ``logits`` (R, V_pad), as host ints.
+        ``rows`` holds, per row, None (an idle slot) or the triple
+        (request, host rng, index of the token in its stream).  Device
+        sampling keys each row by (seed, uid, token index); the host
+        sampler draws from the rng.  Flags NaN logits."""
+        vals = logits[:, : self.cfg.vocab].float()
         if self.sample_on_device:
-            ids = sample_tokens_device(rows)
-            bad = torch.isnan(rows).any()
+            sps = [r[0].sampling for r in rows if r is not None]
+            if all(sp.greedy for sp in sps):
+                # every row greedy: argmax, none of the sort / Gumbel work
+                ids = torch.argmax(vals, dim=-1)
+            else:
+                args = [torch.as_tensor(v, device=vals.device) for v in zip(
+                    *[(0.0, 0, 0, 0, 0) if r is None else
+                      (r[0].sampling.temperature, r[0].sampling.top_k,
+                       r[0].sampling.seed, r[0].uid, r[2]) for r in rows])]
+                ids = sample_tokens_device(
+                    vals, *args,
+                    need_top_k=batch_need_top_k(sps, self.cfg.vocab))
+            bad = torch.isnan(vals).any()
             ids, bad = ids.cpu().numpy(), bool(bad)
             # NaN logits make the step untrusted: step() discards its
             # tokens and reports StepResult.nan; serve() raises
             self._nan_detected |= bad
             return [int(i) for i in ids]
-        host = rows.cpu().numpy()
+        host = vals.cpu().numpy()
         if np.isnan(host).any():
             self._nan_detected = True
-            return [0] * len(states)
+            return [0] * len(rows)
         return [sample_token(host[i], req.sampling, rng)
-                for i, (req, rng) in enumerate(states)]
+                for i, (req, rng, _) in enumerate(rows)]
 
     # ------------------------------------------------------------ serving
     def begin(self, requests=()):
@@ -233,8 +246,6 @@ class InferenceServer:
         """Enqueue a request into the open session."""
         if self._sched is None:
             raise RuntimeError("no open session; call begin() first")
-        if self.sample_on_device:
-            require_device_sampling(request.sampling)
         self.backend.check_feasible(np.asarray(request.prompt).size,
                                     request.sampling.max_tokens)
         self._sched.submit(request, front=front)
@@ -262,7 +273,7 @@ class InferenceServer:
             self._n_admitted += 1
             if entry.resume is None:
                 rng = make_rng(req.sampling, req.uid)
-                tok = self._sample_rows(logits, [(req, rng)])[0]
+                tok = self._sample_rows(logits, [(req, rng, 0)])[0]
                 st = SlotState(request=req, slot=slot,
                                pos=int(tokens_np.size),
                                remaining=req.sampling.max_tokens - 1,
@@ -270,7 +281,8 @@ class InferenceServer:
                                order=self._n_admitted, handle=handle)
             else:       # preempted request: continue its exact stream
                 st = entry.resume
-                tok = self._sample_rows(logits, [(req, st.rng)])[0]
+                tok = self._sample_rows(
+                    logits, [(req, st.rng, len(st.out))])[0]
                 st.slot = slot
                 st.pos = int(tokens_np.size)
                 st.out.append(tok)
@@ -495,11 +507,15 @@ class InferenceServer:
         rows = logits[:, -1, :]
         slots = [st.slot for st in active]
         if self.sample_on_device:
-            ids = self._sample_rows(rows, None)
+            per_slot = [None] * self.max_batch
+            for st in active:
+                per_slot[st.slot] = (st.request, st.rng, len(st.out))
+            ids = self._sample_rows(rows, per_slot)
             picked = [ids[s] for s in slots]
         else:
             picked = self._sample_rows(
-                rows[slots], [(st.request, st.rng) for st in active])
+                rows[slots], [(st.request, st.rng, len(st.out))
+                              for st in active])
         t2 = time.perf_counter()
         self._step_timing[0] += t1 - t0
         self._step_timing[1] += t2 - t1

@@ -4,10 +4,12 @@
 sampler ``sample_token`` are the JAX package's (``repro.serve.sampling``)
 as they are: a request samples the same token stream alone or batched.
 
-The device path keeps only the greedy argmax.  The JAX package draws
-non-greedy rows on the device from threefry2x32 keys; until that
-generator is ported (ROADMAP A6) a non-greedy row on the device path
-raises instead of drawing different random numbers.
+The device sampler ``sample_tokens_device`` is the JAX package's too:
+per-row temperature, top-k through a full descending sort, and the
+Gumbel-max draw, each row keyed by
+``fold_in(fold_in(key(seed), uid), token_index)`` with the threefry2x32
+generator of ``core/rng.py``, so a row draws the JAX package's Gumbel
+noise (to a few ULPs) whatever its batch.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.core import rng as trng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,19 +50,35 @@ class SamplingParams:
         return self.temperature == 0.0
 
 
-def require_device_sampling(sp: SamplingParams):
-    """Raise for a non-greedy request: device sampling draws only argmax
-    until the threefry2x32 generator is ported."""
-    if not sp.greedy:
-        raise NotImplementedError(
-            "non-greedy sampling on the device needs the threefry2x32 "
-            "generator (ROADMAP A6); use sample_on_device=False for the "
-            "host sampler")
+def sample_tokens_device(logits, temperature, top_k, seed, uid,
+                         token_index, need_top_k: bool = True):
+    """Batched on-device sampling: (B, V) logits -> (B,) int32 ids.
 
-
-def sample_tokens_device(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy on-device sampling: (B, V) logits -> (B,) int32 ids."""
-    return torch.argmax(logits.float(), dim=-1).to(torch.int32)
+    Per-row (B,) tensors: temperature == 0 rows are greedy (argmax);
+    top_k == 0 means no truncation; each row's Gumbel noise comes from
+    ``fold_in(fold_in(key(seed), uid), token_index)``, so the draw is a
+    function of the request alone.  ``need_top_k`` False skips the
+    full-vocab sort (only valid when no row truncates)."""
+    logits = logits.float()
+    v = logits.shape[-1]
+    greedy_tok = torch.argmax(logits, dim=-1)
+    temperature = temperature.float()
+    safe_t = torch.where(temperature > 0, temperature,
+                         torch.ones_like(temperature))
+    z = logits / safe_t[:, None]
+    if need_top_k:
+        svals = torch.sort(z, dim=-1, descending=True).values
+        kth_idx = torch.clamp(top_k.long() - 1, 0, v - 1)
+        kth = torch.gather(svals, 1, kth_idx[:, None])
+        keep = (top_k <= 0)[:, None] | (z >= kth)
+        z = torch.where(keep, z, torch.full_like(z, -torch.inf))
+    seed = seed.long() & 0xFFFFFFFF
+    keys = torch.stack([torch.zeros_like(seed), seed], dim=-1)
+    keys = trng.fold_in(trng.fold_in(keys, uid.long()), token_index.long())
+    g = trng.gumbel(keys, (v,))
+    sampled_tok = torch.argmax(z + g, dim=-1)
+    return torch.where(temperature > 0, sampled_tok, greedy_tok).to(
+        torch.int32)
 
 
 def batch_need_top_k(samplings, vocab: int) -> bool:

@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")  # the port's optional dependency
 
+from repro_torch.kernels.mps_combine import ops as mops
 from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.quant_matmul import ops as qops
 from repro_torch.kernels.quant_matmul import ref as qref
@@ -162,3 +163,48 @@ def test_bf16_pools(cuda):
     want = pops.paged_prefill_ref(*args)
     torch.testing.assert_close(got[0, :16].float(), want[0, :16].float(),
                                rtol=1e-2, atol=1e-2)
+
+
+# the resnet18 search's weight shapes viewed as (C_out, C_in * kh * kw),
+# plus a ragged row (K % 4 != 0), a misaligned view and a row too long
+# for shared memory
+K4_SHAPES = [(64, 27), (64, 576), (128, 576), (128, 1152), (128, 64),
+             (256, 1152), (256, 2304), (256, 128), (512, 2304),
+             (512, 4608), (512, 256), (200, 512), (5, 61), (3, 60000)]
+
+
+@pytest.mark.parametrize("m,k", K4_SHAPES)
+def test_mps_combine_bitwise_and_backward(cuda, m, k):
+    """K4's forward equals its plain version bit for bit; its backward
+    (closed form, plain torch) agrees with autograd through the plain
+    version within rtol 1e-4 (the dprobs row sums run in another
+    order)."""
+    pw = (0, 2, 4, 8)
+    g = torch.Generator(device="cuda").manual_seed(m * 13 + k)
+    w = torch.randn(m, k, generator=g, device=cuda)
+    w[0, :3] = 0.0
+    probs = torch.softmax(torch.randn(m, 4, generator=g, device=cuda), -1)
+    before = mops.mps_combine_fwd.launches
+    got = mops.mps_combine_fwd(w, probs, pw)
+    torch.cuda.synchronize()
+    assert mops.mps_combine_fwd.launches == before + 1
+    assert torch.equal(got, mops.mps_combine_ref(w, probs, pw))
+    up = torch.randn(m, k, generator=g, device=cuda)
+    wk, pk = w.clone().requires_grad_(), probs.clone().requires_grad_()
+    (mops.mps_combine(wk, pk, pw) * up).sum().backward()
+    wr, pr = w.clone().requires_grad_(), probs.clone().requires_grad_()
+    (mops.mps_combine_ref(wr, pr, pw) * up).sum().backward()
+    for a, b in ((wk.grad, wr.grad), (pk.grad, pr.grad)):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * b.abs().max().item())
+
+
+def test_mps_combine_misaligned_view(cuda):
+    """A view that starts off a 16-byte boundary takes the scalar path
+    and stays bitwise."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    base = torch.randn(64 * 576 + 1, generator=g, device=cuda)
+    w = base[1:].view(64, 576)
+    probs = torch.softmax(torch.randn(64, 4, generator=g, device=cuda), -1)
+    assert torch.equal(mops.mps_combine_fwd(w, probs, (0, 2, 4, 8)),
+                       mops.mps_combine_ref(w, probs, (0, 2, 4, 8)))

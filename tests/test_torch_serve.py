@@ -81,23 +81,19 @@ def test_float_streams_equal_jax(world, cache, mode):
 
 @pytest.mark.parametrize("cache", ["dense", "paged"])
 def test_plan_streams_against_jax(world, cache):
-    """Plan-bound greedy streams.  Every prefill-sampled first token and
-    three of the four streams are identical to the JAX package's; the
-    21-token request diverges at its fourth token.  Cause (ROADMAP queue
-    3): f32 rounding differs between XLA's fused CPU kernels and torch in
-    a few bf16 activations of that prompt's prefill (98 of 1344 hidden
-    values, up to 0.031), and per-row int8 activation quantization turns
-    such a difference into another integer.  Teacher-forced logits stay
-    within ``test_torch_lm``'s bound."""
+    """Plan-bound greedy streams equal the JAX package's, all four
+    requests, dense and paged.  This needs XLA's numerics in the per-row
+    int8 activation quantization: under ``jax.jit`` the scale
+    ``absmax / 127`` is ``absmax * f32(1/127)`` (a division by a constant
+    becomes a multiplication by its reciprocal), and an ulp in the scale
+    can turn ``x / sx`` into another integer (ROADMAP queue 3)."""
     cfg, tp, prompts, ref = world
     plan = teng.synthetic_plan(cfg, tp, bits=None, seed=0)
     srv = _port(cfg, tp, cache, plan=plan)
     out = _serve(srv, TReq, TSP(**GREEDY), prompts)
     want, mem = ref["plan"]
-    assert all(out[i][0] == want[i][0] for i in range(len(LENS)))
     same = [np.array_equal(out[i], want[i]) for i in range(len(LENS))]
-    assert same == [True, True, True, False], same
-    assert np.array_equal(out[3][:3], want[3][:3])
+    assert same == [True, True, True, True], same
     if cache == "paged":
         assert {k: srv.stats["memory"][k] for k in PAGE_KEYS} == mem
 
