@@ -76,8 +76,7 @@ def effective_weight(w: torch.Tensor, gamma: torch.Tensor,
     if use_kernel and channel_axis == 0:
         from repro_torch.kernels.mps_combine import ops as mps_ops
         flat = mps_ops.mps_combine(w.reshape(w.shape[0], -1),
-                                   probs.contiguous(), precisions,
-                                   impl="kernel")
+                                   probs.contiguous(), precisions)
         return flat.reshape(w.shape)
     qs = quantizers.quantize_weights_multi(w, precisions, channel_axis)
     # reshape probs so that the channel dim broadcasts on `channel_axis`

@@ -13,15 +13,8 @@ plain torch ops, the scale held constant::
     dW[i, k]       = g[i, k] * sum_p probs[i, p] * (1{|r| < qmax_p}
                                                  + 0.5 * 1{|r| = qmax_p})
     dprobs[i, p]   = sum_k g[i, k] * Q_p(W)[i, k]
-
-``impl`` resolution, overridable for a block of calls by
-:func:`force_impl` (tests and measurement only): ``"kernel"`` (the
-default for CUDA tensors) goes through :func:`mps_combine_fwd`;
-``"ref"`` (the default for CPU tensors) through the plain version.
 """
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
@@ -31,33 +24,7 @@ from repro_torch.kernels.mps_combine import ref as _ref
 
 mps_combine_ref = _ref.mps_combine_ref
 
-_IMPLS = ("kernel", "ref")
-_impl_override: str | None = None
 MAX_PRECISIONS = 8
-
-
-def resolve_impl(impl: str | None = None, device=None) -> str:
-    if impl is None:
-        impl = _impl_override
-    if impl is None:
-        is_cuda = device is not None and torch.device(device).type == "cuda"
-        impl = "kernel" if is_cuda else "ref"
-    if impl not in _IMPLS:
-        raise ValueError(f"unknown mps_combine impl {impl!r} "
-                         f"(expected one of {_IMPLS})")
-    return impl
-
-
-@contextlib.contextmanager
-def force_impl(impl: str | None):
-    """Pin the implementation for every call in the block."""
-    global _impl_override
-    prev = _impl_override
-    _impl_override = resolve_impl(impl) if impl is not None else None
-    try:
-        yield
-    finally:
-        _impl_override = prev
 
 
 def _check(w, probs, precisions):
@@ -125,26 +92,22 @@ def _vjp_bwd(w, probs, precisions, g):
 
 class _MpsCombine(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, probs, precisions, impl):
+    def forward(ctx, w, probs, precisions):
         ctx.save_for_backward(w, probs)
         ctx.precisions = precisions
-        if impl == "ref":
-            return _ref.mps_combine_ref(w, probs, precisions)
         return mps_combine_fwd(w, probs, precisions)
 
     @staticmethod
     def backward(ctx, g):
         w, probs = ctx.saved_tensors
         dw, dprobs = _vjp_bwd(w, probs, ctx.precisions, g)
-        return dw, dprobs, None, None
+        return dw, dprobs, None
 
 
 def mps_combine(w: torch.Tensor, probs: torch.Tensor,
-                precisions: tuple[int, ...], impl: str | None = None
-                ) -> torch.Tensor:
+                precisions: tuple[int, ...]) -> torch.Tensor:
     """Effective weight ``sum_p probs[:, p] * Q_p(w)`` with the
     straight-through gradient.  w: (M, K) f32."""
     precisions = tuple(int(b) for b in precisions)
     _check(w, probs, precisions)
-    return _MpsCombine.apply(w, probs, precisions,
-                             resolve_impl(impl, w.device))
+    return _MpsCombine.apply(w, probs, precisions)

@@ -54,19 +54,45 @@ def _jax_to_np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def _trained_bn(params):
+    """``params`` with BN running statistics drawn from a seed, as a
+    trained network has them.  At init they are 0 and 1 and every bias is
+    0, so the folded biases are exactly 0; with 2-bit weights and
+    PACT-quantized inputs many pre-activations then sum to exactly 0, a
+    tie with PACT's lower bound whose 0.5 gradient turns on the
+    convolution's summation order (XLA's and oneDNN's differ in a few
+    elements per layer).  The tie's gradient itself is held in
+    ``test_torch_search.py``.  Float mode normalizes with the batch's
+    statistics and does not read these."""
+    rng = np.random.default_rng(1)
+    out = {}
+    for name, p in params.items():
+        p = dict(p)
+        if "bn" in p:
+            c = np.asarray(p["bn"]["mean"]).shape[0]
+            p["bn"] = dict(p["bn"],
+                           mean=jnp.asarray(rng.normal(0.0, 0.1, c),
+                                            jnp.float32),
+                           var=jnp.asarray(rng.uniform(0.5, 1.5, c),
+                                           jnp.float32))
+        out[name] = p
+    return out
+
+
 def _world(graph):
     """Both packages' graph, bridged parameters (raw and BN-folded),
     selection parameters and one batch, built once per graph."""
     if graph not in _WORLDS:
         build, spec_name, batch = GRAPHS[graph]
         g, tg = build(jcnn), build(tcnn)
-        jp = jax.jit(lambda k: jcnn.init_params(g, k))(jax.random.key(0))
+        jinit = jax.jit(lambda k: jcnn.init_params(g, k))(jax.random.key(0))
+        jp = _trained_bn(jinit)
         tp = cnn_params_from_jax(_jax_to_np(jp))
         jf = jcnn.fold_batchnorm(g, jp)
         mp = jcnn.init_mps_params(g, PW, PX)
         x, y = jsyn.class_batch(getattr(jsyn, spec_name), 0, batch)
         _WORLDS[graph] = dict(
-            g=g, tg=tg, batch=batch, x=x, y=y, mp=mp,
+            g=g, tg=tg, batch=batch, x=x, y=y, mp=mp, init=jinit,
             params={False: jp, True: jf},
             tparams={False: tp, True: tcnn.fold_batchnorm(tg, tp)},
             tmp=mps_params_from_jax(_jax_to_np(mp)))
@@ -79,7 +105,7 @@ def test_init_and_fold_match_jax(graph):
     within 4 ULPs); BN folding agrees to float32 rounding."""
     wd = _world(graph)
     tp = tcnn.init_params(wd["tg"], trng.key(0))
-    for k, p in wd["params"][False].items():
+    for k, p in wd["init"].items():
         _close(tp[k]["w"], p["w"], 1e-5)
         for leaf in ("b", "bn"):
             if leaf in p:

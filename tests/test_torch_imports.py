@@ -80,7 +80,7 @@ def test_unported_families_name_their_roadmap_item():
             lm.init_params(registry.get(arch), device="cpu")
 
 
-def test_device_sampling_is_greedy_only():
+def test_device_sampling_draws_deterministically():
     """Device sampling used to raise for temperature > 0 (ROADMAP A6);
     with the threefry2x32 generator ported it draws, and the draw is a
     function of the request alone (the same request twice gives the
