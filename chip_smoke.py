@@ -5,11 +5,11 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device  -- a CUDA device is required; prints its name and power limit.
-2. build   -- compiles the four CUDA kernels (one nvcc each, all at
+2. build   -- compiles the five CUDA kernels (one nvcc each, all at
               once) and prints ptxas' registers / shared memory / spills.
-3. kernels -- each kernel against its plain PyTorch version at its path's
-              full-width shapes (K1 and K4 bitwise; K2, K3 within 2e-5 in
-              f32; K4's backward within rtol 1e-4), plus one full-width
+3. kernels -- each kernel against its plain PyTorch version at its paths'
+              full-width shapes (K1, K4 and K5 bitwise; K2, K3 within 2e-5
+              in f32; K4's backward within rtol 1e-4), plus one full-width
               layer packed on the card vs on the CPU (byte-identical);
               then each kernel timed with CUDA events (L2 flushed before
               every launch) beside its plain version, its PyTorch
@@ -24,13 +24,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
               counts read around each run; 4 sampled requests (each draw
               held against the CPU's, one stream batched == solo); paged
               vs dense prefill logits agree.
-6. search  -- path 2: the paper's joint search on resnet18 at full width
+6. mamba   -- path 3: mamba2-780m at full width (random weights, seed 0)
+              served through a synthetic mixed-precision plan on the paged
+              backend (8 greedy requests of 33-2048 tokens, chunks 256,
+              150, 1 and 11), then float on the dense backend (4
+              requests); K5 launched 48 x admissions, K1 at least 6 x 48 x
+              (decode steps + admissions) and 0 when float, no attention
+              kernel; finite logits; two requests served alone give their
+              batched streams; one full-width layer's prefill on the card
+              (K5) against the same layer on the CPU (plain version),
+              float and plan-bound (K1 too); K1 bitwise against its plain
+              version on every precision group of that plan-bound layer.
+7. search  -- path 2: the paper's joint search on resnet18 at full width
               (Tiny-ImageNet shapes, 200 classes, batch 32, data made on
               the card) through Compressor.run([Warmup, JointSearch,
               Finetune]); K4's launch count read around the run must be
               21 weight nodes x search steps; finite losses; a plan with
               bits in pw and the classifier unpruned.
-7. report  -- one JSON line of kernels, the card's name and power limit,
+8. report  -- one JSON line of kernels, the card's name and power limit,
               and last the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -83,6 +94,26 @@ def time_ms(fn, n, flush):
     return sum(s.elapsed_time(e) for s, e in pairs) / n
 
 
+def device_ms(fn, n, flush, kernel):
+    """Mean device time of the CUDA kernels whose name holds ``kernel``
+    per call of ``fn``, read by ``torch.profiler`` over ``n`` calls with
+    the L2 overwritten before each: the kernel alone, without the host's
+    launch path that a CUDA-event interval around a call also holds."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    if us <= 0:
+        raise AssertionError(f"profiler saw no device time for {kernel}")
+    return us / n / 1e3
+
+
 def pool_case(rng, lens, *, h, hkv, d, ps, width, dtype, dev, s=None):
     """Pools with a NaN null page, random physical pages, block tables
     (a freed slot gets an all-null row) and queries."""
@@ -107,6 +138,10 @@ def pool_case(rng, lens, *, h, hkv, d, ps, width, dtype, dev, s=None):
             torch.as_tensor(tables, device=dev))
 
 
+K1_LLAMA = ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048))
+K1_MAMBA = ((1536, 3072), (1536, 128), (1536, 48), (3072, 1536), (1536, 37))
+
+
 def phase_kernels(dev, flush):
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.quant_matmul import ops as qops
@@ -119,30 +154,37 @@ def phase_kernels(dev, flush):
     rows = {}
 
     # -- K1: every main-path shape and width, bitwise ---------------------
+    # llama3.2-1b's projections at decode and a 512-token prefill; then
+    # mamba2-780m's (in_z / in_x 1536 -> 3072, in_b / in_c 1536 -> 128,
+    # in_dt 1536 -> 48, out_proj 3072 -> 1536) at decode and a 2048-token
+    # prefill, and a ragged group width
+    k1_cases = [(m, kk, n) for m in (8, 512)
+                for kk, n in K1_LLAMA] + [(m, kk, n) for m in (8, 2048)
+                                          for kk, n in K1_MAMBA]
     k1_err = 0.0
-    for m in (8, 512):
-        for kk, n in ((2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)):
-            for bits in (8, 4, 2):
-                qmax = 2 ** (bits - 1) - 1
-                xq = torch.randint(-127, 128, (m, kk), generator=g,
-                                   device=dev, dtype=torch.int8)
-                wq = torch.randint(-qmax, qmax + 1, (n, kk), generator=g,
-                                   device=dev, dtype=torch.int8)
-                sw = torch.rand(n, generator=g, device=dev) * 1e-3
-                sx = torch.ones((), device=dev)
-                got = qops.quant_matmul(xq, qref.pack_weights(wq, bits), sw,
-                                        sx, w_bits=bits)
-                torch.cuda.synchronize()
-                want = qref.quant_matmul_ref(xq, wq, sw, sx)
-                diff = (got - want).abs().max().item()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"K1 not bitwise at M={m} K={kk} N={n} bits={bits}: "
-                        f"max |diff| {diff}")
-                k1_err = max(k1_err, diff)
-    log("[kernels] K1 quant_matmul: bitwise equal to the int32 plain "
-        "version at M in {8, 512}, (K, N) in {(2048, 2048), (2048, 512), "
-        "(2048, 8192), (8192, 2048)}, bits 8/4/2")
+    for m, kk, n in k1_cases:
+        for bits in (8, 4, 2):
+            qmax = 2 ** (bits - 1) - 1
+            xq = torch.randint(-127, 128, (m, kk), generator=g,
+                               device=dev, dtype=torch.int8)
+            wq = torch.randint(-qmax, qmax + 1, (n, kk), generator=g,
+                               device=dev, dtype=torch.int8)
+            sw = torch.rand(n, generator=g, device=dev) * 1e-3
+            sx = torch.ones((), device=dev)
+            got = qops.quant_matmul(xq, qref.pack_weights(wq, bits), sw,
+                                    sx, w_bits=bits)
+            torch.cuda.synchronize()
+            want = qref.quant_matmul_ref(xq, wq, sw, sx)
+            diff = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K1 not bitwise at M={m} K={kk} N={n} bits={bits}: "
+                    f"max |diff| {diff}")
+            k1_err = max(k1_err, diff)
+    log(f"[kernels] K1 quant_matmul: bitwise equal to the int32 plain "
+        f"version at M in {{8, 512}} x (K, N) in {list(K1_LLAMA)} (llama) "
+        f"and M in {{8, 2048}} x (K, N) in {list(K1_MAMBA)} (mamba), bits "
+        f"8/4/2")
 
     # K1 timing at the decode shape of the widest projection, 4-bit
     m, kk, n, bits = 8, 2048, 8192, 4
@@ -177,7 +219,8 @@ def phase_kernels(dev, flush):
     bms, by = bound(nbytes, 2 * m * n * kk, "int8")
     rows["quant_matmul"] = dict(
         shape=f"M={m} K={kk} N={n} {bits}-bit", max_abs_err=k1_err,
-        ms=time_ms(k1, 50, flush), plain_ms=time_ms(k1_plain, 10, flush),
+        ms=time_ms(k1, 50, flush), device_ms=device_ms(k1, 50, flush, "qmv"),
+        plain_ms=time_ms(k1_plain, 10, flush),
         library_ms=time_ms(k1_lib, 50, flush), bound_ms=bms, bound_by=by)
     m2 = 512
     xq2 = torch.randint(-127, 128, (m2, kk), generator=g, device=dev,
@@ -185,14 +228,18 @@ def phase_kernels(dev, flush):
     wp0 = copies[0][0]
     ms512 = time_ms(lambda: qops.quant_matmul(xq2, wp0, sw, sx, w_bits=4),
                     20, flush)
+    dev512 = device_ms(lambda: qops.quant_matmul(xq2, wp0, sw, sx, w_bits=4),
+                       20, flush, "qmm")
     xb2 = xq2.to(torch.bfloat16)
     lib512 = time_ms(lambda: torch.matmul(xb2, deq[0].T), 20, flush)
     b512, by512 = bound(m2 * kk + n * kk // 2 + n * 4 + m2 * n * 4,
                         2 * m2 * n * kk, "int8")
-    rows["quant_matmul"].update(prefill_ms=ms512, prefill_library_ms=lib512,
+    rows["quant_matmul"].update(prefill_ms=ms512, prefill_device_ms=dev512,
+                                prefill_library_ms=lib512,
                                 prefill_bound_ms=b512)
     log(f"[kernels] K1 at prefill M=512 K=2048 N=8192 4-bit: "
-        f"{ms512:.4f} ms, library (bf16 torch.matmul on the dequantized "
+        f"{ms512:.4f} ms (device {dev512:.4f} ms), library (bf16 "
+        f"torch.matmul on the dequantized "
         f"weight) {lib512:.4f} ms (bound {b512:.4f} ms, {by512})")
 
     # -- K2: decode at the main path's shapes ------------------------------
@@ -239,6 +286,8 @@ def phase_kernels(dev, flush):
         max_abs_err=errs[torch.float32],
         ms=time_ms(lambda: pops.paged_attention_fwd(q, kp, vp, tb, pos), 50,
                    flush),
+        device_ms=device_ms(lambda: pops.paged_attention_fwd(
+            q, kp, vp, tb, pos), 50, flush, "paged_decode_kernel"),
         plain_ms=time_ms(lambda: pops.paged_attention_ref(q, kp, vp, tb,
                                                           pos), 5, flush),
         library_ms=time_ms(lambda: torch.nn.functional
@@ -272,6 +321,8 @@ def phase_kernels(dev, flush):
         max_abs_err=errs[torch.float32],
         ms=time_ms(lambda: pops.paged_prefill_fwd(q, kp, vp, tb, lens3),
                    50, flush),
+        device_ms=device_ms(lambda: pops.paged_prefill_fwd(
+            q, kp, vp, tb, lens3), 50, flush, "paged_prefill_kernel"),
         plain_ms=time_ms(lambda: pops.paged_prefill_ref(q, kp, vp, tb,
                                                         lens3), 5, flush),
         library_ms=time_ms(lambda: torch.nn.functional
@@ -282,10 +333,13 @@ def phase_kernels(dev, flush):
 
     # -- K4: every resnet18 search weight shape, bitwise; backward --------
     rows["mps_combine"] = phase_k4(dev, flush)
+    # -- K5: the mamba2-780m prefill's inter-chunk scan, bitwise -----------
+    rows["ssd_scan"] = phase_k5(dev, flush)
     for k, r in rows.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        log(f"[kernels] {k} at {r['shape']}: {r['ms']:.4f} ms, plain "
+        log(f"[kernels] {k} at {r['shape']}: {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f} ms), plain "
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
@@ -358,11 +412,68 @@ def phase_k4(dev, flush):
     return dict(shape=f"{m}x{k} f32, pw {K4_PW}", max_abs_err=fwd_err,
                 ms=time_ms(lambda: mops.mps_combine_fwd(*pick(), K4_PW), 50,
                            flush),
+                device_ms=device_ms(lambda: mops.mps_combine_fwd(
+                    *pick(), K4_PW), 50, flush, "mps_combine_kernel"),
                 plain_ms=time_ms(lambda: mops.mps_combine_ref(*pick(),
                                                               K4_PW),
                                  20, flush),
                 library_ms=None, bound_ms=bms, bound_by=by,
                 backward_max_abs_diff=err)
+
+
+K5_SHAPE = (48, 64, 128)      # mamba2-780m: heads, head_dim, state
+
+
+def phase_k5(dev, flush):
+    from repro_torch.kernels.ssd_scan import ops as sops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    h, p, n = K5_SHAPE
+
+    def case(c, zero_s0):
+        dec = torch.rand(c, h, generator=g, device=dev) * 0.7 + 0.3
+        s_in = torch.randn(c, h, p, n, generator=g, device=dev)
+        s0 = torch.zeros(h, p, n, device=dev) if zero_s0 else \
+            torch.randn(h, p, n, generator=g, device=dev)
+        return dec, s_in, s0
+
+    k5_err = 0.0
+    for c in (1, 2, 8, 509):
+        for zero_s0 in (True, False):
+            args = case(c, zero_s0)
+            prefix, final = sops.ssd_scan(*args)
+            torch.cuda.synchronize()
+            want_p, want_f = sops.ssd_scan_ref(*args)
+            err = max((prefix - want_p).abs().max().item(),
+                      (final - want_f).abs().max().item())
+            if not (torch.equal(prefix, want_p) and torch.equal(final,
+                                                                want_f)):
+                raise AssertionError(
+                    f"K5 not bitwise at C={c}, s0 "
+                    f"{'zero' if zero_s0 else 'random'}: max |diff| {err}")
+            k5_err = max(k5_err, err)
+            del args, prefix, final, want_p, want_f
+    log(f"[kernels] K5 ssd_scan: bitwise equal to the plain version at "
+        f"(C, {h}, {p}, {n}) for C in {{1, 2, 8, 509}}, s0 zero and "
+        f"random")
+    # timed at C = 8: a 2048-token prompt at chunk 256
+    c = 8
+    copies = [case(c, False) for _ in range(4)]
+    it = iter(range(10 ** 9))
+
+    def pick():
+        return copies[next(it) % len(copies)]
+
+    e = h * p * n
+    nbytes = 4 * (2 * c * e + 2 * e + c * h)
+    bms, by = bound(nbytes, 2 * c * e, "f32")
+    return dict(shape=f"C={c} H={h} P={p} N={n} f32", max_abs_err=k5_err,
+                ms=time_ms(lambda: sops.ssd_scan(*pick()), 50, flush),
+                device_ms=device_ms(lambda: sops.ssd_scan(*pick()), 50,
+                                    flush, "ssd_scan_kernel"),
+                plain_ms=time_ms(lambda: sops.ssd_scan_ref(*pick()), 20,
+                                 flush),
+                library_ms=None, bound_ms=bms, bound_by=by)
 
 
 def _ulps(a, b):
@@ -598,6 +709,214 @@ def phase_serve(dev, counters):
     return runs
 
 
+def _check_logits(server, seen):
+    """Hold every logits row the server samples from to be finite."""
+    inner = server._sample_rows
+
+    def checked(logits, rows):
+        if not torch.isfinite(logits[:, :server.cfg.vocab]).all():
+            raise AssertionError("non-finite logits in serving")
+        seen[0] += logits.shape[0]
+        return inner(logits, rows)
+
+    server._sample_rows = checked
+
+
+def _planned(layer):
+    """The plan-bound projections of one layer's mixer tree, by name."""
+    from repro_torch.nn import quantized as nnq
+    return {k: v["w"] for k, v in sorted(layer.items())
+            if isinstance(v, dict) and isinstance(v["w"], nnq.PackedLinear)}
+
+
+def phase_mamba_layer(cfg, p_dev, dev, label):
+    """One full-width mamba2-780m layer's prefill on the card (K5, and K1
+    for each plan-bound projection) against the same layer on the CPU
+    (the plain versions)."""
+    import copy
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.models import lm
+    from repro_torch.nn import blocks
+
+    def to_cpu(w):      # Module.cpu() moves in place: copy the card's first
+        return copy.deepcopy(w).cpu() if isinstance(w, torch.nn.Module) \
+            else w.cpu()
+
+    p_cpu = {k: {"w": to_cpu(v["w"])} if isinstance(v, dict) else v.cpu()
+             for k, v in p_dev.items()}
+    k1_per_call = sum(len(w.bits) for w in _planned(p_dev).values())
+    getw = lm._getw
+    g = torch.Generator(device=dev).manual_seed(6)
+    errs = []
+    for s in (2048, 509):
+        x = torch.randn(1, s, cfg.d_model, generator=g,
+                        device=dev).to(torch.bfloat16)
+        before = sops.ssd_scan.launches, qops.quant_matmul.launches
+        y, st = blocks.mamba2_layer(p_dev, x, cfg, mode="prefill",
+                                    effective_w=getw)
+        torch.cuda.synchronize()
+        n5 = sops.ssd_scan.launches - before[0]
+        n1 = qops.quant_matmul.launches - before[1]
+        if (n5, n1) != (1, k1_per_call):
+            raise AssertionError(f"mamba {label} layer on the card: {n5} "
+                                 f"K5 and {n1} K1 launches, need 1 and "
+                                 f"{k1_per_call}")
+        y_c, st_c = blocks.mamba2_layer(p_cpu, x.cpu(), cfg, mode="prefill",
+                                        effective_w=getw)
+        rel_y = float((y.cpu().float() - y_c.float()).norm()
+                      / y_c.float().norm())
+        rel_s = float((st["ssm"].cpu() - st_c["ssm"]).norm()
+                      / st_c["ssm"].norm())
+        if not (torch.isfinite(y).all() and torch.isfinite(st["ssm"]).all()
+                and rel_y <= 1e-2 and rel_s <= 1e-2):
+            raise AssertionError(f"mamba {label} layer card vs CPU at "
+                                 f"S={s}: relative L2 error y {rel_y}, "
+                                 f"state {rel_s} (bound 1e-2)")
+        errs.append((s, blocks.ssm_chunk(cfg, s), rel_y, rel_s))
+    log(f"[mamba] one full-width {label} layer's prefill, card (K5"
+        f"{', K1 x %d' % k1_per_call if k1_per_call else ''}) vs CPU "
+        f"(plain versions), relative L2 error of output / final state: "
+        + "; ".join(f"S={s} (chunk {q}) {ry:.3g} / {rs:.3g}"
+                    for s, q, ry, rs in errs)
+        + " (bound 1e-2: the bf16 projections round differently under "
+        "cuBLAS and on the CPU, one bf16 step is 3.9e-3, and a plan-bound "
+        "projection's int8 activation quantization can move one integer "
+        "step where its bf16 input differs)")
+    return errs
+
+
+def phase_mamba_k1(p_dev, dev):
+    """K1 against its plain version, bitwise, at every precision group of
+    one plan-bound mamba2-780m layer: the path's own packed weights and
+    ragged group widths, at decode (M = 8) and a 2048-token prefill.
+    Returns the largest |difference| seen."""
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    one = torch.ones((), device=dev)
+    err, seen = 0.0, []
+    for name, w in _planned(p_dev).items():
+        for bits, wq, sw in w.groups:
+            wq_plain = qref.unpack_weights(wq, bits, w.n_in)
+            for m in (8, 2048):
+                xq = torch.randint(-127, 128, (m, w.n_in), generator=g,
+                                   device=dev, dtype=torch.int8)
+                got = qops.quant_matmul(xq, wq, sw, one, w_bits=bits)
+                torch.cuda.synchronize()
+                want = qref.quant_matmul_ref(xq, wq_plain, sw, one)
+                diff = (got - want).abs().max().item()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"K1 not bitwise on {name}'s {bits}-bit group "
+                        f"({wq.shape[0]} x {w.n_in}) at M={m}: max |diff| "
+                        f"{diff}")
+                err = max(err, diff)
+            seen.append(f"{name} {bits}b x {wq.shape[0]}")
+    log(f"[mamba] K1 bitwise equal to its plain version at M in {{8, "
+        f"2048}} on every precision group of plan-bound layer 0: "
+        f"{', '.join(seen)}")
+    return err
+
+
+def phase_mamba(dev, counters):
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+
+    cfg = registry.get("mamba2-780m")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    plan = engine.synthetic_plan(cfg, params, bits=None, seed=0)
+    log(f"[mamba] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+        f"vocab {cfg.vocab}; {plan.summary()}")
+    phase_mamba_layer(cfg, lm._index(params["blocks"]["l0"]["mixer"], 0),
+                      dev, "float")
+    rng = np.random.default_rng(0)
+    lens = (2048, 1024, 512, 509, 300, 256, 64, 33)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in lens]
+    new_tokens = 64
+    runs, outs = {}, {}
+    for label, run_plan, cache, n_req in (("plan", plan, "paged", 8),
+                                          ("float", None, "dense", 4)):
+        server = engine.InferenceServer(
+            cfg, params, plan=run_plan, max_len=4096, max_batch=8,
+            cache=cache, page_size=16, device=dev)
+        seen = [0]
+        _check_logits(server, seen)
+        reqs = [Request(uid=i, prompt=prompts[i],
+                        sampling=SamplingParams(max_tokens=new_tokens))
+                for i in range(n_req)]
+        if label == "plan":
+            log(f"[mamba] init + apply_plan + server set-up "
+                f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        out = server.serve(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        got = {k: fn.launches for k, fn in counters.items()}
+        st = server.stats
+        for i in range(n_req):
+            if len(out[i]) != new_tokens:
+                raise AssertionError(f"mamba {label}: request {i} gave "
+                                     f"{len(out[i])} of {new_tokens} "
+                                     f"tokens")
+        steps, adm = st["decode_steps"], st["admitted"]
+        k1_min = 6 * cfg.n_layers * (steps + adm)
+        bad = [k for k, v in got.items() if k not in
+               ("ssd_scan", "quant_matmul") and v]
+        if (got["ssd_scan"] != cfg.n_layers * adm or bad
+                or (run_plan is not None and got["quant_matmul"] < k1_min)
+                or (run_plan is None and got["quant_matmul"])):
+            raise AssertionError(
+                f"mamba {label}: launches {got} after {steps} decode "
+                f"steps and {adm} admissions; need ssd_scan == "
+                f"{cfg.n_layers * adm}, quant_matmul "
+                f"{'>= %d' % k1_min if run_plan is not None else '== 0'}, "
+                f"no other kernel")
+        tok = sum(len(v) for v in out.values())
+        mem = st["memory"]
+        log(f"[mamba] {label} ({cache}): {n_req} requests (prompts "
+            f"{list(lens[:n_req])}) x {new_tokens} tokens, {steps} decode "
+            f"steps, {adm} admissions in {dt:.2f} s = {tok / dt:.1f} tok/s "
+            f"on {torch.cuda.get_device_name(dev)}; {seen[0]} logits rows "
+            f"finite; launches {got}; SSM state "
+            f"{lm.ssm_bytes_per_slot(cfg)} B a slot, pages in use at peak "
+            f"{mem.get('peak_pages_in_use', 0)}")
+        runs[label], outs[label] = got, (server, out)
+        if run_plan is not None:
+            layer = server.params["blocks"][0]["l0"]["mixer"]
+            runs["k1_err"] = phase_mamba_k1(layer, dev)
+            phase_mamba_layer(cfg, layer, dev, "plan-bound")
+
+    # batched == solo: the prime-length prompt (chunk 1) and the 33-token
+    # one (chunk 11), each served alone through the plan-bound server
+    server, batched = outs["plan"]
+    for i in (3, 7):
+        solo = server.serve([Request(uid=i, prompt=prompts[i],
+                                     sampling=SamplingParams(
+                                         max_tokens=new_tokens))])
+        if list(solo[i]) != list(batched[i]):
+            first = next(j for j, (a, b) in enumerate(zip(solo[i],
+                                                          batched[i]))
+                         if a != b)
+            raise AssertionError(f"mamba: request {i} alone diverges from "
+                                 f"its batched stream at token {first}")
+    log(f"[mamba] requests 3 (509 tokens) and 7 (33 tokens) alone give "
+        f"their batched plan-bound streams")
+    return runs
+
+
 class StepTimer:
     """Compressor hook: wall time of every step (synchronised), each
     step's metrics, per phase."""
@@ -739,6 +1058,7 @@ def main():
     from repro_torch.kernels.mps_combine import ops as mops
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.ssd_scan import ops as sops
 
     t0 = time.perf_counter()
     reports = build.build()
@@ -753,11 +1073,13 @@ def main():
     counters = {"quant_matmul": qops.quant_matmul,
                 "paged_attention": pops.paged_attention_fwd,
                 "paged_prefill": pops.paged_prefill_fwd,
-                "mps_combine": mops.mps_combine_fwd}
+                "mps_combine": mops.mps_combine_fwd,
+                "ssd_scan": sops.ssd_scan}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = phase_kernels(dev, flush)
     phase_rng(dev, flush)
     runs = phase_serve(dev, counters)
+    mamba_runs = phase_mamba(dev, counters)
     search_launches, _ = phase_search(dev, counters, smi)
 
     meta = {
@@ -769,6 +1091,8 @@ def main():
                           "src/repro/kernels/paged_attention/prefill.py:179"),
         "mps_combine": ("src/repro_torch/csrc/mps_combine.cu",
                         "src/repro/kernels/mps_combine/kernel.py:40"),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:39"),
     }
     kernels = []
     for k, r in rows.items():
@@ -776,9 +1100,17 @@ def main():
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep}
         if k == "mps_combine":      # path 2: the search
             row.update(launches=search_launches[k], path="search")
+        elif k == "ssd_scan":       # path 3: mamba serving
+            row.update(launches=mamba_runs["plan"][k],
+                       launches_float=mamba_runs["float"][k],
+                       path="serve_mamba")
         else:                       # path 1: serving
             row.update(launches=runs["plan"][k],
                        launches_float=runs["float"][k], path="serve")
+            if k == "quant_matmul":
+                row.update(launches_mamba=mamba_runs["plan"][k])
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       mamba_runs["k1_err"])
         row.update({
             "max_abs_err": r["max_abs_err"], "max_abs_diff": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -33,6 +33,7 @@ SIGNATURES = {
     "paged_prefill": ("paged_prefill_launch",
                       [_P] * 5 + [_I] * 11 + [_F, _F, _I, _P]),
     "mps_combine": ("mps_combine_launch", [_P] * 3 + [_I] * 3 + [_U64, _P]),
+    "ssd_scan": ("ssd_scan_launch", [_P] * 5 + [_I] * 3 + [_P]),
 }
 
 _LOADED: dict = {}

@@ -7,11 +7,18 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch llama3.2-1b-smoke --plan demo --cache paged --page-size 8
 
+    # pure SSM (Mamba-2): exact-length prefill, K5 on CUDA, no KV pages
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch mamba2-780m-smoke --plan demo --cache paged --prompt-len 33
+
 Weights are random (``lm.init_params``, seeded); ``--plan`` takes a saved
 CompressionPlan stem (either package's) or ``demo`` for a synthetic
 mixed-precision plan.  Temperature / top-k sampling runs on the device
 (threefry2x32 Gumbel noise, the JAX package's stream); ``--host-sampling``
-samples with the host's numpy generator instead.
+samples with the host's numpy generator instead.  ``--profile`` serves
+the same requests once more under ``torch.profiler`` and prints the
+device time by kernel and the device's busy share of that run (CUDA
+only).
 """
 from __future__ import annotations
 
@@ -34,6 +41,33 @@ def _load_plan(spec: str, cfg, params):
         return engine.synthetic_plan(cfg, params, bits=None, seed=0)
     from repro_torch.api.plan import CompressionPlan
     return CompressionPlan.load(spec)
+
+
+def _profile(server, reqs):
+    """Serve ``reqs`` again under the profiler; print the kernels by
+    device time and the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device time: the kernel rows only (an operator's row repeats the
+    # time of the kernels it launched)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in events)
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=25))
+    st = server.stats
+    print(f"[profile] {st['decode_steps']} decode steps and "
+          f"{st['admitted']} admissions in {wall:.3f} s; "
+          f"{sum(e.count for e in events)} kernel launches; device busy "
+          f"{dev_us / 1e6:.3f} s = {100 * dev_us / 1e6 / wall:.1f}% of the "
+          f"window (kernel time summed; the profiler slows the host)")
 
 
 def main(argv=None):
@@ -67,9 +101,15 @@ def main(argv=None):
     ap.add_argument("--host-sampling", action="store_true",
                     help="sample on the host per token (numpy "
                          "generator) instead of on the device")
+    ap.add_argument("--profile", action="store_true",
+                    help="serve the requests once more under "
+                         "torch.profiler (CUDA)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.profile and device.type != "cuda":
+        raise SystemExit("--profile traces the CUDA device; it needs "
+                         "--device cuda")
     cfg = registry.get(args.arch)
     params = lm.init_params(cfg, device=device)
     plan = None
@@ -109,13 +149,16 @@ def main(argv=None):
     if mem["backend"] == "paged":
         print(f"[serve] memory: peak {mem['peak_cache_bytes']} B "
               f"({mem['peak_pages_in_use']}/{mem['n_pages']} pages of "
-              f"{mem['bytes_per_page']} B) vs dense-equivalent "
+              f"{mem['bytes_per_page']} B, {mem['ssm_slot_bytes']} B of "
+              f"SSM state a slot) vs dense-equivalent "
               f"{mem['dense_equivalent_bytes']} B")
     else:
         print(f"[serve] memory: dense cache {mem['cache_bytes']} B")
     for i in range(min(args.requests, 4)):
         print(f"  req{i}: prompt={[int(t) for t in reqs[i].prompt[:6]]}... "
               f"completion={[int(t) for t in out[i][:8]]}")
+    if args.profile:
+        _profile(server, reqs)
 
 
 if __name__ == "__main__":

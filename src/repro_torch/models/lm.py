@@ -1,4 +1,4 @@
-"""The LM of ``repro.models.lm``, dense family.
+"""The LM of ``repro.models.lm``, dense and pure-SSM (Mamba-2) families.
 
 Parameters are a nested dict of tensors with the JAX package's tree and
 shapes: each super-block's weights are stacked ``(n_superblocks, ...)``
@@ -8,7 +8,7 @@ block trees instead, with :class:`~repro_torch.nn.quantized.PackedLinear`
 weights.  Either way the forward is a Python loop over super-blocks;
 caches keep the stacked ``(nsb, ...)`` layout and are updated in place.
 
-MoE, SSM, hybrid, enc-dec and frontend architectures raise
+MoE, hybrid, enc-dec and frontend architectures raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -26,8 +26,7 @@ from repro_torch.nn import quantized as nnq
 
 _FAMILY_ITEM = {
     "moe": "ROADMAP slice C1 (MoE)",
-    "ssm": "ROADMAP slice C2 (Mamba-2)",
-    "hybrid": "ROADMAP slice C2 (Mamba-2)",
+    "hybrid": "ROADMAP slice C1 (MoE; its Mamba-2 layers are ported)",
     "encdec": "ROADMAP slice C3 (enc-dec and VLM)",
     "vlm": "ROADMAP slice C3 (enc-dec and VLM)",
 }
@@ -35,13 +34,15 @@ _FAMILY_ITEM = {
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str           # attn | attn_local | attn_chunked
-    ffn: Optional[str]   # dense
+    mixer: str           # attn | attn_local | attn_chunked | mamba
+    ffn: Optional[str]   # dense | None
 
 
-def _require_dense(cfg: ArchConfig):
-    if (cfg.family != "dense" or cfg.is_moe or cfg.ssm_state
-            or cfg.is_encdec or cfg.frontend != "none"):
+def _require_ported(cfg: ArchConfig):
+    dense = cfg.family == "dense" and not cfg.ssm_state
+    ssm = cfg.family == "ssm" and cfg.is_ssm
+    if (not (dense or ssm) or cfg.is_moe or cfg.is_encdec
+            or cfg.frontend != "none"):
         item = _FAMILY_ITEM.get(cfg.family, "ROADMAP slice C")
         raise NotImplementedError(
             f"{cfg.name} (family={cfg.family}) is not ported yet; it comes "
@@ -50,7 +51,9 @@ def _require_dense(cfg: ArchConfig):
 
 def block_pattern(cfg: ArchConfig) -> tuple[LayerSpec, ...]:
     """Decoder super-block pattern; n_layers % len(pattern) == 0."""
-    _require_dense(cfg)
+    _require_ported(cfg)
+    if cfg.is_ssm:
+        return (LayerSpec("mamba", None),)
     if cfg.attn_pattern == "local_global":
         return (LayerSpec("attn_local", "dense"), LayerSpec("attn", "dense"))
     if cfg.attn_pattern == "chunked":
@@ -75,14 +78,22 @@ def padded_vocab(cfg: ArchConfig) -> int:
 # init
 # ---------------------------------------------------------------------------
 
+_MAMBA_PROJ = ("in_b", "in_c", "in_dt", "in_x", "in_z", "out_proj")
+
+
 def _plan_weights(cfg: ArchConfig):
     """``(layer, sub, name)`` of every plan-servable projection, in the
     JAX package's order (its ``_walk_plan_weights`` walks a template tree
     whose dict keys JAX sorts)."""
     out = []
-    for i, _ in enumerate(block_pattern(cfg)):
-        out += [(f"l{i}", "mixer", n) for n in ("wq", "wk", "wv", "wo")]
-        out += [(f"l{i}", "ffn", n) for n in ("w_gate", "w_up", "w_down")]
+    for i, spec in enumerate(block_pattern(cfg)):
+        if spec.mixer == "mamba":
+            out += [(f"l{i}", "mixer", n) for n in _MAMBA_PROJ]
+        else:
+            out += [(f"l{i}", "mixer", n) for n in ("wq", "wk", "wv", "wo")]
+        if spec.ffn is not None:
+            out += [(f"l{i}", "ffn", n)
+                    for n in ("w_gate", "w_up", "w_down")]
     return sorted(out)
 
 
@@ -112,7 +123,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
     params = {"embed": w((v, d), scale=0.02, stack=False)}
     blk = {}
-    for i, _ in enumerate(block_pattern(cfg)):
+    for i, spec in enumerate(block_pattern(cfg)):
+        if spec.mixer == "mamba":
+            blk[f"l{i}"] = {"norm1": vec((d,)),
+                            "mixer": _mamba_params(cfg, w, vec)}
+            continue
         mixer = {"wq": w((d, h * hd)), "wk": w((d, hkv * hd)),
                  "wv": w((d, hkv * hd)), "wo": w((h * hd, d))}
         if cfg.qk_norm:
@@ -126,6 +141,19 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     params["final_norm"] = vec((d,), stack=False)
     params["lm_head"] = w((d, v), scale=0.02, stack=False)
     return params
+
+
+def _mamba_params(cfg: ArchConfig, w, vec) -> dict:
+    """``lm._mamba_params``' tree: five input projections, the output
+    projection, three depthwise conv kernels and the per-head vectors."""
+    d, di, n, h, kk = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                       cfg.ssm_heads, cfg.ssm_conv)
+    return {"in_z": w((d, di)), "in_x": w((d, di)), "in_b": w((d, n)),
+            "in_c": w((d, n)), "in_dt": w((d, h)), "out_proj": w((di, d)),
+            "conv_x": vec((kk, di), 0.1), "conv_b": vec((kk, n), 0.1),
+            "conv_c": vec((kk, n), 0.1), "dt_bias": vec((h,)),
+            "a_log": vec((h,)), "d_skip": vec((h,), 1.0),
+            "ssm_norm": vec((di,))}
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +175,21 @@ def _index(tree, j: int):
     return tree[j]
 
 
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _store(dst, src):
+    """Copy a state tree into the cache slice ``dst`` in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _store(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
 def _embed_in(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
     # gather rows first, cast after: the same values as casting the table
     x = params["embed"]["w"][tokens.long()].to(torch.bfloat16)
@@ -165,7 +208,10 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     page pools (see :func:`init_paged_caches`); for a paged prefill
     ``pos`` holds the (B,) real prompt lengths.  Caches passed in are
     updated in place and returned; a dense prefill returns new stacked
-    ``(nsb, B, S, Hkv, D)`` caches.
+    caches: ``(nsb, B, S, Hkv, D)`` KV, and for a Mamba-2 layer its SSM
+    state ``(nsb, B, H, P, N)`` and conv windows ``(nsb, B, K-1, C)``.
+    A prefill given caches starts each Mamba-2 layer from their SSM
+    state, as the JAX package does.
     """
     pattern = block_pattern(cfg)
     kinds = {"attn": "full", "attn_local": "local",
@@ -189,24 +235,34 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
         new = {}
         for i, spec in enumerate(pattern):
             p = blk[f"l{i}"]
-            kv = None if caches is None else \
-                _index(caches[f"l{i}"]["kv"], j)
             hn = blocks.rmsnorm(s, p["norm1"], cfg.norm_eps).to(x.dtype)
-            y, kv_new = blocks.attention_layer(
-                p["mixer"], hn, cfg, kind=kinds[spec.mixer], mode=mode,
-                cache=kv, pos=pos, effective_w=_getw, tables=tables)
-            new[f"l{i}"] = {"kv": kv_new}
+            if spec.mixer == "mamba":
+                st = None if caches is None else \
+                    _index(caches[f"l{i}"]["mamba"], j)
+                y, st_new = blocks.mamba2_layer(
+                    p["mixer"], hn, cfg, mode=mode, state=st,
+                    effective_w=_getw)
+                if st is not None:
+                    _store(st, st_new)
+                new[f"l{i}"] = {"mamba": st_new}
+            else:
+                kv = None if caches is None else \
+                    _index(caches[f"l{i}"]["kv"], j)
+                y, kv_new = blocks.attention_layer(
+                    p["mixer"], hn, cfg, kind=kinds[spec.mixer], mode=mode,
+                    cache=kv, pos=pos, effective_w=_getw, tables=tables)
+                new[f"l{i}"] = {"kv": kv_new}
             s = x.float() + y.float()
             x = s.to(x.dtype)
+            if spec.ffn is None:
+                continue
             h2 = blocks.rmsnorm(s, p["norm2"], cfg.norm_eps).to(x.dtype)
             s = x.float() + blocks.ffn_swiglu(p["ffn"], h2,
                                               effective_w=_getw).float()
             x = s.to(x.dtype)
         out_caches.append(new)
     if caches is None:
-        caches = {ln: {"kv": {k: torch.stack(
-            [c[ln]["kv"][k] for c in out_caches]) for k in ("k", "v")}}
-            for ln in out_caches[0]}
+        caches = _stack(out_caches)
     if stacked:
         s = x
     x = blocks.rmsnorm(s, params["final_norm"], cfg.norm_eps).to(x.dtype)
@@ -237,37 +293,72 @@ def decode_step(cfg: ArchConfig, params, token_batch, caches, pos,
 # caches
 # ---------------------------------------------------------------------------
 
+def _mamba_state(cfg: ArchConfig, nsb: int, batch: int, dev) -> dict:
+    """Per-slot Mamba-2 state: f32 SSM state (nsb, batch, H, P, N) and
+    bf16 conv windows (nsb, batch, K-1, C), zeros."""
+    def mk(*shape, dtype=torch.bfloat16):
+        return torch.zeros((nsb, batch) + shape, dtype=dtype, device=dev)
+    k1 = cfg.ssm_conv - 1
+    return {"ssm": mk(cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      dtype=torch.float32),
+            "conv": {"x": mk(k1, cfg.d_inner), "b": mk(k1, cfg.ssm_state),
+                     "c": mk(k1, cfg.ssm_state)}}
+
+
+def _cache_tree(cfg: ArchConfig, batch: int, kv_shape: tuple, dev):
+    nsb = n_superblocks(cfg)
+    return {f"l{i}": {"mamba": _mamba_state(cfg, nsb, batch, dev)}
+            if spec.mixer == "mamba" else {"kv": {
+                k: torch.zeros((nsb,) + kv_shape, dtype=torch.bfloat16,
+                               device=dev) for k in ("k", "v")}}
+            for i, spec in enumerate(block_pattern(cfg))}
+
+
 def init_caches(cfg: ArchConfig, batch: int, seq_len: int, device=None):
-    """Dense KV caches, stacked (n_superblocks, batch, seq_len, Hkv, D)
-    per pattern slot, bf16 zeros."""
-    dev = resolve_device(device)
-    shape = (n_superblocks(cfg), batch, seq_len, cfg.hkv_eff, cfg.head_dim)
-    return {f"l{i}": {"kv": {
-        k: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-        for k in ("k", "v")}} for i, _ in enumerate(block_pattern(cfg))}
+    """Dense caches stacked ``(n_superblocks, batch, ...)`` per pattern
+    slot: bf16 KV ``(nsb, batch, seq_len, Hkv, D)`` for an attention
+    layer, the per-slot state of :func:`_mamba_state` for a Mamba-2
+    one."""
+    return _cache_tree(cfg, batch,
+                       (batch, seq_len, cfg.hkv_eff, cfg.head_dim),
+                       resolve_device(device))
 
 
 def init_paged_caches(cfg: ArchConfig, batch: int, page_size: int,
                       n_pages: int, device=None):
     """Paged KV pools ``(nsb, n_pages + 1, page_size, Hkv, D)`` per
-    pattern slot, bf16 zeros; physical page 0 is the reserved null page.
-    ``batch`` is unused by the dense family (no per-slot SSM state)."""
-    dev = resolve_device(device)
-    shape = (n_superblocks(cfg), n_pages + 1, page_size, cfg.hkv_eff,
-             cfg.head_dim)
-    return {f"l{i}": {"kv": {
-        k: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-        for k in ("k", "v")}} for i, _ in enumerate(block_pattern(cfg))}
+    attention slot, bf16 zeros; physical page 0 is the reserved null page.
+    SSM state is O(1) per request and keeps the dense per-slot layout
+    ``(nsb, batch, ...)``."""
+    return _cache_tree(cfg, batch,
+                       (n_pages + 1, page_size, cfg.hkv_eff, cfg.head_dim),
+                       resolve_device(device))
+
+
+def _n_layers(cfg: ArchConfig, mamba: bool) -> int:
+    pat = block_pattern(cfg)
+    return n_superblocks(cfg) * sum((s.mixer == "mamba") == mamba
+                                    for s in pat)
 
 
 def kv_bytes_per_token(cfg: ArchConfig) -> int:
-    """Bytes of KV cache one token position pins across all layers."""
-    return 2 * cfg.n_layers * cfg.hkv_eff * cfg.head_dim * 2
+    """Bytes of KV cache one token position pins across all attention
+    layers (0 for pure-SSM architectures)."""
+    return 2 * _n_layers(cfg, False) * cfg.hkv_eff * cfg.head_dim * 2
+
+
+def ssm_bytes_per_slot(cfg: ArchConfig) -> int:
+    """Bytes of recurrent (SSM + conv) state one decode slot pins (0 for
+    attention-only architectures)."""
+    per_layer = cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4 + \
+        (cfg.ssm_conv - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2
+    return _n_layers(cfg, True) * per_layer
 
 
 def dense_cache_bytes(cfg: ArchConfig, batch: int, seq_len: int) -> int:
     """Total bytes :func:`init_caches` pins for a dense decode pool."""
-    return kv_bytes_per_token(cfg) * batch * seq_len
+    return (kv_bytes_per_token(cfg) * seq_len + ssm_bytes_per_slot(cfg)) \
+        * batch
 
 
 # ---------------------------------------------------------------------------

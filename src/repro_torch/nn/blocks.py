@@ -1,15 +1,18 @@
-"""Transformer building blocks of the dense family (the dense subset of
+"""Building blocks of the dense and pure-SSM families (a subset of
 ``repro.nn.blocks``): linear (dense or plan-quantized), RMSNorm, RoPE,
-softcap, attention (dense and paged, prefill and decode) and the SwiGLU
-FFN.  The dtype flow mirrors the JAX package: bf16 activations and
-weights at the point of use, RMSNorm and RoPE angles in f32, attention
-scores in f32 with ``-1e30`` masking.
+softcap, attention (dense and paged, prefill and decode), the SwiGLU FFN
+and the Mamba-2 SSD mixer, whose prefill runs its inter-chunk recurrence
+on kernel K5 (``kernels/ssd_scan``).  The dtype flow mirrors the JAX
+package: bf16 activations and weights at the point of use, RMSNorm and
+RoPE angles in f32, attention scores and the SSM state in f32 with
+``-1e30`` masking.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.nn import quantized as nnq
 from repro_torch.nn.attention import (decode_attention, flash_attention,
                                       softcap)
@@ -17,7 +20,8 @@ from repro_torch.nn.attention import repeat_kv as _repeat_kv
 
 __all__ = ["linear", "rmsnorm", "rope", "softcap", "_repeat_kv",
            "flash_attention", "decode_attention", "paged_decode_attention",
-           "paged_prefill_attention", "attention_layer", "ffn_swiglu"]
+           "paged_prefill_attention", "attention_layer", "ffn_swiglu",
+           "silu", "mamba2_layer"]
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
@@ -170,11 +174,161 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
     return y, new_cache
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """The logistic written out as ``1 / (1 + exp(-x))``, each op rounded
+    to ``x``'s dtype: the JAX package's ``jax.nn.silu`` as XLA expands
+    it, which ``torch.sigmoid``'s single rounding is not."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def silu_f32(x: torch.Tensor) -> torch.Tensor:
+    """``silu(x).astype(float32)`` as the JAX package computes it under
+    ``jax.jit``: XLA does not round an elementwise op whose result is only
+    converted to float32, so the final product is taken in float32 from
+    the rounded logistic."""
+    return x.float() * (1 / (1 + torch.exp(-x))).float()
+
+
 def ffn_swiglu(p: dict, x: torch.Tensor, effective_w=None) -> torch.Tensor:
     getw = effective_w or (lambda pp: pp["w"])
     g = linear(x, getw(p["w_gate"]))
     u = linear(x, getw(p["w_up"]))
-    # silu with the logistic written out as 1 / (1 + exp(-g)), each op
-    # rounded to the activation dtype: the JAX package's jax.nn.silu as
-    # XLA expands it, which torch.sigmoid's single rounding is not
-    return linear(g * (1 / (1 + torch.exp(-g))) * u, getw(p["w_down"]))
+    return linear(silu(g) * u, getw(p["w_down"]))
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD mixer
+# ---------------------------------------------------------------------------
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, mode: str,
+                   conv_state):
+    """Depthwise causal conv.  x: (B, S, C); w: (K, C); ``conv_state``
+    (B, K-1, C) is read in decode mode only.  Returns (y, new_conv_state
+    (B, K-1, C)).  Prefill sums the K taps one rounded op at a time in
+    ``x``'s dtype, the JAX package's order."""
+    kk = w.shape[0]
+    w = w.to(x.dtype)
+    if mode == "decode":
+        window = torch.cat([conv_state.to(x.dtype), x], dim=1)   # (B, K, C)
+        y = torch.einsum("bkc,kc->bc", window, w)[:, None, :]
+        return y, window[:, 1:, :]
+    s = x.shape[1]
+    pad = torch.zeros((x.shape[0], kk - 1, x.shape[2]), dtype=x.dtype,
+                      device=x.device)
+    xp = torch.cat([pad, x], dim=1)
+    y = xp[:, :s] * w[0]
+    for i in range(1, kk):
+        y = y + xp[:, i:i + s] * w[i]
+    return y, xp[:, s:, :]
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``' formula, ``max(x, 0) + log1p(exp(-|x|))``."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def ssm_chunk(cfg, s: int) -> int:
+    """The prefill's chunk length: the largest divisor of ``s`` that is at
+    most ``cfg.ssm_chunk`` (a prime prompt length gives 1), as the JAX
+    package picks it for exact-length serving prefill."""
+    q = min(cfg.ssm_chunk, s)
+    while s % q:
+        q -= 1
+    return q
+
+
+def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
+                 state=None, effective_w=None):
+    """Mamba-2 (SSD) mixer.  x: (B, S, D).  mode: prefill | decode.
+
+    state: {"ssm": (B, H, P, N) f32, "conv": {"x", "b", "c"} of (B, K-1,
+    C)}; decode needs it, prefill reads only its ``ssm`` (as the carried
+    initial state; None starts from zeros).  Returns (y, new_state).
+
+    Prefill is the chunked SSD dual form in three passes: (a) batched
+    over every chunk, the terms that do not depend on the carried state
+    -- the intra-chunk output, each chunk's state contribution ``s_in``
+    and its decay; (b) the inter-chunk recurrence on kernel K5
+    (``kernels/ssd_scan``); (c) each chunk's output from the state before
+    it.  The JAX package runs the same recurrence inline, one chunk per
+    ``lax.scan`` step.
+    """
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    getw = effective_w or (lambda pp: pp["w"])
+    b, s, _ = x.shape
+    di, n, hd, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim, \
+        cfg.ssm_heads
+
+    z = linear(x, getw(p["in_z"]))                          # (B, S, di)
+    xs_pre = linear(x, getw(p["in_x"]))                     # (B, S, di)
+    bb_pre = linear(x, getw(p["in_b"]))                     # (B, S, N)
+    cc_pre = linear(x, getw(p["in_c"]))                     # (B, S, N)
+    dt = linear(x, getw(p["in_dt"]))                        # (B, S, H)
+
+    cst = None if state is None else state["conv"]
+    xs_pre, ncx = _causal_conv1d(xs_pre, p["conv_x"], mode,
+                                 None if cst is None else cst["x"])
+    bb_pre, ncb = _causal_conv1d(bb_pre, p["conv_b"], mode,
+                                 None if cst is None else cst["b"])
+    cc_pre, ncc = _causal_conv1d(cc_pre, p["conv_c"], mode,
+                                 None if cst is None else cst["c"])
+    new_conv = {"x": ncx, "b": ncb, "c": ncc}
+    # the JAX package reshapes xs between silu and the convert, and then
+    # XLA keeps the product's rounding (measured, bitwise)
+    xs_f = silu(xs_pre).float().reshape(b, s, nh, hd)       # (B, S, H, P)
+    bb_f = silu_f32(bb_pre)                                 # (B, S, N)
+    cc_f = silu_f32(cc_pre)                                 # (B, S, N)
+    dt = _softplus(dt + p["dt_bias"]).float()               # (B, S, H)
+    a = -torch.exp(p["a_log"].float())                      # (H,)
+    dta = dt * a                                            # (B, S, H) <= 0
+    d_skip = p["d_skip"].float()[:, None]                   # (H, 1)
+
+    if mode == "decode":
+        dec = torch.exp(dta[:, 0])                          # (B, H)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dt[:, 0], xs_f[:, 0],
+                           bb_f[:, 0])
+        s_new = dec[..., None, None] * state["ssm"] + upd
+        y = torch.einsum("bhpn,bn->bhp", s_new, cc_f[:, 0])
+        y = (y + d_skip * xs_f[:, 0]).reshape(b, 1, di)
+    else:
+        q = ssm_chunk(cfg, s)
+        nc = s // q
+        xs_c = xs_f.reshape(b, nc, q, nh, hd)
+        bb_c = bb_f.reshape(b, nc, q, n)
+        cc_c = cc_f.reshape(b, nc, q, n)
+        dt_c = dt.reshape(b, nc, q, nh)
+        # (a) every chunk at once: nothing here reads the carried state
+        lcum = torch.cumsum(dta.reshape(b, nc, q, nh), dim=2)   # (B,C,Q,H)
+        li = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]    # (B,C,Q,Q,H)
+        tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+        decay_qq = torch.where(tri[:, :, None], torch.exp(li), 0.0)
+        scores = torch.einsum("bcqn,bctn->bcqt", cc_c, bb_c)[..., None] \
+            * decay_qq                                          # (B,C,Q,Q,H)
+        y_intra = torch.einsum("bcqth,bcthp->bcqhp",
+                               scores * dt_c[:, :, None], xs_c)
+        dec_to_end = torch.exp(lcum[:, :, -1:, :] - lcum)      # (B,C,Q,H)
+        s_in = torch.einsum("bcthp,bctn->bchpn",
+                            (dec_to_end * dt_c)[..., None] * xs_c, bb_c)
+        chunk_decay = torch.exp(lcum[:, :, -1, :])             # (B,C,H)
+        # (b) the inter-chunk recurrence, kernel K5 over (C, B*H, P, N)
+        s0 = torch.zeros((b, nh, hd, n), dtype=torch.float32,
+                         device=x.device) if state is None else \
+            state["ssm"].float()
+        prefix, final = ssd_ops.ssd_scan(
+            chunk_decay.transpose(0, 1).reshape(nc, b * nh).contiguous(),
+            s_in.transpose(0, 1).reshape(nc, b * nh, hd, n).contiguous(),
+            s0.reshape(b * nh, hd, n).contiguous())
+        prefix = prefix.reshape(nc, b, nh, hd, n).transpose(0, 1)
+        s_new = final.reshape(b, nh, hd, n)
+        # (c) each chunk's output from the state before it
+        y_inter = torch.einsum("bchpn,bcqn->bcqhp", prefix, cc_c) \
+            * torch.exp(lcum)[..., None]
+        y = (y_intra + y_inter).reshape(b, s, nh, hd)
+        y = (y + d_skip * xs_f).reshape(b, s, di)
+
+    # the gate's product feeds the norm unrounded, as in silu_f32
+    y = y.to(x.dtype).float() * silu(z).float()
+    y = rmsnorm(y, p["ssm_norm"], cfg.norm_eps).to(x.dtype)
+    out = linear(y, getw(p["out_proj"]))
+    return out, {"ssm": s_new, "conv": new_conv}

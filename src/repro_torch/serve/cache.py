@@ -36,6 +36,19 @@ import torch
 from repro_torch.models import lm
 
 
+def _insert_slot(big, small, slot: int):
+    """Write a per-request tree (leaves ``(nsb, 1, ...)``) into row
+    ``slot`` of the resident tree (leaves ``(nsb, max_batch, ...)``),
+    from index 0 of every further axis."""
+    if isinstance(big, dict):
+        for k in big:
+            _insert_slot(big[k], small[k], slot)
+        return
+    idx = (slice(None), slice(slot, slot + 1)) + tuple(
+        slice(0, d) for d in small.shape[2:])
+    big[idx] = small.to(big.dtype)
+
+
 class PoolExhausted(RuntimeError):
     """The page pool cannot serve an allocation; the engine reacts by
     preempting a request back to the queue."""
@@ -154,13 +167,10 @@ class DenseCache(CacheBackend):
         handle.pages = []
 
     def insert(self, handle, prefill_caches):
-        """Write a request's prefill KV ``(nsb, 1, S, Hkv, D)`` into its
-        slot row, positions 0..S-1."""
-        for ln, c in self.caches.items():
-            for k, big in c["kv"].items():
-                small = prefill_caches[ln]["kv"][k]
-                big[:, handle.slot:handle.slot + 1, :small.shape[2]] = \
-                    small.to(big.dtype)
+        """Write a request's prefill caches into its slot row: KV
+        ``(nsb, 1, S, Hkv, D)`` at positions 0..S-1, Mamba-2 state
+        whole."""
+        _insert_slot(self.caches, prefill_caches, handle.slot)
 
     def memory_report(self) -> dict:
         return {
@@ -213,6 +223,7 @@ class PagedCache(CacheBackend):
 
         self.caches = lm.init_paged_caches(cfg, max_batch, self.page_size,
                                            self.n_pages, device)
+        self._has_kv = any("kv" in c for c in self.caches.values())
         self._table = np.zeros((max_batch, self.table_width), np.int32)
         # device copy of the block tables, patched entry by entry on
         # admission / page allocation / free; decode steps reuse it
@@ -223,11 +234,13 @@ class PagedCache(CacheBackend):
         self._handles: dict[int, CacheHandle] = {}
         self._peak_pages = 0
         self.bytes_per_page = lm.kv_bytes_per_token(cfg) * self.page_size
-        self.ssm_slot_bytes = 0
+        self.ssm_slot_bytes = lm.ssm_bytes_per_slot(cfg)
         self.dense_equivalent_bytes = lm.dense_cache_bytes(
             cfg, max_batch, max_len)
 
     def pages_for(self, n_tokens: int) -> int:
+        if not self._has_kv:
+            return 0               # pure SSM: state is per slot, no pages
         return -(-max(n_tokens, 0) // self.page_size)
 
     def _admission_pages(self, n_prompt: int) -> int:
@@ -269,7 +282,7 @@ class PagedCache(CacheBackend):
         # PoolExhausted raise leaves the handle untouched, so the
         # engine's preempt-and-retry loop can safely call append again
         nxt = handle.n_tokens + 1       # next cache write position
-        if nxt < self.max_len:
+        if nxt < self.max_len and self._has_kv:
             pg = nxt // self.page_size
             if pg >= len(handle.pages):
                 if not self._free:
@@ -318,16 +331,22 @@ class PagedCache(CacheBackend):
         return self.caches
 
     def insert(self, handle, prefill_caches):
-        """Commit a paged prefill: its pools are this backend's own,
-        already written in place, so this is a pointer swap."""
+        """Commit one admitted request's prefill.  KV pools are this
+        backend's own, already written in place, so they are a pointer
+        swap; Mamba-2 states ``(nsb, 1, ...)`` go into the slot's row."""
         for ln, c in self.caches.items():
-            c["kv"] = prefill_caches[ln]["kv"]
+            if "kv" in c:
+                c["kv"] = prefill_caches[ln]["kv"]
+            else:
+                _insert_slot(c["mamba"], prefill_caches[ln]["mamba"],
+                             handle.slot)
 
     def device_tables(self):
         return self._table_dev
 
     def memory_report(self) -> dict:
         in_use = self.pages_in_use
+        slots = len(self._handles)
         return {
             "backend": self.name,
             "page_size": self.page_size,
@@ -338,9 +357,12 @@ class PagedCache(CacheBackend):
             "peak_pages_in_use": self._peak_pages,
             "bytes_per_page": self.bytes_per_page,
             "ssm_slot_bytes": self.ssm_slot_bytes,
-            "cache_bytes_in_use": in_use * self.bytes_per_page,
-            "peak_cache_bytes": self._peak_pages * self.bytes_per_page,
-            "pool_bytes": (self.n_pages + 1) * self.bytes_per_page,
+            "cache_bytes_in_use": in_use * self.bytes_per_page
+            + slots * self.ssm_slot_bytes,
+            "peak_cache_bytes": self._peak_pages * self.bytes_per_page
+            + self.max_batch * self.ssm_slot_bytes,
+            "pool_bytes": (self.n_pages + 1) * self.bytes_per_page
+            + self.max_batch * self.ssm_slot_bytes,
             "dense_equivalent_bytes": self.dense_equivalent_bytes,
             "gather_transient_bytes": 0,
             "table_bytes": int(self._table_dev.numel()

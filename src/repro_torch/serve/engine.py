@@ -9,7 +9,9 @@
   KV cache, with the session API ``begin``/``submit``/``step``/
   ``cancel``/``end``/``serve``.  Paged prefill writes the prompt's KV
   straight into the page pool and runs kernel K3; decode runs K2 over the
-  live prefix of the block tables; every planned projection runs K1.
+  live prefix of the block tables; every planned projection runs K1.  A
+  Mamba-2 stack prefills at exact length, its inter-chunk recurrence on
+  kernel K5, and keeps one SSM state per slot instead of pages.
 
 The cache-backend contract is token-for-token invariance: dense and
 paged, solo, batched and preempted, with or without a plan, all emit the
@@ -181,6 +183,10 @@ class InferenceServer:
                                               self.max_len, self.device,
                                               **kwargs)
         self._paged = self.backend.name == "paged"
+        # a pure-SSM stack has no KV pages and takes the dense prefill step
+        # (exact length: its recurrent state would absorb padding) on
+        # either backend
+        self._paged_kv = self._paged and self.backend._has_kv
         self._prefill = steps.make_prefill_step(cfg)
         self._prefill_paged = steps.make_paged_prefill_step(cfg)
         self._decode = steps.make_decode_step(cfg)
@@ -449,11 +455,12 @@ class InferenceServer:
 
     def _run_prefill(self, backend, handle, tokens_np):
         """Prefill one admitted request into the backend; returns the
-        (1, V_pad) logits of its last real token.  Paged: the prompt is
-        padded to a q-chunk boundary and its KV written straight into
-        the request's pages (kernel K3 on CUDA)."""
+        (1, V_pad) logits of its last real token.  Paged KV: an
+        attention-only prompt is padded to a q-chunk boundary and its KV
+        written straight into the request's pages (kernel K3 on CUDA).
+        Every Mamba-2 layer runs its inter-chunk pass on kernel K5."""
         s = int(tokens_np.size)
-        if self._paged:
+        if self._paged_kv:
             q = min(paged_ops.PREFILL_Q, max(8, backend.page_size))
             spad = -(-s // q) * q
             padded = np.zeros((1, spad), np.int32)

@@ -16,6 +16,7 @@ from repro_torch.kernels.mps_combine import ops as mops
 from repro_torch.kernels.paged_attention import ops as pops
 from repro_torch.kernels.quant_matmul import ops as qops
 from repro_torch.kernels.quant_matmul import ref as qref
+from repro_torch.kernels.ssd_scan import ops as sops
 
 pytestmark = pytest.mark.gpu
 
@@ -208,3 +209,61 @@ def test_mps_combine_misaligned_view(cuda):
     probs = torch.softmax(torch.randn(64, 4, generator=g, device=cuda), -1)
     assert torch.equal(mops.mps_combine_fwd(w, probs, (0, 2, 4, 8)),
                        mops.mps_combine_ref(w, probs, (0, 2, 4, 8)))
+
+
+def _ssd_case(dev, c, h, p, n, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dec = torch.rand(c, h, generator=g) * 0.7 + 0.3
+    s_in = torch.randn(c, h, p, n, generator=g)
+    s0 = torch.randn(h, p, n, generator=g)
+    return dec.to(dev), s_in.to(dev), s0.to(dev)
+
+
+@pytest.mark.parametrize("c", [1, 2, 509])
+@pytest.mark.parametrize("h,p,n", [(1, 64, 128), (3, 64, 128),
+                                   (48, 64, 128), (3, 5, 7)])
+def test_ssd_scan_bitwise(cuda, c, h, p, n):
+    """K5 equals its plain version bit for bit at ragged head counts, one
+    chunk and a prime chunk count; (3, 5, 7) has P * N odd and takes the
+    one-float-a-thread path."""
+    dec, s_in, s0 = _ssd_case(cuda, c, h, p, n, seed=c * 100 + h)
+    before = sops.ssd_scan.launches
+    prefix, final = sops.ssd_scan(dec, s_in, s0)
+    torch.cuda.synchronize()
+    assert sops.ssd_scan.launches == before + 1
+    want_p, want_f = sops.ssd_scan_ref(dec, s_in, s0)
+    assert torch.equal(prefix, want_p) and torch.equal(final, want_f)
+    assert torch.equal(prefix[0], s0)
+
+
+def test_ssd_scan_misaligned_view(cuda):
+    """Views that start off a 16-byte boundary take the scalar path and
+    stay bitwise."""
+    dec, s_in, s0 = _ssd_case(cuda, 4, 3, 64, 128, seed=9)
+    base = torch.zeros(s_in.numel() + 1, device=cuda)
+    base[1:] = s_in.reshape(-1)
+    s_in_v = base[1:].view(s_in.shape)
+    got = sops.ssd_scan(dec, s_in_v, s0)
+    want = sops.ssd_scan_ref(dec, s_in, s0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_ssd_scan_dispatch_and_checks(cuda):
+    """A CPU tensor takes the plain version without a launch; a wrong
+    dtype, shape, layout or a device mix raises."""
+    dec, s_in, s0 = _ssd_case("cpu", 3, 2, 4, 4, seed=1)
+    before = sops.ssd_scan.launches
+    got = sops.ssd_scan(dec, s_in, s0)
+    assert sops.ssd_scan.launches == before
+    want = sops.ssd_scan_ref(dec, s_in, s0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    dc, sc, s0c = dec.to(cuda), s_in.to(cuda), s0.to(cuda)
+    with pytest.raises(TypeError):
+        sops.ssd_scan(dc, sc.double(), s0c)
+    with pytest.raises(ValueError):
+        sops.ssd_scan(dc, sc[:, :1], s0c)
+    with pytest.raises(ValueError):
+        sops.ssd_scan(dc, sc.transpose(2, 3), s0c.transpose(1, 2))
+    with pytest.raises(ValueError):
+        sops.ssd_scan(dc, sc, s0)
+    assert sops.ssd_scan.launches == before

@@ -32,6 +32,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.api.phases, repro_torch.api.compressor\n"
         "import repro_torch.kernels.mps_combine.ops\n"
         "import repro_torch.kernels.mps_combine.ref\n"
+        "import repro_torch.kernels.ssd_scan.ops\n"
         "import repro_torch.launch.search\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
@@ -73,7 +74,7 @@ def test_entry_points_refuse_cpu_fallback():
 def test_unported_families_name_their_roadmap_item():
     from repro_torch.configs import registry
     from repro_torch.models import lm
-    for arch, item in (("mamba2-780m-smoke", "C2"),
+    for arch, item in (("jamba-1.5-large-398b-smoke", "C1"),
                        ("llama4-scout-17b-a16e-smoke", "C1"),
                        ("seamless-m4t-medium-smoke", "C3")):
         with pytest.raises(NotImplementedError, match=item):
