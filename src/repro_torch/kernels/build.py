@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with one
 ``nvcc`` call into ``build/repro_torch/<name>-<hash>.so`` under the
-repository root (the hash covers the source and the flags, so an edited
-source is rebuilt).  Nothing is built or loaded at import: a wrapper calls
-:func:`load` at its first CUDA launch, and :func:`build` compiles several
-sources at once, one ``nvcc`` process each, all started together.
+repository root (the hash covers the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source is rebuilt).  Nothing
+is built or loaded at import: a wrapper calls :func:`load` at its first
+CUDA launch, and :func:`build` compiles several sources at once, one
+``nvcc`` process each, all started together.
 """
 from __future__ import annotations
 
@@ -23,17 +24,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U64 = ctypes.c_ulonglong
+_U64, _LL = ctypes.c_ulonglong, ctypes.c_longlong
 # source name -> (C entry point, its argument types); every entry point
 # returns the cudaError_t of its launch as an int
 SIGNATURES = {
-    "quant_matmul": ("qmm_launch", [_P] * 5 + [_I] * 5 + [_P]),
+    "quant_matmul": ("qmm_launch",
+                     [_P] * 5 + [_I] * 5 + [_P, _LL, _P, _LL, _P]),
     "paged_attention": ("paged_decode_launch",
                         [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P]),
     "paged_prefill": ("paged_prefill_launch",
                       [_P] * 5 + [_I] * 11 + [_F, _F, _I, _P]),
     "mps_combine": ("mps_combine_launch", [_P] * 3 + [_I] * 3 + [_U64, _P]),
     "ssd_scan": ("ssd_scan_launch", [_P] * 5 + [_I] * 3 + [_P]),
+}
+
+# the sources' other C functions, which launch nothing:
+# source name -> {symbol: (argument types, return type)}
+QUERIES = {
+    "quant_matmul": {"qmm_scratch_ints": ([_I], _LL)},
+    "paged_prefill": {"paged_prefill_bf16_dims": ([_P], _I)},
 }
 
 _LOADED: dict = {}
@@ -49,9 +58,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -83,17 +93,36 @@ def build(names=tuple(SIGNATURES)) -> dict:
     return reports
 
 
+def _library(name: str) -> ctypes.CDLL:
+    lib = _LOADED.get(name)
+    if lib is None:
+        build((name,))
+        lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+def _bind(name: str, symbol: str, argtypes, restype):
+    key = (name, symbol)
+    fn = _LOADED.get(key)
+    if fn is None:
+        fn = getattr(_library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _LOADED[key] = fn
+    return fn
+
+
 def load(name: str):
     """The C entry point of ``csrc/<name>.cu``, built on first use."""
-    fn = _LOADED.get(name)
-    if fn is None:
-        build((name,))
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _LOADED[name] = fn
-    return fn
+    symbol, argtypes = SIGNATURES[name]
+    return _bind(name, symbol, argtypes, ctypes.c_int)
+
+
+def query(name: str, symbol: str):
+    """Another C function of ``csrc/<name>.cu`` (see :data:`QUERIES`),
+    built on first use."""
+    argtypes, restype = QUERIES[name][symbol]
+    return _bind(name, symbol, argtypes, restype)
 
 
 def check(rc: int, what: str):

@@ -15,6 +15,8 @@
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import math
 
 import torch
@@ -27,8 +29,10 @@ paged_attention_view = _ref.paged_attention_view
 paged_prefill_ref = _ref.paged_prefill_ref
 paged_prefill_view = _ref.paged_prefill_view
 
-# widest q chunk the prefill kernel tiles with; the actual chunk is the
-# largest power-of-two divisor of the (padded) prompt length up to this
+# widest q chunk of the prefill kernel's float32 path (and of its plain
+# version); the actual chunk is the largest power-of-two divisor of the
+# (padded) prompt length up to this.  The bfloat16 path tiles queries
+# itself and only validates the chunk.
 PREFILL_Q = 16
 
 _IMPLS = ("kernel", "view")
@@ -58,6 +62,15 @@ def force_impl(impl: str | None):
         yield
     finally:
         _impl_override = prev
+
+
+@functools.cache
+def prefill_bf16_dims() -> tuple:
+    """The head dims the prefill kernel's bfloat16 (tensor-core) path is
+    built for, as ``csrc/paged_prefill.cu`` lists them (builds it)."""
+    out = (ctypes.c_int * 8)()
+    n = build.query("paged_prefill", "paged_prefill_bf16_dims")(out)
+    return tuple(out[:n])
 
 
 def prefill_q_chunk(s: int) -> int:
@@ -137,7 +150,12 @@ def paged_prefill_fwd(q, k_pool, v_pool, tables, lens, *, window: int = 0,
     with S a multiple of ``q_chunk`` (padded rows give garbage the
     caller drops); pools and tables as for decode; lens: (B,) real
     prompt lengths, accepted and unused (masking is by position).
-    Returns (B, S, H, D) in q's dtype."""
+    Returns (B, S, H, D) in q's dtype.
+
+    On the card the dtype picks the kernel: float32 runs on the CUDA
+    cores in q chunks of ``q_chunk``; bfloat16 runs on the tensor cores
+    with its own query tiling (``q_chunk`` is only validated) and needs
+    D in :func:`prefill_bf16_dims` and 16-byte aligned q and pools."""
     _check(q, k_pool, v_pool, tables, 2)
     b, s, h, d = q.shape
     q_chunk = min(q_chunk, s)
@@ -148,6 +166,14 @@ def paged_prefill_fwd(q, k_pool, v_pool, tables, lens, *, window: int = 0,
                                       window=window, chunked=chunked,
                                       cap=cap, q_chunk=q_chunk)
     dtype, tstride = _cuda_args(q, k_pool, v_pool, tables)
+    if q.dtype == torch.bfloat16:
+        dims = prefill_bf16_dims()
+        if d not in dims:
+            raise ValueError(f"bfloat16 paged prefill supports head dims "
+                             f"{dims}, got D={d}")
+        if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+            raise ValueError("bfloat16 paged prefill needs q and pools "
+                             "that start on a 16-byte boundary")
     _, ps, hkv, _ = k_pool.shape
     out = torch.empty_like(q)
     fn = build.load("paged_prefill")

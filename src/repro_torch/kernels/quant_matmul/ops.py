@@ -10,6 +10,25 @@ from repro_torch.kernels.quant_matmul import ref as _ref
 
 pack_weights = _ref.pack_weights
 
+_SCRATCH: dict = {}
+
+
+def _split_scratch(dev: torch.device, stream: int):
+    """The tile kernel's split-K scratch for launches on ``stream``: int32
+    tile sums and arrival counts, sized by the kernel itself
+    (``qmm_scratch_ints``, which ``qmm_launch`` checks) and made at the
+    first launch on that (device, stream).  Launches on one stream use it
+    in order, and the kernel leaves all of it at zero; two streams never
+    share one."""
+    key = (dev, stream)
+    pair = _SCRATCH.get(key)
+    if pair is None:
+        ints = build.query("quant_matmul", "qmm_scratch_ints")
+        pair = (torch.zeros(ints(0), dtype=torch.int32, device=dev),
+                torch.zeros(ints(1), dtype=torch.int32, device=dev))
+        _SCRATCH[key] = pair
+    return pair
+
 
 def quant_matmul(xq: torch.Tensor, wq_packed: torch.Tensor,
                  sw: torch.Tensor, sx: torch.Tensor, w_bits: int = 8
@@ -51,10 +70,12 @@ def quant_matmul(xq: torch.Tensor, wq_packed: torch.Tensor,
     if m == 0 or n == 0 or k == 0:
         return y.zero_()
     fn = build.load("quant_matmul")
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    part, count = _split_scratch(xq.device, stream)
     build.check(fn(xq.data_ptr(), wq_packed.data_ptr(), sw.data_ptr(),
                    sx.data_ptr(), y.data_ptr(), m, n, k, kp, w_bits,
-                   torch.cuda.current_stream(xq.device).cuda_stream),
-                "quant_matmul")
+                   part.data_ptr(), part.numel(), count.data_ptr(),
+                   count.numel(), stream), "quant_matmul")
     quant_matmul.launches += 1
     return y
 

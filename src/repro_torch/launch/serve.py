@@ -43,9 +43,16 @@ def _load_plan(spec: str, cfg, params):
     return CompressionPlan.load(spec)
 
 
+# the port's hand-written kernels, as the profiler names them
+_PORT_KERNELS = ("qmm_kernel", "qmv_kernel", "paged_decode_kernel",
+                 "paged_prefill_mma_kernel", "paged_prefill_kernel",
+                 "ssd_scan_kernel")
+
+
 def _profile(server, reqs):
     """Serve ``reqs`` again under the profiler; print the kernels by
-    device time and the device's busy share of the window."""
+    device time, each of the port's kernels' device time per admission
+    and per decode step, and the device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -63,6 +70,17 @@ def _profile(server, reqs):
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=25))
     st = server.stats
+    for name in _PORT_KERNELS:
+        hit = [e for e in events
+               if f"::{name}<" in e.key or f"::{name}(" in e.key]
+        if hit:
+            us = sum(e.self_device_time_total for e in hit)
+            print(f"[profile] {name}: {us / 1e3:.3f} ms device in "
+                  f"{sum(e.count for e in hit)} launches = "
+                  f"{us / 1e3 / max(st['admitted'], 1):.3f} ms an "
+                  f"admission (of {st['admitted']}) or "
+                  f"{us / 1e3 / max(st['decode_steps'], 1):.3f} ms a "
+                  f"decode step (of {st['decode_steps']})")
     print(f"[profile] {st['decode_steps']} decode steps and "
           f"{st['admitted']} admissions in {wall:.3f} s; "
           f"{sum(e.count for e in events)} kernel launches; device busy "

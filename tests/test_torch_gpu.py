@@ -104,6 +104,101 @@ def test_quant_matmul_bitwise(cuda, bits, m, k, n):
     assert torch.equal(got, want)
 
 
+def _k1_cases(n=27, seed=14):
+    """A fixed sample of M x K x N x bits for the tensor-core tiles: every
+    M, K, N and width appears, unaligned rows (K = 37, 100) included."""
+    ms = (1, 9, 16, 17, 64, 65, 129, 512, 2048)
+    ks = (37, 100, 1536, 2048, 8192)
+    ns = (9, 37, 128, 1236, 3072)
+    rng = np.random.default_rng(seed)
+    pm, pk, pn = (rng.permutation(n) for _ in range(3))
+    return [(ms[pm[i] % len(ms)], ks[pk[i] % len(ks)], ns[pn[i] % len(ns)],
+             (8, 4, 2)[i % 3]) for i in range(n)]
+
+
+def _k1_operands(dev, m, k, n, bits, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qmax = 2 ** (bits - 1) - 1
+    per = 8 // bits
+    xq = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-qmax - 1, qmax + 1, (n, -(-k // per) * per),
+                       generator=g, device=dev, dtype=torch.int8)
+    wq[:, k:] = 0
+    sw = torch.rand(n, generator=g, device=dev) * 0.01
+    return xq, wq, sw, torch.full((), 0.75, device=dev)
+
+
+@pytest.mark.parametrize("m,k,n,bits", _k1_cases())
+def test_quant_matmul_tiles_bitwise(cuda, m, k, n, bits):
+    """K1's tensor-core tiles equal the int32-exact plain version bit for
+    bit at ragged M, N and K (zero-filled inside the kernel), for every
+    width; M <= 8 with unaligned rows also takes the tiles."""
+    xq, wq, sw, sx = _k1_operands(cuda, m, k, n, bits, seed=m * 31 + k + n)
+    before = qops.quant_matmul.launches
+    got = qops.quant_matmul(xq, qref.pack_weights(wq, bits), sw, sx,
+                            w_bits=bits)
+    torch.cuda.synchronize()
+    assert qops.quant_matmul.launches == before + 1
+    assert torch.equal(got, qref.quant_matmul_ref(xq, wq[:, :k], sw, sx))
+
+
+def test_quant_matmul_split_k_repeated(cuda):
+    """Grids under half a wave split K over several blocks whose partial
+    sums the tile's last block adds; interleaved and repeated calls (one
+    tile split 8 ways, four tiles 6 ways, an unsplit grid) stay bitwise,
+    so every launch leaves the arrival counts at zero."""
+    shapes = [(17, 8192, 37, 4), (512, 1536, 48, 2), (2048, 1536, 1236, 8),
+              (65, 2048, 128, 8)]
+    cases = [(_k1_operands(cuda, *shape, seed=i), shape)
+             for i, shape in enumerate(shapes)]
+    for _ in range(3):
+        for (xq, wq, sw, sx), (m, k, n, bits) in cases:
+            got = qops.quant_matmul(xq, qref.pack_weights(wq, bits), sw,
+                                    sx, w_bits=bits)
+            assert torch.equal(got, qref.quant_matmul_ref(xq, wq[:, :k],
+                                                          sw, sx))
+
+
+def test_quant_matmul_split_k_two_streams(cuda):
+    """Split-K launches on two streams at once each use their own
+    stream's scratch, so their partial sums and counts never mix."""
+    shapes = [(17, 8192, 37, 4), (512, 1536, 48, 2)]
+    cases = [(_k1_operands(cuda, *shape, seed=10 + i), shape)
+             for i, shape in enumerate(shapes)]
+    streams = [torch.cuda.Stream(cuda) for _ in shapes]
+    torch.cuda.synchronize()
+    outs = [[] for _ in shapes]
+    for _ in range(4):
+        for i, ((xq, wq, sw, sx), (m, k, n, bits)) in enumerate(cases):
+            with torch.cuda.stream(streams[i]):
+                outs[i].append(qops.quant_matmul(
+                    xq, qref.pack_weights(wq, bits), sw, sx, w_bits=bits))
+    torch.cuda.synchronize()
+    for ((xq, wq, sw, sx), (m, k, n, bits)), got in zip(cases, outs):
+        want = qref.quant_matmul_ref(xq, wq[:, :k], sw, sx)
+        assert all(torch.equal(y, want) for y in got)
+
+
+@pytest.mark.parametrize("x_off,w_off", [(3, 5), (4, 8), (0, 4), (1, 0)])
+def test_quant_matmul_misaligned_views(cuda, x_off, w_off):
+    """Operands whose storage starts off a 16-byte boundary take the
+    kernel's 4-byte or byte copies and stay bitwise."""
+    m, k, n, bits = 65, 1536, 130, 4
+    xq, wq, sw, sx = _k1_operands(cuda, m, k, n, bits, seed=x_off + w_off)
+    packed = qref.pack_weights(wq, bits)
+    xb = torch.zeros(m * k + x_off, dtype=torch.int8, device=cuda)
+    xb[x_off:] = xq.reshape(-1)
+    wb = torch.zeros(packed.numel() + w_off, dtype=torch.int8, device=cuda)
+    wb[w_off:] = packed.reshape(-1)
+    xv = xb[x_off:].view(m, k)
+    wv = wb[w_off:].view(packed.shape)
+    assert xv.is_contiguous() and wv.is_contiguous()
+    got = qops.quant_matmul(xv, wv, sw, sx, w_bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qref.quant_matmul_ref(xq, wq, sw, sx))
+
+
 @pytest.mark.parametrize("hkv", [1, 2, 4])
 @pytest.mark.parametrize("window,chunked,cap", [
     (0, False, 0.0), (6, False, 0.0), (8, True, 0.0), (0, False, 30.0)])
@@ -164,6 +259,88 @@ def test_bf16_pools(cuda):
     want = pops.paged_prefill_ref(*args)
     torch.testing.assert_close(got[0, :16].float(), want[0, :16].float(),
                                rtol=1e-2, atol=1e-2)
+
+
+K3_VARIANTS = [(0, False, 0.0), (6, False, 0.0), (8, True, 0.0),
+               (0, False, 30.0)]
+
+
+@pytest.mark.parametrize("window,chunked,cap", K3_VARIANTS)
+@pytest.mark.parametrize("ps", [1, 8, 16])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+def test_paged_prefill_bf16_vs_plain(cuda, hd, ps, window, chunked, cap):
+    """K3's tensor-core path (bf16 pools) within rtol = atol = 1e-2 of its
+    plain version (f32 math) on the real rows, with a NaN null page and
+    tokens gathered through tables of 1-, 8- and 16-token pages."""
+    rng = np.random.default_rng(hd + ps)
+    lens, s = (48, 30, 7), 48
+    q, k, v, t, _ = make_case(rng, lens, h=8, hkv=2, hd=hd, ps=ps,
+                              n_pb=-(-s // ps), poison_null=True, s=s)
+    args = _on(cuda, (q, k, v, t, np.asarray(lens, np.int32)),
+               torch.bfloat16)
+    kw = dict(window=window, chunked=chunked, cap=cap)
+    before = pops.paged_prefill_fwd.launches
+    got = pops.paged_prefill_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert pops.paged_prefill_fwd.launches == before + 1
+    want = pops.paged_prefill_ref(*args, **kw)
+    for bi, n in enumerate(lens):      # rows past lens are garbage
+        assert torch.isfinite(got[bi, :n]).all()
+        torch.testing.assert_close(got[bi, :n].float(), want[bi, :n].float(),
+                                   rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("window,chunked,cap", K3_VARIANTS)
+def test_paged_prefill_bf16_chunk_invariant(cuda, window, chunked, cap):
+    """The bf16 path tiles queries itself: every q chunk gives the same
+    bits, padded rows included."""
+    rng = np.random.default_rng(11)
+    q, k, v, t, _ = make_case(rng, (16, 32, 11), h=8, hkv=2, hd=64,
+                              poison_null=True, s=32)
+    args = _on(cuda, (q, k, v, t, np.asarray((16, 32, 11), np.int32)),
+               torch.bfloat16)
+    kw = dict(window=window, chunked=chunked, cap=cap)
+    outs = [pops.paged_prefill_fwd(*args, q_chunk=qc, **kw)
+            for qc in (1, 2, 4, 8, 16)]
+    torch.cuda.synchronize()
+    for o in outs[:-1]:
+        assert torch.equal(o, outs[-1])
+
+
+def test_paged_prefill_bf16_main_shape(cuda):
+    """llama3.2-1b's prefill shape: one 512-token prompt, 32 query heads
+    over 8 KV heads of 64, 16-token pages, bf16."""
+    rng = np.random.default_rng(12)
+    q, k, v, t, _ = make_case(rng, (512,), h=32, hkv=8, hd=64, ps=16,
+                              n_pb=64, poison_null=True, s=512)
+    args = _on(cuda, (q, k, v, t, np.asarray([512], np.int32)),
+               torch.bfloat16)
+    got = pops.paged_prefill_fwd(*args)
+    torch.cuda.synchronize()
+    want = pops.paged_prefill_ref(*args)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_paged_prefill_bf16_checks(cuda):
+    """A head dim the tensor-core path is not built for, or a pool that
+    starts off a 16-byte boundary, raises before any launch."""
+    rng = np.random.default_rng(13)
+    q, k, v, t, _ = make_case(rng, (16,), hd=48, s=16)
+    args = _on(cuda, (q, k, v, t, np.asarray([16], np.int32)),
+               torch.bfloat16)
+    before = pops.paged_prefill_fwd.launches
+    with pytest.raises(ValueError, match="head dims"):
+        pops.paged_prefill_fwd(*args)
+    q, k, v, t, _ = make_case(rng, (16,), hd=16, s=16)
+    q, k, v, t, ln = _on(cuda, (q, k, v, t, np.asarray([16], np.int32)),
+                         torch.bfloat16)
+    base = torch.zeros(k.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    base[1:] = k.reshape(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        pops.paged_prefill_fwd(q, base[1:].view(k.shape), v, t, ln)
+    assert pops.paged_prefill_fwd.launches == before
 
 
 # the resnet18 search's weight shapes viewed as (C_out, C_in * kh * kw),
