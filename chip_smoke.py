@@ -16,8 +16,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
               CUDA events and the profiler (L2 flushed before every
               launch) beside its plain version, its PyTorch yardstick
               where one call computes the same function, and its bound;
-              K1's tiles at both serving paths' prefill shapes, 4- and
-              8-bit, beside bf16 torch.matmul and torch._int_mm.
+              K1's decode layout at 8-, 4- and 2-bit and at mamba2-780m's
+              decode shapes beside bf16 torch.matmul; K1's tiles at both
+              serving paths' prefill shapes, 4- and 8-bit, beside bf16
+              torch.matmul and torch._int_mm; K2 (both of its kernels) at
+              the serving mix's lengths and at 8 slots of 1000 tokens
+              beside SDPA.
 4. rng     -- the threefry2x32 generator on the card against the CPU
               (bits, uniforms, randints bit-equal; normal, gumbel within
               stated ULPs); the device sampler's cost per decode step.
@@ -163,6 +167,49 @@ K1_RAGGED = ((1, 100, 37), (9, 1536, 1236), (17, 37, 9), (65, 2048, 128),
 K1_PREFILL = (("llama", 512, 2048, 8192), ("mamba", 2048, 1536, 3072))
 
 
+def sdpa_kv(kp, vp, tb, h, hkv, d):
+    """The pools' pages gathered through the tables into dense (B, H, T,
+    D) K and V, each KV head repeated over its query group: SDPA's
+    operands."""
+    def one(pool):
+        x = pool[tb.long()].reshape(tb.shape[0], -1, hkv, d).transpose(1, 2)
+        return x.repeat_interleave(h // hkv, 1).contiguous()
+    return one(kp), one(vp)
+
+
+def k2_timing(dev, flush, pools, pos, lens, h, hkv, d, ps):
+    """K2 timed beside its plain version and SDPA on the gathered K/V
+    (repeated over the group, masked past each slot's length); the
+    device time sums both of K2's kernels (split and merge)."""
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    q, kp, vp, tb = pools
+    live_tok = sum(lens)
+    live_pages = sum(-(-x // ps) for x in lens)
+    kd, vd = sdpa_kv(kp, vp, tb, h, hkv, d)
+    key_pos = torch.arange(kd.shape[2], device=dev)
+    mask = (key_pos[None, :] <= pos[:, None].long())[:, None, None, :]
+    qd = q[:, :, None, :]
+    nb = 2 * (q.numel() * 2) + 2 * live_pages * ps * hkv * d * 2 + \
+        tb.numel() * 4 + pos.numel() * 4
+    bms, by = bound(nb, 4 * h * d * live_tok, "bf16")
+
+    def kern():
+        return pops.paged_attention_fwd(q, kp, vp, tb, pos)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask)
+
+    return dict(ms=time_ms(kern, 50, flush),
+                device_ms=device_ms(kern, 50, flush, "paged_decode"),
+                plain_ms=time_ms(lambda: pops.paged_attention_ref(
+                    q, kp, vp, tb, pos), 5, flush),
+                library_ms=time_ms(lib, 50, flush),
+                library_device_ms=device_ms(lib, 50, flush),
+                bound_ms=bms, bound_by=by)
+
+
 def phase_kernels(dev, flush):
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.kernels.quant_matmul import ops as qops
@@ -259,6 +306,7 @@ def phase_kernels(dev, flush):
         library_ms=time_ms(k1_lib, 50, flush),
         library_device_ms=device_ms(k1_lib, 50, flush), bound_ms=bms,
         bound_by=by)
+    rows["quant_matmul"]["decode"] = phase_k1_decode(dev, flush, g)
     rows["quant_matmul"]["prefill"] = phase_k1_prefill(dev, flush, g)
     p0 = rows["quant_matmul"]["prefill"][0]      # llama, 4-bit
     rows["quant_matmul"].update(
@@ -286,42 +334,32 @@ def phase_kernels(dev, flush):
     log(f"[kernels] K2 paged decode: max |diff| {errs[torch.float32]:.3g} "
         f"(f32, bound 2e-5), {errs[torch.bfloat16]:.3g} (bf16, bound 1e-2 "
         f"= one bf16 rounding of O(1) outputs); NaN null page unread")
-    # timed in bf16, the main path's type
-    live_tok = sum(lens)
-    live_pages = sum(-(-x // ps) for x in lens)
-
-    def sdpa_inputs(q, kp, vp, tb):
-        kk_ = kp[tb.long()].reshape(tb.shape[0], -1, hkv, d).transpose(1, 2)
-        vv_ = vp[tb.long()].reshape(tb.shape[0], -1, hkv, d).transpose(1, 2)
-        kk_ = kk_.repeat_interleave(h // hkv, 1)
-        vv_ = vv_.repeat_interleave(h // hkv, 1)
-        return kk_.contiguous(), vv_.contiguous()
-
-    kd, vd = sdpa_inputs(q, kp, vp, tb)
-    key_pos = torch.arange(kd.shape[2], device=dev)
-    mask = (key_pos[None, :] <= pos[:, None].long())[:, None, None, :]
-    qd = q[:, :, None, :]
-    nb = 2 * (q.numel() * 2) + 2 * live_pages * ps * hkv * d * 2 + \
-        tb.numel() * 4 + pos.numel() * 4
-    bms, by = bound(nb, 4 * h * d * live_tok, "bf16")
+    # timed in bf16, the main path's type, at the serving mix's lengths
+    # and at a uniform long table (8 slots of 1000 tokens)
     rows["paged_attention"] = dict(
         shape=f"B=8 H=32 Hkv=8 D=64 page 16, table 64, lens {lens}, bf16",
         max_abs_err=errs[torch.float32],
-        ms=time_ms(lambda: pops.paged_attention_fwd(q, kp, vp, tb, pos), 50,
-                   flush),
-        device_ms=device_ms(lambda: pops.paged_attention_fwd(
-            q, kp, vp, tb, pos), 50, flush, "paged_decode_kernel"),
-        plain_ms=time_ms(lambda: pops.paged_attention_ref(q, kp, vp, tb,
-                                                          pos), 5, flush),
-        library_ms=time_ms(lambda: torch.nn.functional
-                           .scaled_dot_product_attention(qd, kd, vd,
-                                                         attn_mask=mask),
-                           50, flush),
-        library_device_ms=device_ms(lambda: torch.nn.functional
-                                    .scaled_dot_product_attention(
-                                        qd, kd, vd, attn_mask=mask),
-                                    50, flush),
-        bound_ms=bms, bound_by=by)
+        **k2_timing(dev, flush, (q, kp, vp, tb), pos, lens, h, hkv, d, ps))
+    long_lens = [1000] * 8
+    lq, lkp, lvp, ltb = pool_case(np.random.default_rng(15), long_lens,
+                                  h=h, hkv=hkv, d=d, ps=ps, width=width,
+                                  dtype=torch.bfloat16, dev=dev)
+    lpos = torch.full((8,), 999, dtype=torch.int32, device=dev)
+    got = pops.paged_attention_fwd(lq, lkp, lvp, ltb, lpos)
+    err = (got.float() - pops.paged_attention_ref(lq, lkp, lvp, ltb, lpos)
+           .float()).abs().max().item()
+    if not err <= 1e-2:
+        raise AssertionError(f"K2 bf16 at 8 x 1000 tokens: max |diff| {err}")
+    long = dict(shape="B=8 H=32 Hkv=8 D=64 page 16, table 64, 8 x 1000 "
+                "tokens, bf16", max_abs_err_bf16=err,
+                **k2_timing(dev, flush, (lq, lkp, lvp, ltb), lpos, long_lens,
+                            h, hkv, d, ps))
+    rows["paged_attention"]["long_table"] = long
+    log(f"[kernels] K2 at {long['shape']}: {long['ms']:.4f} ms (device "
+        f"{long['device_ms']:.4f}); SDPA {long['library_ms']:.4f} (device "
+        f"{long['library_device_ms']:.4f}); bound {long['bound_ms']:.4f} ms "
+        f"({long['bound_by']}); max |diff| {err:.3g} (bf16)")
+    del lq, lkp, lvp, ltb
 
     # -- K3: prefill of one 512-token prompt -------------------------------
     # f32 (CUDA cores) within 2e-5; bf16 (tensor cores, bf16 operands)
@@ -347,7 +385,7 @@ def phase_kernels(dev, flush):
         f"(f32, bound 2e-5), {errs[torch.bfloat16]:.3g} (bf16, bound "
         f"1e-2; worst |diff| / (1e-2 + 1e-2 |want|) = "
         f"{ratio[torch.bfloat16]:.3f})")
-    kd, vd = sdpa_inputs(q, kp, vp, tb)
+    kd, vd = sdpa_kv(kp, vp, tb, h, hkv, d)
     qd = q.transpose(1, 2).contiguous()
     kd, vd = kd[:, :, :s], vd[:, :, :s]
     nb = 2 * q.numel() * 2 + 2 * (s // ps) * ps * hkv * d * 2 + tb.numel() * 4
@@ -386,6 +424,67 @@ def phase_kernels(dev, flush):
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+# decode shapes timed (M = 8): llama3.2-1b's widest projection at each
+# width; mamba2-780m's in_z / in_x, in_b / in_c and out_proj, 4-bit
+K1_DECODE = (("llama", 2048, 8192, 8), ("llama", 2048, 8192, 2),
+             ("mamba", 1536, 3072, 4), ("mamba", 1536, 128, 4),
+             ("mamba", 3072, 1536, 4))
+
+
+def phase_k1_decode(dev, flush, g):
+    """K1's decode layout at M = 8 beside bf16 ``torch.matmul`` on the
+    dequantized weight, with its byte bound; bitwise first.  Returns one
+    dict per (shape, bits)."""
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+
+    out = []
+    m = 8
+    for label, kk, n, bits in K1_DECODE:
+        qmax = 2 ** (bits - 1) - 1
+        xq = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
+                           dtype=torch.int8)
+        sw = torch.rand(n, generator=g, device=dev) * 1e-3
+        sx = torch.ones((), device=dev)
+        copies = []
+        for _ in range(4):
+            wq = torch.randint(-qmax - 1, qmax + 1, (n, kk), generator=g,
+                               device=dev, dtype=torch.int8)
+            copies.append((qref.pack_weights(wq, bits),
+                           wq.to(torch.bfloat16)
+                           * sw[:, None].to(torch.bfloat16)))
+            if not torch.equal(qops.quant_matmul(xq, copies[-1][0], sw, sx,
+                                                 w_bits=bits),
+                               qref.quant_matmul_ref(xq, wq, sw, sx)):
+                raise AssertionError(f"K1 decode not bitwise at M={m} "
+                                     f"K={kk} N={n} bits={bits}")
+        xb = xq.to(torch.bfloat16)
+        it = iter(range(10 ** 9))
+
+        def kern():
+            return qops.quant_matmul(xq, copies[next(it) % 4][0], sw, sx,
+                                     w_bits=bits)
+
+        def mm():
+            return torch.matmul(xb, copies[next(it) % 4][1].T)
+
+        bms, by = bound(m * kk + n * kk * bits // 8 + n * 4 + 4 + m * n * 4,
+                        2 * m * n * kk, "int8")
+        r = dict(shape=f"{label} M={m} K={kk} N={n} {bits}-bit",
+                 ms=time_ms(kern, 20, flush),
+                 device_ms=device_ms(kern, 20, flush, "qmv"),
+                 library_ms=time_ms(mm, 20, flush),
+                 library_device_ms=device_ms(mm, 20, flush),
+                 bound_ms=bms, bound_by=by)
+        out.append(r)
+        log(f"[kernels] K1 decode at {r['shape']}: {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f}); bf16 torch.matmul {r['library_ms']:.4f}"
+            f" (device {r['library_device_ms']:.4f}); bound {bms:.4f} ms "
+            f"({by})")
+        del xq, xb, copies
+    return out
 
 
 def phase_k1_prefill(dev, flush, g):
@@ -1190,10 +1289,13 @@ def main():
     log(f"[build] {len(reports)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, out in reports.items():
+        # ptxas: each kernel's registers, then its stack and spills
+        kernel = None
         for line in out.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line
-                                         or "Compiling" in line):
-                log(f"[build] {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "Used" in line or "spill" in line:
+                log(f"[build] {src}: {kernel}: {line.split(':')[-1].strip()}")
 
     counters = {"quant_matmul": qops.quant_matmul,
                 "paged_attention": pops.paged_attention_fwd,

@@ -45,10 +45,16 @@
 //   (cp.async's source size), never padded by the caller.  Rows whose stride
 //   or address is not a multiple of 16 bytes take 4-byte copies, or byte
 //   loads below that.
-// * decode (M <= 8, whole 16-byte weight vectors): one warp per output
-//   column streams its packed weight row in coalesced 16-byte loads, so
-//   N/8 blocks keep the card busy; __dp4a on the CUDA cores, since a
-//   decode step is bound by the weight bytes, not the products.
+// * decode (M <= 8, whole 16-byte weight vectors, 16-byte aligned
+//   operands): bound by the bytes of the packed weight, so the design keeps
+//   many of them in flight and spends few instructions on each.
+//   mma.sync.m16n8k32 s8 with the operands swapped, n = 8 being the batch:
+//   a warp takes 16 W rows, each lane loading whole 16-byte vectors of its
+//   two rows into a register ring four groups deep (K permuted alike for W
+//   and X within a group so that a vector is a lane's A fragments of two to
+//   eight k32 steps, unpacked like the tiles'), X staged once per block in
+//   shared memory; narrow N splits K over the warps of a block, whose int32
+//   sums meet in shared memory.
 // Both accumulate in int32, which is exact: the result equals the int32
 // plain version bit for bit (the TPU kernel's f32 partial sums are exact
 // only below 2^24, which K = 8192 exceeds).  A product of two scaled
@@ -196,6 +202,31 @@ __device__ __forceinline__ void wgmma_n128(int (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// Eight signed 4-bit values packed little-endian in w (byte i holds values
+// 2i, low nibble, and 2i + 1) as two int8x4 words, each value in the top
+// four bits of its byte (value * 16, signed for free): lo = values 0..3,
+// hi = values 4..7.
+__device__ __forceinline__ void unpack_top4(uint32_t w, uint32_t& lo,
+                                            uint32_t& hi) {
+  const uint32_t l = (w << 4) & 0xF0F0F0F0u;   // even values
+  const uint32_t u = w & 0xF0F0F0F0u;          // odd values
+  lo = __byte_perm(l, u, 0x5140);
+  hi = __byte_perm(l, u, 0x7362);
+}
+
+// Eight signed 2-bit values packed in the low 16 bits of w (field f of
+// byte i holds value 4i + f) likewise, each value * 64: lo = values 0..3,
+// hi = values 4..7.
+__device__ __forceinline__ void unpack_top2(uint32_t w, uint32_t& lo,
+                                            uint32_t& hi) {
+  const uint32_t f0 = (w << 6) & 0xC0C0u, f1 = (w << 4) & 0xC0C0u;
+  const uint32_t f2 = (w << 2) & 0xC0C0u, f3 = w & 0xC0C0u;
+  const uint32_t t0 = __byte_perm(f0, f1, 0x5140);
+  const uint32_t t2 = __byte_perm(f2, f3, 0x5140);
+  lo = __byte_perm(t0, t2, 0x5410);
+  hi = __byte_perm(t0, t2, 0x7632);
+}
+
 // One thread's A fragment of one wgmma (32 values of K): W rows r and
 // r + 8 of the tile, values 4t..4t+3 and 16+4t..16+4t+3 of the 32 at
 // `kk`, each value in the top BITS bits of its byte (value * 2^(8-BITS)).
@@ -213,30 +244,19 @@ __device__ __forceinline__ void load_a(const int8_t* wt, int r, int kk,
       hi = *reinterpret_cast<const uint32_t*>(
           wt + swz_w<RB>(row, 32 * kk + 16 + 4 * t));
     } else if constexpr (BITS == 4) {
-      // byte i of a row holds values 2i (low nibble) and 2i + 1
-      const uint32_t w =
-          __byte_perm(*reinterpret_cast<const uint16_t*>(
-                          wt + swz_w<RB>(row, 16 * kk + 2 * t)),
-                      *reinterpret_cast<const uint16_t*>(
-                          wt + swz_w<RB>(row, 16 * kk + 8 + 2 * t)),
-                      0x5410);
-      const uint32_t l = (w << 4) & 0xF0F0F0F0u;   // even values
-      const uint32_t u = w & 0xF0F0F0F0u;          // odd values
-      lo = __byte_perm(l, u, 0x5140);
-      hi = __byte_perm(l, u, 0x7362);
+      unpack_top4(__byte_perm(*reinterpret_cast<const uint16_t*>(
+                                  wt + swz_w<RB>(row, 16 * kk + 2 * t)),
+                              *reinterpret_cast<const uint16_t*>(
+                                  wt + swz_w<RB>(row, 16 * kk + 8 + 2 * t)),
+                              0x5410),
+                  lo, hi);
     } else {
-      // field f of byte i holds value 4i + f
-      const uint32_t w = (uint32_t)*reinterpret_cast<const uint8_t*>(
-                             wt + swz_w<RB>(row, 8 * kk + t)) |
-                         ((uint32_t)*reinterpret_cast<const uint8_t*>(
-                              wt + swz_w<RB>(row, 8 * kk + 4 + t))
-                          << 8);
-      const uint32_t f0 = (w << 6) & 0xC0C0u, f1 = (w << 4) & 0xC0C0u;
-      const uint32_t f2 = (w << 2) & 0xC0C0u, f3 = w & 0xC0C0u;
-      const uint32_t t0 = __byte_perm(f0, f1, 0x5140);
-      const uint32_t t2 = __byte_perm(f2, f3, 0x5140);
-      lo = __byte_perm(t0, t2, 0x5410);
-      hi = __byte_perm(t0, t2, 0x7632);
+      unpack_top2((uint32_t)*reinterpret_cast<const uint8_t*>(
+                      wt + swz_w<RB>(row, 8 * kk + t)) |
+                      ((uint32_t)*reinterpret_cast<const uint8_t*>(
+                           wt + swz_w<RB>(row, 8 * kk + 4 + t))
+                       << 8),
+                  lo, hi);
     }
     a[h] = lo;
     a[2 + h] = hi;
@@ -394,65 +414,205 @@ qmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// Decode-shaped variant (M <= 8): one warp per output column n; lanes
-// stream the packed weight row in 16-byte vectors (coalesced, each byte
-// read once), unpack in registers and __dp4a against x read through the
-// read-only cache; warp-shuffle reduction of the M int32 sums.
-constexpr int MV_ROWS = 8;        // max M of the decode variant
-constexpr int MV_WARPS = 8;       // columns per block
+// Decode layout (M <= 8): mma.sync.m16n8k32 s8 with the operands swapped,
+// Y^T = W X^T, so n = 8 is the decode batch.  A warp owns 16 W rows (a
+// row tile) and one of `ks` slices of K; a block of MV_WARPS warps holds
+// MV_WARPS / ks row tiles, and its slices add their int32 sums in shared
+// memory (exact, no atomics, one launch).  K is walked in groups of GK
+// values, 64 packed bytes of a row: lane (g, t) loads bytes [16t, 16t + 16)
+// of rows g and g + 8 -- whole 16-byte vectors, every byte used, four lanes
+// covering 64 contiguous bytes of a row -- and uses them as its A fragments
+// of the group's MPG k32 steps: within a group K is permuted alike for W
+// and X, so that lane t's VPL consecutive values are the positions 4t..4t+3
+// and 16+4t..16+4t+3 of each step.  The values are unpacked in registers
+// into the top bits of their bytes (unpack_top4 / unpack_top2, shared with
+// the tiles); the int32 sum is shifted back, exactly, in the epilogue.  X
+// is staged once per block (at most MV_XCHUNK values of K at a time) in
+// shared memory by cp.async, in order, so that a warp's copies coalesce,
+// with rows padded so that the B fragments (lane t's VPL bytes) load
+// without bank conflicts; rows M..7 are zero-filled.  Each lane keeps MV_RING groups of weight vectors
+// in flight in a register ring, refilled as each group is consumed.
+constexpr int MV_ROWS = 8;        // max M of the decode layout: mma's n
+constexpr int MV_WARPS = 8;       // warps a block
+constexpr int MV_RING = 4;        // groups of weight vectors a lane has in flight
+constexpr int MV_XCHUNK = 8192;   // values of K staged at once (a multiple of GK)
+constexpr int MV_RED = MV_WARPS * 32 * 16;   // bytes of split-K sums
 
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// X row stride in shared memory for a staged chunk of kc values: past a
+// multiple of 128 bytes by as much as puts the two X rows a quarter-warp
+// reads (lanes t = 0..3 of rows g and g + 1, VPL bytes each) in disjoint
+// banks -- 64 at 8-bit, 16 at 4-bit; at 2-bit lanes t and t + 2 of a row
+// share banks whatever the stride, and 32 keeps it to that 2-way conflict
 template <int BITS>
-__device__ __forceinline__ int unpack4(unsigned w, int t) {
-  // int8x4 of the values 4t..4t+3 packed in the 32-bit word w
-  if (BITS == 8) return (int)w;
-  int out = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int idx = 4 * t + e;
-    const int v = (int)(w << (32 - BITS * (idx + 1))) >> (32 - BITS);
-    out |= (v & 0xff) << (8 * e);
-  }
-  return out;
+__host__ __device__ constexpr int mv_stride(int kc) {
+  return (kc + 127) / 128 * 128 + (BITS == 8 ? 64 : BITS == 4 ? 16 : 32);
 }
 
 template <int BITS>
 __global__ void __launch_bounds__(32 * MV_WARPS)
 qmv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
            const float* __restrict__ sw, const float* __restrict__ sx,
-           float* __restrict__ y, int M, int N, int K, int Kp) {
-  constexpr int PER = 8 / BITS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n = blockIdx.x * MV_WARPS + warp;
-  if (n >= N) return;
-  const int kw = K / 4;                       // int32 words per x row
-  const int* xw = reinterpret_cast<const int*>(x);
-  const uint4* wr = reinterpret_cast<const uint4*>(w + (size_t)n * Kp);
-  int acc[MV_ROWS];
+           float* __restrict__ y, int M, int N, int K, int Kp, int ks) {
+  constexpr int VPL = 128 / BITS;  // values in a lane's 16-byte W vector
+  constexpr int GK = 4 * VPL;      // values of a group
+  constexpr int CPL = VPL / 16;    // 16-byte X chunks a lane reads a group
+  constexpr int MPG = VPL / 8;     // k32 steps a group
+  extern __shared__ __align__(16) int8_t xs[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nw = MV_WARPS / ks;              // row tiles a block
+  const int slice = warp / nw;
+  const int n0 = (blockIdx.x * nw + warp % nw) * 16;
+  const int KR = (K + GK - 1) / GK * GK;     // K in whole groups
+  const int KC = min(KR, MV_XCHUNK);
+  const int RS = mv_stride<BITS>(KC);
+  const bool ok_lo = n0 + g < N, ok_hi = n0 + g + 8 < N;
+  const int8_t* w_lo = w + (size_t)(ok_lo ? n0 + g : 0) * Kp + 16 * t;
+  const int8_t* w_hi = w + (size_t)(ok_hi ? n0 + g + 8 : 0) * Kp + 16 * t;
+  const int8_t* x_lane = xs + g * RS + VPL * t;
+
+  int acc[4] = {0, 0, 0, 0};
+  uint4 ring[MV_RING][2];
+  for (int k0 = 0; k0 < KR; k0 += KC) {
+    const int kc = min(KC, KR - k0);
+    if (k0 > 0) __syncthreads();   // every warp is done with the last chunk
+    // X[:, k0 : k0 + kc), rows in order (contiguous copies coalesce)
+    const int nch = kc / 16;
+    for (int i = tid; i < MV_ROWS * nch; i += 32 * MV_WARPS) {
+      const int m = i / nch, c = i % nch;
+      const int k = k0 + 16 * c;
+      const int nb = m < M && k < K ? 16 : 0;
+      cp_async16(smem_addr(xs + m * RS + 16 * c),
+                 nb ? x + (size_t)m * K + k : x, nb);
+    }
+    cp_commit();
+
+    // this warp's groups of the chunk, the first MV_RING in flight before
+    // X has landed
+    const int ng = kc / GK, gbase = k0 / GK;
+    const int q0 = ng * slice / ks, q1 = ng * (slice + 1) / ks;
+    auto fetch = [&](int q, uint4 (&v)[2]) {
+      const int off = (gbase + q) * 64;
+      const bool in = off + 16 * t < Kp;     // whole vectors: in or out
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      v[0] = ok_lo && in ? __ldg(reinterpret_cast<const uint4*>(w_lo + off))
+                         : z;
+      v[1] = ok_hi && in ? __ldg(reinterpret_cast<const uint4*>(w_hi + off))
+                         : z;
+    };
 #pragma unroll
-  for (int m = 0; m < MV_ROWS; ++m) acc[m] = 0;
-  for (int v = lane; v < Kp / 16; v += 32) {
-    const uint4 pk = __ldg(wr + v);
-    const unsigned words[4] = {pk.x, pk.y, pk.z, pk.w};
+    for (int i = 0; i < MV_RING; ++i)
+      if (q0 + i < q1) fetch(q0 + i, ring[i]);
+    cp_wait<0>();
+    __syncthreads();
+
+    for (int q = q0; q < q1; q += MV_RING) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int base = (v * 4 + q) * PER;      // x word of this packed word
+      for (int i = 0; i < MV_RING; ++i) {
+        if (q + i >= q1) break;
+        uint4 xc[CPL];
 #pragma unroll
-      for (int t = 0; t < PER; ++t) {
-        const int wv = unpack4<BITS>(words[q], t);
+        for (int c = 0; c < CPL; ++c)
+          xc[c] = *reinterpret_cast<const uint4*>(x_lane + (q + i) * GK +
+                                                  16 * c);
 #pragma unroll
-        for (int m = 0; m < MV_ROWS; ++m)
-          if (m < M) acc[m] = __dp4a(__ldg(xw + (size_t)m * kw + base + t), wv, acc[m]);
+        for (int j = 0; j < MPG; ++j) {
+          uint32_t a[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {      // rows g and g + 8
+            uint32_t lo, hi;
+            if constexpr (BITS == 8) {
+              lo = word(ring[i][h], 2 * j);
+              hi = word(ring[i][h], 2 * j + 1);
+            } else if constexpr (BITS == 4) {
+              unpack_top4(word(ring[i][h], j), lo, hi);
+            } else {
+              unpack_top2(word(ring[i][h], j / 2) >> (16 * (j % 2)), lo, hi);
+            }
+            a[h] = lo;
+            a[2 + h] = hi;
+          }
+          mma_s8(acc, a, word(xc[j / 2], 2 * (j % 2)),
+                 word(xc[j / 2], 2 * (j % 2) + 1));
+        }
+        if (q + i + MV_RING < q1) fetch(q + i + MV_RING, ring[i]);
       }
     }
   }
-  const float s = sx[0], scale = sw[n];
-#pragma unroll
-  for (int m = 0; m < MV_ROWS; ++m) {
-    int a = acc[m];
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) a += __shfl_down_sync(0xffffffffu, a, off);
-    if (lane == 0 && m < M) y[(size_t)m * N + n] = ((float)a * scale) * s;
+
+  if (ks > 1) {
+    // slices 1.. hand their sums to slice 0 of the same row tile
+    int4* red = reinterpret_cast<int4*>(xs + MV_ROWS * RS);
+    if (slice > 0)
+      red[warp * 32 + lane] = make_int4(acc[0], acc[1], acc[2], acc[3]);
+    __syncthreads();
+    if (slice > 0) return;
+    for (int sl = 1; sl < ks; ++sl) {
+      const int4 v = red[(sl * nw + warp) * 32 + lane];
+      acc[0] += v.x;
+      acc[1] += v.y;
+      acc[2] += v.z;
+      acc[3] += v.w;
+    }
   }
+
+  // sum 2h + e: W row n0 + g + 8h, X row 2t + e
+  const float s = sx[0];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + g + 8 * h;
+    if (n >= N) continue;
+    const float sn = sw[n];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = 2 * t + e;
+      // the sums carry 2^(8 - BITS): shift it out (exact), then
+      // float(acc) * sw[n] * sx, in that order (two roundings, no FMA)
+      if (m < M)
+        y[(size_t)m * N + n] =
+            ((float)(acc[2 * h + e] >> (8 - BITS)) * sn) * s;
+    }
+  }
+}
+
+template <int BITS>
+int launch_mv(const int8_t* x, const int8_t* w, const float* sw,
+              const float* sx, float* y, int M, int N, int K, int Kp,
+              cudaStream_t st) {
+  constexpr int GK = 512 / BITS;
+  constexpr int SMEM_MAX = MV_ROWS * mv_stride<BITS>(MV_XCHUNK) + MV_RED;
+  static bool attr_set = false;          // once per instantiation
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmv_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int KR = (K + GK - 1) / GK * GK;
+  const int smem =
+      MV_ROWS * mv_stride<BITS>(KR < MV_XCHUNK ? KR : MV_XCHUNK) + MV_RED;
+  // as many row tiles a block as still leave a block for every SM; the
+  // rest of the block's warps split K
+  const int tiles = (N + 15) / 16;
+  int nw = MV_WARPS;
+  while (nw > 1 && (tiles + nw - 1) / nw < SMS) nw /= 2;
+  qmv_kernel<BITS><<<(tiles + nw - 1) / nw, 32 * MV_WARPS, smem, st>>>(
+      x, w, sw, sx, y, M, N, K, Kp, MV_WARPS / nw);
+  return (int)cudaGetLastError();
 }
 
 // widest copy (16, 4 or 1 bytes) that every row of a matrix at `p` with
@@ -537,19 +697,18 @@ extern "C" int qmm_launch(const void* x, const void* w, const void* sw,
   int* pp = (int*)part;
   int* cp = (int*)count;
   // decode shapes (a few rows, whole 16-byte weight vectors, no padded
-  // values) take the one-warp-per-column variant; the rest the tiles
+  // values, 16-byte aligned operands) take the mma.sync decode layout; the
+  // rest the tiles
   const bool decode = M <= MV_ROWS && K % 4 == 0 && Kp % 16 == 0 &&
-                      K == Kp * (8 / bits) && (uintptr_t)x % 4 == 0 &&
+                      K == Kp * (8 / bits) && (uintptr_t)x % 16 == 0 &&
                       (uintptr_t)w % 16 == 0;
   if (decode) {
-    const dim3 grid_v((N + MV_WARPS - 1) / MV_WARPS);
     switch (bits) {
-      case 8: qmv_kernel<8><<<grid_v, 32 * MV_WARPS, 0, st>>>(xp, wp, swp, sxp, yp, M, N, K, Kp); break;
-      case 4: qmv_kernel<4><<<grid_v, 32 * MV_WARPS, 0, st>>>(xp, wp, swp, sxp, yp, M, N, K, Kp); break;
-      case 2: qmv_kernel<2><<<grid_v, 32 * MV_WARPS, 0, st>>>(xp, wp, swp, sxp, yp, M, N, K, Kp); break;
+      case 8: return launch_mv<8>(xp, wp, swp, sxp, yp, M, N, K, Kp, st);
+      case 4: return launch_mv<4>(xp, wp, swp, sxp, yp, M, N, K, Kp, st);
+      case 2: return launch_mv<2>(xp, wp, swp, sxp, yp, M, N, K, Kp, st);
       default: return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
   }
   switch (bits) {
     case 8: return launch_tiles<8>(xp, wp, swp, sxp, yp, M, N, K, Kp, pp, cp, st);

@@ -31,7 +31,7 @@ SIGNATURES = {
     "quant_matmul": ("qmm_launch",
                      [_P] * 5 + [_I] * 5 + [_P, _LL, _P, _LL, _P]),
     "paged_attention": ("paged_decode_launch",
-                        [_P] * 6 + [_I] * 9 + [_F, _F, _I, _P]),
+                        [_P] * 7 + [_LL] + [_I] * 9 + [_F, _F, _I, _P]),
     "paged_prefill": ("paged_prefill_launch",
                       [_P] * 5 + [_I] * 11 + [_F, _F, _I, _P]),
     "mps_combine": ("mps_combine_launch", [_P] * 3 + [_I] * 3 + [_U64, _P]),
@@ -42,6 +42,8 @@ SIGNATURES = {
 # source name -> {symbol: (argument types, return type)}
 QUERIES = {
     "quant_matmul": {"qmm_scratch_ints": ([_I], _LL)},
+    "paged_attention": {"paged_decode_dims": ([_P], _I),
+                        "paged_decode_split_tokens": ([_I, _I], _I)},
     "paged_prefill": {"paged_prefill_bf16_dims": ([_P], _I)},
 }
 

@@ -65,6 +65,27 @@ def force_impl(impl: str | None):
 
 
 @functools.cache
+def decode_dims() -> tuple:
+    """The head dims the decode kernel is built for, as
+    ``csrc/paged_attention.cu`` lists them (builds it)."""
+    out = (ctypes.c_int * 8)()
+    n = build.query("paged_attention", "paged_decode_dims")(out)
+    return tuple(out[:n])
+
+
+@functools.cache
+def decode_split_tokens(d: int, dtype: int) -> int:
+    """Logical tokens one split of the decode kernel covers at head dim
+    ``d`` (dtype code 0 = float32, 1 = bfloat16); raises for a head dim
+    the kernel is not built for."""
+    n = build.query("paged_attention", "paged_decode_split_tokens")(d, dtype)
+    if n <= 0:
+        raise ValueError(f"paged decode supports head dims {decode_dims()}, "
+                         f"got D={d}")
+    return n
+
+
+@functools.cache
 def prefill_bf16_dims() -> tuple:
     """The head dims the prefill kernel's bfloat16 (tensor-core) path is
     built for, as ``csrc/paged_prefill.cu`` lists them (builds it)."""
@@ -119,7 +140,14 @@ def paged_attention_fwd(q, k_pool, v_pool, tables, pos, *, window: int = 0,
     k_pool/v_pool: (n_pages + 1, page_size, Hkv, D), page 0 the null
     page; tables: (B, P) int32 physical page ids (0 = unbacked; a view of
     wider tables is fine); pos: (B,) int32.  Returns (B, H, D) in q's
-    dtype."""
+    dtype.
+
+    On the card the key range of each slot is split over blocks
+    (flash-decoding) whose partial softmax states a second kernel
+    merges; it needs D in :func:`decode_dims` and q and pools that start
+    on a 16-byte boundary.  The partials go to f32 scratch of B * H *
+    splits * (D + 2) floats, splits = ceil(P * page_size /
+    :func:`decode_split_tokens`)."""
     _check(q, k_pool, v_pool, tables, 1)
     if q.device.type == "cpu":
         return _ref.paged_attention_ref(q, k_pool, v_pool, tables, pos,
@@ -128,13 +156,22 @@ def paged_attention_fwd(q, k_pool, v_pool, tables, pos, *, window: int = 0,
     dtype, tstride = _cuda_args(q, k_pool, v_pool, tables, pos)
     b, h, d = q.shape
     _, ps, hkv, _ = k_pool.shape
+    split = decode_split_tokens(d, dtype)
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged decode needs q and pools that start on a "
+                         "16-byte boundary")
+    p = tables.shape[1]
+    splits = max(1, -(-p * ps // split))
     out = torch.empty_like(q)
+    scratch = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                          device=q.device)
     fn = build.load("paged_attention")
     build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                   tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h,
-                   hkv, d, ps, tables.shape[1], tstride, int(window),
-                   int(bool(chunked)), float(cap), 1.0 / math.sqrt(d),
-                   dtype, torch.cuda.current_stream(q.device).cuda_stream),
+                   tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr(), scratch.numel(), b, h, hkv, d, ps, p,
+                   tstride, int(window), int(bool(chunked)), float(cap),
+                   1.0 / math.sqrt(d), dtype,
+                   torch.cuda.current_stream(q.device).cuda_stream),
                 "paged_attention")
     paged_attention_fwd.launches += 1
     return out

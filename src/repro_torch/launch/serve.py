@@ -44,7 +44,8 @@ def _load_plan(spec: str, cfg, params):
 
 
 # the port's hand-written kernels, as the profiler names them
-_PORT_KERNELS = ("qmm_kernel", "qmv_kernel", "paged_decode_kernel",
+_PORT_KERNELS = ("qmm_kernel", "qmv_kernel", "paged_decode_mma_kernel",
+                 "paged_decode_split_kernel", "paged_decode_merge_kernel",
                  "paged_prefill_mma_kernel", "paged_prefill_kernel",
                  "ssd_scan_kernel")
 

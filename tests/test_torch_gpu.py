@@ -82,7 +82,7 @@ def _on(dev, case, dtype=torch.float32):
                                    (1, 2048, 8192), (3, 8192, 2048)])
 def test_quant_matmul_bitwise(cuda, bits, m, k, n):
     """K1 equals the int32-exact plain version bit for bit, on both its
-    layouts (tiles; one warp per column for M <= 8) and ragged shapes
+    layouts (tiles; the mma.sync decode layout for M <= 8) and ragged shapes
     (masked, not padded)."""
     g = torch.Generator(device="cuda").manual_seed(m * 7 + n)
     qmax = 2 ** (bits - 1) - 1
@@ -180,6 +180,69 @@ def test_quant_matmul_split_k_two_streams(cuda):
         assert all(torch.equal(y, want) for y in got)
 
 
+# the decode layout's (K, N): mamba2-780m's in_dt / in_b,c-like groups
+# (9, 48, 1236 wide), in_z / in_x and out_proj; llama3.2-1b's k/v, ffn
+# up and down; and a K past one staged X chunk (8192 values)
+K1_DECODE = [(1536, 9), (1536, 48), (1536, 1236), (1536, 3072),
+             (3072, 1536), (2048, 512), (2048, 8192), (8192, 2048),
+             (12288, 40)]
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("k,n", K1_DECODE)
+def test_quant_matmul_decode_bitwise(cuda, k, n, bits):
+    """K1's decode layout (mma.sync, M <= 8) equals the int32-exact plain
+    version bit for bit at every M from 1 to 8 and every width."""
+    for m in range(1, 9):
+        xq, wq, sw, sx = _k1_operands(cuda, m, k, n, bits, seed=m + k + n)
+        before = qops.quant_matmul.launches
+        got = qops.quant_matmul(xq, qref.pack_weights(wq, bits), sw, sx,
+                                w_bits=bits)
+        torch.cuda.synchronize()
+        assert qops.quant_matmul.launches == before + 1
+        assert torch.equal(got, qref.quant_matmul_ref(xq, wq, sw, sx)), \
+            f"M={m}"
+
+
+@pytest.mark.parametrize("x_off,w_off", [(16, 0), (0, 16), (4, 0), (3, 5),
+                                         (0, 8)])
+def test_quant_matmul_decode_views(cuda, x_off, w_off):
+    """Decode-shaped views: 16-byte aligned ones take the decode layout,
+    the rest the tiles; all stay bitwise."""
+    m, k, n, bits = 8, 1536, 130, 4
+    xq, wq, sw, sx = _k1_operands(cuda, m, k, n, bits, seed=x_off + w_off)
+    packed = qref.pack_weights(wq, bits)
+    xb = torch.zeros(m * k + x_off, dtype=torch.int8, device=cuda)
+    xb[x_off:] = xq.reshape(-1)
+    wb = torch.zeros(packed.numel() + w_off, dtype=torch.int8, device=cuda)
+    wb[w_off:] = packed.reshape(-1)
+    got = qops.quant_matmul(xb[x_off:].view(m, k),
+                            wb[w_off:].view(packed.shape), sw, sx,
+                            w_bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qref.quant_matmul_ref(xq, wq, sw, sx))
+
+
+def test_quant_matmul_decode_two_streams(cuda):
+    """Decode launches on two streams at once (split K in shared memory,
+    no global scratch) stay bitwise."""
+    shapes = [(8, 2048, 512, 4), (5, 1536, 48, 2), (8, 2048, 8192, 8)]
+    cases = [(_k1_operands(cuda, *shape, seed=20 + i), shape)
+             for i, shape in enumerate(shapes)]
+    streams = [torch.cuda.Stream(cuda) for _ in shapes]
+    torch.cuda.synchronize()
+    outs = [[] for _ in shapes]
+    for _ in range(4):
+        for i, ((xq, wq, sw, sx), (m, k, n, bits)) in enumerate(cases):
+            with torch.cuda.stream(streams[i]):
+                outs[i].append(qops.quant_matmul(
+                    xq, qref.pack_weights(wq, bits), sw, sx, w_bits=bits))
+    torch.cuda.synchronize()
+    for ((xq, wq, sw, sx), _), got in zip(cases, outs):
+        want = qref.quant_matmul_ref(xq, wq, sw, sx)
+        assert all(torch.equal(y, want) for y in got)
+
+
 @pytest.mark.parametrize("x_off,w_off", [(3, 5), (4, 8), (0, 4), (1, 0)])
 def test_quant_matmul_misaligned_views(cuda, x_off, w_off):
     """Operands whose storage starts off a 16-byte boundary take the
@@ -218,6 +281,119 @@ def test_paged_decode_vs_plain(cuda, hkv, window, chunked, cap):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     assert torch.equal(got[2], torch.zeros_like(got[2]))   # freed slot
+
+
+K2_DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16,
+                                                            1e-2)}
+
+
+@pytest.mark.parametrize("window,chunked,cap", [
+    (0, False, 0.0), (6, False, 0.0), (8, True, 0.0), (0, False, 30.0)])
+@pytest.mark.parametrize("ps,width", [(1, 128), (8, 128), (16, 64)])
+@pytest.mark.parametrize("hd", [16, 64, 128, 256])
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+def test_paged_decode_splits_vs_plain(cuda, dtype, hd, ps, width, window,
+                                      chunked, cap):
+    """K2's split-and-merge within 2e-5 (f32) / 1e-2 (bf16) of its plain
+    version: 64- and 128-page tables, slots of 127, 128, 129 and 1000
+    tokens (as many as the table holds) straddling the split edges, 1-,
+    8- and 16-token pages, every mask mode and head dim, a NaN null page,
+    poisoned tails and a freed slot."""
+    dt, tol = K2_DTYPES[dtype]
+    lens = tuple(n for n in (127, 128, 129, 1000) if n <= width * ps)
+    lens += (0, 5)
+    rng = np.random.default_rng(hd + ps + window)
+    case = make_case(rng, lens, h=8, hkv=2, hd=hd, ps=ps, n_pb=width,
+                     poison_null=True, poison_tail=7.0)
+    args = _on(cuda, case, dt)
+    kw = dict(window=window, chunked=chunked, cap=cap)
+    before = pops.paged_attention_fwd.launches
+    got = pops.paged_attention_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert pops.paged_attention_fwd.launches == before + 1
+    want = pops.paged_attention_ref(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    freed = lens.index(0)
+    assert torch.equal(got[freed], torch.zeros_like(got[freed]))
+
+
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+def test_paged_decode_table_view_and_freed(cuda, dtype):
+    """A view of the first P columns of wider tables (row stride > P)
+    reads only those; a batch of freed slots gives exact zeros."""
+    dt, tol = K2_DTYPES[dtype]
+    rng = np.random.default_rng(21)
+    lens = (40, 3, 64, 17)
+    q, k, v, t, pos = _on(cuda, make_case(rng, lens, h=8, hkv=2, hd=64,
+                                          ps=8, n_pb=16, poison_null=True),
+                          dt)
+    view = t[:, :8]                   # 64 tokens of a 128-token table
+    assert view.stride(0) == 16
+    got = pops.paged_attention_fwd(q, k, v, view, pos)
+    want = pops.paged_attention_ref(q, k, v, view.contiguous(), pos)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    freed = pops.paged_attention_fwd(q, k, v, torch.zeros_like(t),
+                                     torch.zeros_like(pos))
+    torch.cuda.synchronize()
+    assert torch.equal(freed, torch.zeros_like(freed))
+
+
+def test_paged_decode_two_streams(cuda):
+    """Launches on two streams at once (each call its own partials'
+    scratch) agree with the plain version and with themselves."""
+    rng = np.random.default_rng(24)
+    cases = [_on(cuda, make_case(rng, lens, h=8, hkv=2, hd=64, ps=8,
+                                 n_pb=32, poison_null=True), torch.bfloat16)
+             for lens in ((200, 0, 31, 256), (17, 129, 255, 1))]
+    wants = [pops.paged_attention_ref(*args) for args in cases]
+    streams = [torch.cuda.Stream(cuda) for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[] for _ in cases]
+    for _ in range(4):
+        for i, args in enumerate(cases):
+            with torch.cuda.stream(streams[i]):
+                outs[i].append(pops.paged_attention_fwd(*args))
+    torch.cuda.synchronize()
+    for want, got in zip(wants, outs):
+        for y in got:
+            torch.testing.assert_close(y.float(), want.float(), rtol=1e-2,
+                                       atol=1e-2)
+        assert all(torch.equal(y, got[0]) for y in got)
+
+
+def test_paged_decode_main_shape(cuda):
+    """llama3.2-1b's decode shape: 8 slots of 1 to 1000 tokens (one
+    freed), 32 query heads over 8 KV heads of 64, 16-token pages, 64-page
+    tables, f32 and bf16."""
+    lens = (1, 17, 200, 512, 1000, 0, 777, 64)
+    for dtype, (dt, tol) in K2_DTYPES.items():
+        rng = np.random.default_rng(22)
+        args = _on(cuda, make_case(rng, lens, h=32, hkv=8, hd=64, ps=16,
+                                   n_pb=64, poison_null=True), dt)
+        got = pops.paged_attention_fwd(*args)
+        torch.cuda.synchronize()
+        want = pops.paged_attention_ref(*args)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(got[5], torch.zeros_like(got[5]))
+
+
+def test_paged_decode_checks(cuda):
+    """A head dim the decode kernel is not built for, or q off a 16-byte
+    boundary, raises before any launch."""
+    rng = np.random.default_rng(23)
+    args = _on(cuda, make_case(rng, (9, 4), hd=48))
+    before = pops.paged_attention_fwd.launches
+    with pytest.raises(ValueError, match="head dims"):
+        pops.paged_attention_fwd(*args)
+    q, k, v, t, pos = _on(cuda, make_case(rng, (9, 4), hd=16))
+    base = torch.zeros(q.numel() + 1, device=cuda)
+    base[1:] = q.reshape(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        pops.paged_attention_fwd(base[1:].view(q.shape), k, v, t, pos)
+    assert pops.paged_attention_fwd.launches == before
 
 
 @pytest.mark.parametrize("window,chunked,cap", [
