@@ -5,14 +5,16 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device  -- a CUDA device is required; prints its name and power limit.
-2. build   -- compiles the five CUDA kernels (one nvcc each, all at
+2. build   -- compiles the five CUDA sources (one nvcc each, all at
               once) and prints ptxas' registers / shared memory / spills.
 3. kernels -- each kernel against its plain PyTorch version at its paths'
               full-width shapes (K1 bitwise, also at ragged shapes and
               misaligned views; K4 and K5 bitwise; K2, K3 within 2e-5 in
-              f32, K3 bf16 within rtol = atol = 1e-2; K4's backward within
-              rtol 1e-4), plus one full-width layer packed on the card vs
-              on the CPU (byte-identical); then each kernel timed with
+              f32, K3 bf16 within rtol = atol = 1e-2; K4's backward kernel:
+              dW bitwise, dprobs within its summation bound; the autograd
+              function within rtol 1e-4 of autograd), plus one
+              full-width layer packed on the card vs on the CPU
+              (byte-identical); then each kernel timed with
               CUDA events and the profiler (L2 flushed before every
               launch) beside its plain version, its PyTorch yardstick
               where one call computes the same function, and its bound;
@@ -21,7 +23,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
               serving paths' prefill shapes, 4- and 8-bit, beside bf16
               torch.matmul and torch._int_mm; K2 (both of its kernels) at
               the serving mix's lengths and at 8 slots of 1000 tokens
-              beside SDPA.
+              beside SDPA; K4 forward and backward at every resnet18
+              search shape beside their plain versions and bounds, summed
+              over a search step's 21 nodes, each named by the kernel it
+              took (ring or simple) and, where the ring runs, beside the
+              simple kernels; one launch of the stamped forward
+              (mps_combine_probe) for its phase split in cycles.
 4. rng     -- the threefry2x32 generator on the card against the CPU
               (bits, uniforms, randints bit-equal; normal, gumbel within
               stated ULPs); the device sampler's cost per decode step.
@@ -45,8 +52,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 7. search  -- path 2: the paper's joint search on resnet18 at full width
               (Tiny-ImageNet shapes, 200 classes, batch 32, data made on
               the card) through Compressor.run([Warmup, JointSearch,
-              Finetune]); K4's launch count read around the run must be
-              21 weight nodes x search steps; finite losses; a plan with
+              Finetune]); K4's forward and backward launch counts read
+              around the run must each be 21 weight nodes x search steps;
+              finite losses; a plan with
               bits in pw and the classifier unpruned.
 8. report  -- one JSON line of kernels, the card's name and power limit,
               and last the JSON status line.
@@ -104,32 +112,51 @@ def time_ms(fn, n, flush):
 FLUSH_KERNELS = ("FillFunctor", "Memset")   # what ``flush.zero_()`` runs
 
 
-def device_ms(fn, n, flush, kernel=None):
+def device_ms(fn, n, flush, kernel=None, names=True):
     """Mean device time of the CUDA kernels whose name holds ``kernel``
     per call of ``fn``, read by ``torch.profiler`` over ``n`` calls with
     the L2 overwritten before each: the kernel alone, without the host's
     launch path that a CUDA-event interval around a call also holds.
     ``kernel=None`` sums every kernel the calls ran except the flush's
-    (a library call's cuBLAS / flash kernels, whatever their names)."""
+    (a library call's cuBLAS / flash kernels, whatever their names).
+    The profiler has returned traces that lost launch records between
+    good ones, so each attempt also traces one call: every kernel name it
+    holds must appear exactly ``n`` times as often in the ``n`` calls'
+    trace, and no other, or both are taken again (twice at most).  The
+    names matched are left in ``device_ms.names``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0
-            and (kernel in e.key if kernel is not None
-                 else not any(f in e.key for f in FLUSH_KERNELS))]
-    us = sum(e.self_device_time_total for e in rows)
-    if us <= 0:
-        raise AssertionError(f"profiler saw no device time for "
-                             f"{kernel or 'the library call'}")
-    if kernel is None:
+
+    def trace(calls):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.key_averages()
+                if e.self_device_time_total > 0
+                and (kernel in e.key if kernel is not None
+                     else not any(f in e.key for f in FLUSH_KERNELS))]
+
+    what = kernel or "the library call"
+    for attempt in range(3):
+        one = {e.key: e.count for e in trace(1)}
+        rows = trace(n)
+        seen = {e.key: e.count for e in rows}
+        if one and seen == {key: c * n for key, c in one.items()}:
+            break
+        log(f"[profile] trace {attempt + 1} of {what}: one call "
+            f"{sorted(one.values())} launches, {n} calls "
+            f"{sorted(seen.values())}")
+    else:
+        raise AssertionError(f"profiler lost launches of {what} in three "
+                             f"traces")
+    device_ms.names = sorted(seen)
+    if kernel is None and names:
         log(f"[profile] library kernels: "
             f"{sorted({e.key[:80] for e in rows})}")
-    return us / n / 1e3
+    return sum(e.self_device_time_total for e in rows) / n / 1e3
 
 
 def pool_case(rng, lens, *, h, hkv, d, ps, width, dtype, dev, s=None):
@@ -410,8 +437,8 @@ def phase_kernels(dev, flush):
         library_device_ms=device_ms(k3_lib, 50, flush),
         bound_ms=bms, bound_by=by)
 
-    # -- K4: every resnet18 search weight shape, bitwise; backward --------
-    rows["mps_combine"] = phase_k4(dev, flush)
+    # -- K4 and its backward: every resnet18 search weight shape ---------
+    rows["mps_combine"], rows["mps_combine_bwd"] = phase_k4(dev, flush)
     # -- K5: the mamba2-780m prefill's inter-chunk scan, bitwise -----------
     rows["ssd_scan"] = phase_k5(dev, flush)
     for k, r in rows.items():
@@ -549,37 +576,130 @@ K4_PW = (0, 2, 4, 8)
 
 def k4_shapes():
     """Each distinct (C_out, C_in * kh * kw) of resnet18's 21 weight
-    nodes, the shapes the search hands K4."""
+    nodes, the shapes the search hands K4, with its count of nodes."""
     from repro_torch.models import cnn
     g = cnn.resnet18()
     ch, _ = cnn._trace_shapes(g)
-    shapes = []
+    shapes = {}
     for n in g.weight_nodes():
         k = ch[n.inputs[0]] * (n.k[0] * n.k[1] if n.kind == "conv" else 1)
-        if (n.cout, k) not in shapes:
-            shapes.append((n.cout, k))
+        shapes[(n.cout, k)] = shapes.get((n.cout, k), 0) + 1
     return shapes
 
 
+# ragged (K % 4 != 0) and rows too long for two ring stages (the simple
+# kernels' cases beside the misaligned views), and problems large enough
+# for the ring whose tiles hold 8, 4 and 2 rows, the last one short
+K4_EXTRA = ((5, 61), (3, 60000), (40, 60000), (37501, 64), (9377, 256),
+            (4689, 512))
+
+
+def _k4_inputs(g, dev, m, k, view=False):
+    w = torch.randn(m, k, generator=g, device=dev) * 0.05
+    up = torch.randn(m, k, generator=g, device=dev)
+    if view:        # storage off a 16-byte boundary
+        w, up = (torch.cat([torch.zeros(1, device=dev),
+                            t.reshape(-1)])[1:].view(m, k) for t in (w, up))
+    w[0, :3] = 0.0
+    probs = torch.softmax(torch.randn(m, len(K4_PW), generator=g,
+                                      device=dev), -1)
+    return w, probs, up
+
+
+def _k4_check(w, probs, up):
+    """Both kernels against their plain versions: the forward and its
+    absmax bit for bit, dW bit for bit, dprobs within the summation bound
+    2 K 2^-24 sum_k |g q| of a float64 row sum of the plain version's
+    products.  Returns the max |diff| of the forward, dW and dprobs."""
+    from repro_torch.kernels.mps_combine import ops as mops
+    m, k = w.shape
+    absmax = torch.empty(m, device=w.device)
+    got = mops.mps_combine_fwd(w, probs, K4_PW, absmax)
+    dw, dprobs = mops.mps_combine_bwd(w, probs, absmax, up, K4_PW)
+    torch.cuda.synchronize()
+    want = mops.mps_combine_ref(w, probs, K4_PW)
+    want_dw, want_dp = mops._vjp_bwd(w, probs, K4_PW, up)
+    where = f"{m}x{k}{' (misaligned views)' if w.data_ptr() % 16 else ''}"
+    if not torch.equal(got, want) or not torch.equal(
+            absmax, torch.amax(w.abs(), 1)):
+        raise AssertionError(f"K4 forward not bitwise at {where}: max "
+                             f"|diff| {(got - want).abs().max().item()}")
+    if not torch.equal(dw, want_dw):
+        raise AssertionError(f"K4 backward dW not bitwise at {where}: max "
+                             f"|diff| {(dw - want_dw).abs().max().item()}")
+    for p in range(len(K4_PW)):
+        onehot = torch.zeros_like(probs)
+        onehot[:, p] = 1.0
+        prod = (up * mops.mps_combine_ref(w, onehot, K4_PW)).double()
+        err = (dprobs[:, p].double() - prod.sum(1)).abs()
+        bound = 2 * k * 2.0 ** -24 * prod.abs().sum(1)
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"K4 backward dprobs[:, {p}] outside the "
+                                 f"summation bound at {where}: "
+                                 f"{float((err - bound).max())}")
+    return ((got - want).abs().max().item(),
+            (dw - want_dw).abs().max().item(),
+            (dprobs - want_dp).abs().max().item())
+
+
+def k4_probe(dev, m, k):
+    """One launch of the stamped forward (``mps_combine_probe``): clock64
+    cycles per tile from load issued to landed, landed to combined (the
+    block's row groups met), combined to stored (the stamped kernel waits
+    for its bulk store to complete), and the blocks' spans."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mps_combine import ops as mops
+    g = torch.Generator(device=dev).manual_seed(44)
+    w, probs, _ = _k4_inputs(g, dev, m, k)
+    out = torch.empty_like(w)
+    stamps = torch.zeros(4 + 4 * m, dtype=torch.int64, device=dev)
+    probe = build.symbol("mps_combine", "mps_combine_probe")
+    build.check(probe(w.data_ptr(), probs.data_ptr(), out.data_ptr(), 0, m,
+                      k, len(K4_PW), mops._packed(K4_PW), stamps.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream),
+                "mps_combine_probe")
+    torch.cuda.synchronize()
+    if not torch.equal(out, mops.mps_combine_ref(w, probs, K4_PW)):
+        raise AssertionError("K4 probe's output not bitwise")
+    st = stamps.cpu()
+    grid, r, stages, gw = (int(v) for v in st[:4])
+    t = st[4:].view(-1, 4)[:-(-m // r)].double()
+    phase = {"load": t[:, 1] - t[:, 0], "combine": t[:, 2] - t[:, 1],
+             "store": t[:, 3] - t[:, 2]}
+    blocks = torch.arange(t.shape[0]) % grid
+    span = [float(t[blocks == b, 3].max() - t[blocks == b, 0].min())
+            for b in range(grid)]
+    split = {k2: float(v.mean()) for k2, v in phase.items()}
+    log(f"[kernels] K4 probe at {m}x{k}, pw {K4_PW}: grid {grid}, {r} "
+        f"row(s) a tile, {stages} stages, {gw} warps a row; mean cycles a "
+        f"tile: load {split['load']:.0f}, combine {split['combine']:.0f}, "
+        f"store {split['store']:.0f}; block span mean {np.mean(span):.0f}"
+        f", max {max(span):.0f} cycles (clock64)")
+    return dict(split, block_span_mean=float(np.mean(span)),
+                block_span_max=max(span), grid=grid, rows_a_tile=r,
+                stages=stages, warps_a_row=gw)
+
+
 def phase_k4(dev, flush):
+    """K4's forward and backward kernels: checked at every resnet18 search
+    shape, ragged, long-row, ring-sized and misaligned; timed at every
+    search shape beside their plain versions and byte bounds, summed over
+    one search step's nodes, the kernel each launch took named, and where
+    the ring takes a shape the simple kernels beside it; the stamped
+    probe's phase split."""
+    from repro_torch.kernels import build
     from repro_torch.kernels.mps_combine import ops as mops
 
     g = torch.Generator(device=dev).manual_seed(4)
-    err = fwd_err = 0.0
     shapes = k4_shapes()
-    for m, k in shapes:
-        w = torch.randn(m, k, generator=g, device=dev) * 0.05
-        probs = torch.softmax(torch.randn(m, len(K4_PW), generator=g,
-                                          device=dev), -1)
-        got = mops.mps_combine_fwd(w, probs, K4_PW)
-        torch.cuda.synchronize()
-        want = mops.mps_combine_ref(w, probs, K4_PW)
-        diff = (got - want).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K4 not bitwise at {m}x{k}: max |diff| "
-                                 f"{diff}")
-        fwd_err = max(fwd_err, diff)
-        up = torch.randn(m, k, generator=g, device=dev)
+    fwd_err = dw_err = dp_err = grad_err = 0.0
+    for (m, k), view in [(s, False) for s in list(shapes) + list(K4_EXTRA)] \
+            + [((64, 576), True)]:
+        e1, e2, e3 = _k4_check(*_k4_inputs(g, dev, m, k, view))
+        fwd_err, dw_err, dp_err = (max(fwd_err, e1), max(dw_err, e2),
+                                   max(dp_err, e3))
+    for m, k in shapes:     # the autograd function against autograd
+        w, probs, up = _k4_inputs(g, dev, m, k)
         wk, pk = w.clone().requires_grad_(), probs.clone().requires_grad_()
         (mops.mps_combine(wk, pk, K4_PW) * up).sum().backward()
         wr, pr = w.clone().requires_grad_(), probs.clone().requires_grad_()
@@ -587,37 +707,131 @@ def phase_k4(dev, flush):
         for a, b in ((wk.grad, wr.grad), (pk.grad, pr.grad)):
             torch.testing.assert_close(a, b, rtol=1e-4,
                                        atol=1e-5 * b.abs().max().item())
-            err = max(err, (a - b).abs().max().item())
-    log(f"[kernels] K4 mps_combine: forward bitwise equal to the plain "
-        f"version at every resnet18 weight shape {shapes}, |P| = 4, pw "
-        f"{K4_PW}; backward (autograd.Function) within rtol 1e-4 of "
-        f"autograd through the plain version (max |diff| {err:.3g})")
-    # timed at the largest search weight (st3b*: 512 x 4608)
-    m, k = max(shapes, key=lambda s: s[0] * s[1])
-    copies = [(torch.randn(m, k, generator=g, device=dev) * 0.05,
-               torch.softmax(torch.randn(m, len(K4_PW), generator=g,
-                                         device=dev), -1))
-              for _ in range(4)]
-    it = iter(range(10 ** 9))
+            grad_err = max(grad_err, (a - b).abs().max().item())
+    log(f"[kernels] K4 mps_combine (forward) and mps_combine_bwd: forward, "
+        f"absmax and dW bitwise, dprobs within the summation bound, at every "
+        f"resnet18 weight shape {list(shapes)}, at {list(K4_EXTRA)} and "
+        f"misaligned views, pw {K4_PW}; the autograd function within rtol "
+        f"1e-4 of autograd through the plain version (max |diff| "
+        f"{grad_err:.3g})")
 
-    def pick():
-        return copies[next(it) % len(copies)]
+    # every search shape timed: both kernels as the search launches them,
+    # their plain versions, and the simple kernels where the ring runs
+    fwd_c = build.load("mps_combine")
+    bwd_c = build.symbol("mps_combine", "mps_combine_bwd_launch")
+    packed, n_p = mops._packed(K4_PW), len(K4_PW)
+    n_nz = sum(1 for b in K4_PW if b)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    per, tot = {}, dict.fromkeys(
+        ("fwd", "bwd", "fwd_ms", "bwd_ms", "fwd_plain", "bwd_plain",
+         "fwd_bound", "bwd_bound"), 0.0)
 
-    nbytes = 2 * m * k * 4 + m * len(K4_PW) * 4
-    # per element and nonzero precision: divide, round, two clamps, two
-    # multiplies, one add
-    ops = 7 * m * k * sum(1 for b in K4_PW if b)
-    bms, by = bound(nbytes, ops, "f32")
-    return dict(shape=f"{m}x{k} f32, pw {K4_PW}", max_abs_err=fwd_err,
-                ms=time_ms(lambda: mops.mps_combine_fwd(*pick(), K4_PW), 50,
-                           flush),
-                device_ms=device_ms(lambda: mops.mps_combine_fwd(
-                    *pick(), K4_PW), 50, flush, "mps_combine_kernel"),
-                plain_ms=time_ms(lambda: mops.mps_combine_ref(*pick(),
-                                                              K4_PW),
-                                 20, flush),
-                library_ms=None, bound_ms=bms, bound_by=by,
-                backward_max_abs_diff=err)
+    def kind():     # the kernel the last device_ms timed
+        return "ring" if any("mps_ring" in n for n in device_ms.names) \
+            else "simple"
+
+    for (m, k), nodes in shapes.items():
+        copies = [_k4_inputs(g, dev, m, k) for _ in range(4)]
+        it = iter(range(10 ** 9))
+
+        def pick():
+            return copies[next(it) % len(copies)]
+
+        absmax = torch.amax(copies[0][0].abs(), 1)
+        outs = (torch.empty(m, k, device=dev), torch.empty(m, n_p, device=dev))
+
+        def fwd():
+            w, probs, _ = pick()
+            build.check(fwd_c(w.data_ptr(), probs.data_ptr(),
+                              outs[0].data_ptr(), absmax.data_ptr(), m, k,
+                              n_p, packed, stream), "mps_combine")
+
+        def bwd():
+            w, probs, up = pick()
+            build.check(bwd_c(w.data_ptr(), up.data_ptr(), probs.data_ptr(),
+                              absmax.data_ptr(), outs[0].data_ptr(),
+                              outs[1].data_ptr(), m, k, n_p, packed,
+                              stream), "mps_combine_bwd")
+
+        def fwd_plain():
+            w, probs, _ = pick()
+            mops.mps_combine_ref(w, probs, K4_PW)
+
+        def bwd_plain():
+            w, probs, up = pick()
+            mops._vjp_bwd(w, probs, K4_PW, up)
+
+        fb, fby = bound(2 * m * k * 4 + m * n_p * 4 + m * 4,
+                        7 * m * k * n_nz, "f32")
+        # per element and nonzero precision: the forward's seven, the mask's
+        # two compares, dW's multiply-multiply-add, dprobs' multiply-add
+        bb, bby = bound(3 * m * k * 4 + 2 * m * n_p * 4 + m * 4,
+                        14 * m * k * n_nz, "f32")
+        r = dict(nodes=nodes, fwd=device_ms(fwd, 30, flush, "mps_"))
+        r["fwd_kernel"] = kind()
+        r["bwd"] = device_ms(bwd, 30, flush, "mps_")
+        r["bwd_kernel"] = kind()
+        r.update(fwd_ms=time_ms(fwd, 30, flush),
+                 bwd_ms=time_ms(bwd, 30, flush),
+                 fwd_plain=device_ms(fwd_plain, 10, flush, names=False),
+                 bwd_plain=device_ms(bwd_plain, 10, flush, names=False),
+                 fwd_bound=fb, bwd_bound=bb, bound_by=(fby, bby))
+        if "ring" in (r["fwd_kernel"], r["bwd_kernel"]):
+            # the simple kernels at the same shape: views off a 16-byte
+            # boundary take them
+            wv, pv, uv = _k4_inputs(g, dev, m, k, view=True)
+            av = torch.amax(wv.abs(), 1)
+            r["simple"] = (
+                device_ms(lambda: mops.mps_combine_fwd(wv, pv, K4_PW, av),
+                          30, flush, "mps_"),
+                device_ms(lambda: mops.mps_combine_bwd(wv, pv, av, uv,
+                                                       K4_PW),
+                          30, flush, "mps_"))
+        per[(m, k)] = r
+        for key in tot:
+            tot[key] += nodes * r[key]
+        simple = (f"; the simple kernels {r['simple'][0]:.4f} / "
+                  f"{r['simple'][1]:.4f}" if "simple" in r else "")
+        log(f"[kernels] K4 {m}x{k} ({nodes} node(s)): forward "
+            f"{r['fwd']:.4f} ms device, {r['fwd_kernel']} kernel "
+            f"({r['fwd_ms']:.4f} events), plain {r['fwd_plain']:.4f}, bound "
+            f"{fb:.4f} ({fby}); backward {r['bwd']:.4f} device, "
+            f"{r['bwd_kernel']} kernel ({r['bwd_ms']:.4f} events), plain "
+            f"_vjp_bwd {r['bwd_plain']:.4f}, bound {bb:.4f} ({bby}){simple}")
+    n_nodes = sum(shapes.values())
+    log(f"[kernels] K4 one search step ({n_nodes} nodes, node-weighted sums, "
+        f"ms): forward {tot['fwd']:.4f} device / {tot['fwd_ms']:.4f} events, "
+        f"plain {tot['fwd_plain']:.4f}, bound {tot['fwd_bound']:.4f}; "
+        f"backward {tot['bwd']:.4f} device / {tot['bwd_ms']:.4f} events, "
+        f"plain _vjp_bwd {tot['bwd_plain']:.4f}, bound "
+        f"{tot['bwd_bound']:.4f}")
+    probe = k4_probe(dev, 512, 4608)
+
+    m, k = max(shapes, key=lambda s: s[0] * s[1])     # 512 x 4608
+    r = per[(m, k)]
+    common = dict(library_ms=None, steps_sum_nodes=n_nodes,
+                  shape=f"{m}x{k} f32, pw {K4_PW}",
+                  kernels_by_shape={f"{a}x{b}": (v["fwd_kernel"],
+                                                 v["bwd_kernel"])
+                                    for (a, b), v in per.items()})
+    fwd_row = dict(common, kernel_taken=r["fwd_kernel"],
+                   max_abs_err=fwd_err, ms=r["fwd_ms"], device_ms=r["fwd"],
+                   simple_device_ms=r.get("simple", (None,))[0],
+                   plain_ms=r["fwd_plain"], bound_ms=r["fwd_bound"],
+                   bound_by=r["bound_by"][0], backward_max_abs_diff=grad_err,
+                   step_device_ms=tot["fwd"], step_ms=tot["fwd_ms"],
+                   step_plain_ms=tot["fwd_plain"],
+                   step_bound_ms=tot["fwd_bound"], probe=probe)
+    bwd_row = dict(common, kernel_taken=r["bwd_kernel"],
+                   max_abs_err=dp_err, dw_max_abs_err=dw_err, ms=r["bwd_ms"],
+                   device_ms=r["bwd"],
+                   simple_device_ms=r.get("simple", (None, None))[1],
+                   plain_ms=r["bwd_plain"], bound_ms=r["bwd_bound"],
+                   bound_by=r["bound_by"][1],
+                   step_device_ms=tot["bwd"], step_ms=tot["bwd_ms"],
+                   step_plain_ms=tot["bwd_plain"],
+                   step_bound_ms=tot["bwd_bound"])
+    return fwd_row, bwd_row
 
 
 K5_SHAPE = (48, 64, 128)      # mamba2-780m: heads, head_dim, state
@@ -1191,10 +1405,12 @@ def phase_search(dev, counters, smi):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = {k: fn.launches for k, fn in counters.items()}
-    if got["mps_combine"] != n_nodes * n_s:
-        raise AssertionError(f"search: K4 launched {got['mps_combine']} "
-                             f"times, need {n_nodes} x {n_s}")
-    if any(v for k, v in got.items() if k != "mps_combine"):
+    for k in ("mps_combine", "mps_combine_bwd"):
+        if got[k] != n_nodes * n_s:
+            raise AssertionError(f"search: {k} launched {got[k]} times, "
+                                 f"need {n_nodes} x {n_s}")
+    if any(v for k, v in got.items()
+           if k not in ("mps_combine", "mps_combine_bwd")):
         raise AssertionError(f"search launched serving kernels: {got}")
     for name, rows in timer.metrics.items():
         for r in rows:
@@ -1251,7 +1467,8 @@ def phase_search(dev, counters, smi):
         f"{cnn.param_count(res.net) / 1e6:.2f} M params) on "
         f"{spec.name} {spec.shape}, batch {batch}, pw {pw}, px {px}: "
         f"{n_w} warmup / {n_s} search / {n_f} finetune steps in {dt:.1f} "
-        f"s; K4 launches {got['mps_combine']} = {n_nodes} x {n_s}")
+        f"s; K4 launches {got['mps_combine']} forward and "
+        f"{got['mps_combine_bwd']} backward = {n_nodes} x {n_s} each")
     log(f"[search] mean step time after the first (ms): " + ", ".join(
         f"{k} {1e3 * v:.1f}" for k, v in per_step.items())
         + f"; phase wall (s, with evaluation): " + ", ".join(
@@ -1301,6 +1518,7 @@ def main():
                 "paged_attention": pops.paged_attention_fwd,
                 "paged_prefill": pops.paged_prefill_fwd,
                 "mps_combine": mops.mps_combine_fwd,
+                "mps_combine_bwd": mops.mps_combine_bwd,
                 "ssd_scan": sops.ssd_scan}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = phase_kernels(dev, flush)
@@ -1318,6 +1536,9 @@ def main():
                           "src/repro/kernels/paged_attention/prefill.py:179"),
         "mps_combine": ("src/repro_torch/csrc/mps_combine.cu",
                         "src/repro/kernels/mps_combine/kernel.py:40"),
+        # the reference's custom-VJP backward (jnp code, no TPU kernel)
+        "mps_combine_bwd": ("src/repro_torch/csrc/mps_combine.cu",
+                            "src/repro/kernels/mps_combine/ops.py:58"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:39"),
     }
@@ -1325,7 +1546,7 @@ def main():
     for k, r in rows.items():
         src, rep = meta[k]
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep}
-        if k == "mps_combine":      # path 2: the search
+        if k in ("mps_combine", "mps_combine_bwd"):    # path 2: the search
             row.update(launches=search_launches[k], path="search")
         elif k == "ssd_scan":       # path 3: mamba serving
             row.update(launches=mamba_runs["plan"][k],

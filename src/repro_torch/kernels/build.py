@@ -34,17 +34,21 @@ SIGNATURES = {
                         [_P] * 7 + [_LL] + [_I] * 9 + [_F, _F, _I, _P]),
     "paged_prefill": ("paged_prefill_launch",
                       [_P] * 5 + [_I] * 11 + [_F, _F, _I, _P]),
-    "mps_combine": ("mps_combine_launch", [_P] * 3 + [_I] * 3 + [_U64, _P]),
+    "mps_combine": ("mps_combine_launch", [_P] * 4 + [_I] * 3 + [_U64, _P]),
     "ssd_scan": ("ssd_scan_launch", [_P] * 5 + [_I] * 3 + [_P]),
 }
 
-# the sources' other C functions, which launch nothing:
+# the sources' other C functions -- further entry points (returning a
+# cudaError_t as above) and queries that launch nothing:
 # source name -> {symbol: (argument types, return type)}
-QUERIES = {
+SYMBOLS = {
     "quant_matmul": {"qmm_scratch_ints": ([_I], _LL)},
     "paged_attention": {"paged_decode_dims": ([_P], _I),
                         "paged_decode_split_tokens": ([_I, _I], _I)},
     "paged_prefill": {"paged_prefill_bf16_dims": ([_P], _I)},
+    "mps_combine": {
+        "mps_combine_bwd_launch": ([_P] * 6 + [_I] * 3 + [_U64, _P], _I),
+        "mps_combine_probe": ([_P] * 4 + [_I] * 3 + [_U64, _P, _P], _I)},
 }
 
 _LOADED: dict = {}
@@ -120,11 +124,11 @@ def load(name: str):
     return _bind(name, symbol, argtypes, ctypes.c_int)
 
 
-def query(name: str, symbol: str):
-    """Another C function of ``csrc/<name>.cu`` (see :data:`QUERIES`),
+def symbol(name: str, sym: str):
+    """Another C function of ``csrc/<name>.cu`` (see :data:`SYMBOLS`),
     built on first use."""
-    argtypes, restype = QUERIES[name][symbol]
-    return _bind(name, symbol, argtypes, restype)
+    argtypes, restype = SYMBOLS[name][sym]
+    return _bind(name, sym, argtypes, restype)
 
 
 def check(rc: int, what: str):

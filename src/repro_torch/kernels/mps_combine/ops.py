@@ -4,15 +4,19 @@ gradient.
 
 ``mps_combine`` is a ``torch.autograd.Function``.  The scale is
 ``max(absmax, 1e-8) * (1 / qmax)`` with the float32 reciprocal, as the
-reference computes it under ``jax.jit`` (``core.quantizers.recip``).  Its forward is
-:func:`mps_combine_fwd`, which launches the kernel for a CUDA tensor and
-runs the plain version (``ref.py``) for a CPU one.  Its backward is the
+reference computes it under ``jax.jit`` (``core.quantizers.recip``).  Its
+forward is :func:`mps_combine_fwd`, its backward :func:`mps_combine_bwd`:
+each launches its kernel for a CUDA tensor and runs its plain version for
+a CPU one -- the forward ``ref.py``, the backward :func:`_vjp_bwd`, the
 JAX package's ``_vjp_bwd`` (``repro/kernels/mps_combine/ops.py``) in
 plain torch ops, the scale held constant::
 
     dW[i, k]       = g[i, k] * sum_p probs[i, p] * (1{|r| < qmax_p}
                                                  + 0.5 * 1{|r| = qmax_p})
     dprobs[i, p]   = sum_k g[i, k] * Q_p(W)[i, k]
+
+The forward kernel also writes each row's absmax, which the backward
+kernel reads instead of reducing W again.
 """
 from __future__ import annotations
 
@@ -39,26 +43,45 @@ def _check(w, probs, precisions):
                          f"precisions of 0 or 2..16 bits, got {precisions}")
 
 
+def _packed(precisions) -> int:
+    return sum(int(b) << (8 * i) for i, b in enumerate(precisions))
+
+
+def _on_card(what, *ts):
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError(f"{what} runs on one cuda device or the cpu, got "
+                         f"tensors on {[str(t.device) for t in ts]}")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{what} takes float32 tensors, got "
+                        f"{[t.dtype for t in ts]}")
+
+
 def mps_combine_fwd(w: torch.Tensor, probs: torch.Tensor,
-                    precisions: tuple[int, ...]) -> torch.Tensor:
+                    precisions: tuple[int, ...],
+                    absmax: torch.Tensor | None = None) -> torch.Tensor:
     """Eq. 5 forward (kernel K4).  w: (M, K) f32; probs: (M, |P|) f32.
-    Returns (M, K) f32."""
+    Returns (M, K) f32; fills ``absmax`` (M,) f32 with each row's
+    ``max |w|`` when given."""
     _check(w, probs, precisions)
+    if absmax is not None and absmax.shape != (w.shape[0],):
+        raise ValueError(f"absmax must be ({w.shape[0]},), got "
+                         f"{tuple(absmax.shape)}")
     if w.device.type == "cpu":
+        if absmax is not None:
+            absmax.copy_(torch.amax(w.abs(), dim=1))
         return _ref.mps_combine_ref(w, probs, precisions)
-    if w.device.type != "cuda" or probs.device != w.device:
-        raise ValueError(f"mps_combine runs on one cuda device or the cpu, "
-                         f"got w on {w.device}, probs on {probs.device}")
-    if w.dtype != torch.float32 or probs.dtype != torch.float32:
-        raise TypeError(f"mps_combine takes float32 w and probs, got "
-                        f"{w.dtype}, {probs.dtype}")
+    _on_card("mps_combine", w, probs, *[t for t in (absmax,) if t is not None])
     w = w.contiguous()
     probs = probs.contiguous()
+    if absmax is not None and not absmax.is_contiguous():
+        raise ValueError("absmax must be contiguous")
     out = torch.empty_like(w)
-    packed = sum(int(b) << (8 * i) for i, b in enumerate(precisions))
     fn = build.load("mps_combine")
     build.check(fn(w.data_ptr(), probs.data_ptr(), out.data_ptr(),
-                   w.shape[0], w.shape[1], len(precisions), packed,
+                   0 if absmax is None else absmax.data_ptr(),
+                   w.shape[0], w.shape[1], len(precisions),
+                   _packed(precisions),
                    torch.cuda.current_stream(w.device).cuda_stream),
                 "mps_combine")
     mps_combine_fwd.launches += 1
@@ -66,6 +89,37 @@ def mps_combine_fwd(w: torch.Tensor, probs: torch.Tensor,
 
 
 mps_combine_fwd.launches = 0
+
+
+def mps_combine_bwd(w: torch.Tensor, probs: torch.Tensor,
+                    absmax: torch.Tensor, g: torch.Tensor,
+                    precisions: tuple[int, ...]):
+    """The straight-through backward of :func:`mps_combine`: ``(dw,
+    dprobs)`` for the upstream gradient ``g`` (M, K), given the forward's
+    per-row ``absmax`` (M,) (the CPU's plain version reduces w itself)."""
+    _check(w, probs, precisions)
+    if g.shape != w.shape or absmax.shape != (w.shape[0],):
+        raise ValueError(f"mps_combine_bwd takes g {tuple(w.shape)} and "
+                         f"absmax ({w.shape[0]},), got {tuple(g.shape)}, "
+                         f"{tuple(absmax.shape)}")
+    if w.device.type == "cpu":
+        return _vjp_bwd(w, probs, precisions, g)
+    _on_card("mps_combine_bwd", w, probs, absmax, g)
+    w, probs, absmax, g = (t.contiguous() for t in (w, probs, absmax, g))
+    dw = torch.empty_like(w)
+    dprobs = torch.empty_like(probs)
+    fn = build.symbol("mps_combine", "mps_combine_bwd_launch")
+    build.check(fn(w.data_ptr(), g.data_ptr(), probs.data_ptr(),
+                   absmax.data_ptr(), dw.data_ptr(), dprobs.data_ptr(),
+                   w.shape[0], w.shape[1], len(precisions),
+                   _packed(precisions),
+                   torch.cuda.current_stream(w.device).cuda_stream),
+                "mps_combine_bwd")
+    mps_combine_bwd.launches += 1
+    return dw, dprobs
+
+
+mps_combine_bwd.launches = 0
 
 
 def _vjp_bwd(w, probs, precisions, g):
@@ -93,14 +147,16 @@ def _vjp_bwd(w, probs, precisions, g):
 class _MpsCombine(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, probs, precisions):
-        ctx.save_for_backward(w, probs)
+        absmax = torch.empty(w.shape[0], dtype=w.dtype, device=w.device)
+        out = mps_combine_fwd(w, probs, precisions, absmax)
+        ctx.save_for_backward(w, probs, absmax)
         ctx.precisions = precisions
-        return mps_combine_fwd(w, probs, precisions)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        w, probs = ctx.saved_tensors
-        dw, dprobs = _vjp_bwd(w, probs, ctx.precisions, g)
+        w, probs, absmax = ctx.saved_tensors
+        dw, dprobs = mps_combine_bwd(w, probs, absmax, g, ctx.precisions)
         return dw, dprobs, None
 
 

@@ -69,7 +69,7 @@ def decode_dims() -> tuple:
     """The head dims the decode kernel is built for, as
     ``csrc/paged_attention.cu`` lists them (builds it)."""
     out = (ctypes.c_int * 8)()
-    n = build.query("paged_attention", "paged_decode_dims")(out)
+    n = build.symbol("paged_attention", "paged_decode_dims")(out)
     return tuple(out[:n])
 
 
@@ -78,7 +78,7 @@ def decode_split_tokens(d: int, dtype: int) -> int:
     """Logical tokens one split of the decode kernel covers at head dim
     ``d`` (dtype code 0 = float32, 1 = bfloat16); raises for a head dim
     the kernel is not built for."""
-    n = build.query("paged_attention", "paged_decode_split_tokens")(d, dtype)
+    n = build.symbol("paged_attention", "paged_decode_split_tokens")(d, dtype)
     if n <= 0:
         raise ValueError(f"paged decode supports head dims {decode_dims()}, "
                          f"got D={d}")
@@ -90,7 +90,7 @@ def prefill_bf16_dims() -> tuple:
     """The head dims the prefill kernel's bfloat16 (tensor-core) path is
     built for, as ``csrc/paged_prefill.cu`` lists them (builds it)."""
     out = (ctypes.c_int * 8)()
-    n = build.query("paged_prefill", "paged_prefill_bf16_dims")(out)
+    n = build.symbol("paged_prefill", "paged_prefill_bf16_dims")(out)
     return tuple(out[:n])
 
 

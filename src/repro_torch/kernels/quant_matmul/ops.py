@@ -23,7 +23,7 @@ def _split_scratch(dev: torch.device, stream: int):
     key = (dev, stream)
     pair = _SCRATCH.get(key)
     if pair is None:
-        ints = build.query("quant_matmul", "qmm_scratch_ints")
+        ints = build.symbol("quant_matmul", "qmm_scratch_ints")
         pair = (torch.zeros(ints(0), dtype=torch.int32, device=dev),
                 torch.zeros(ints(1), dtype=torch.int32, device=dev))
         _SCRATCH[key] = pair

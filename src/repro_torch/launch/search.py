@@ -8,9 +8,10 @@ port, one reference CNN on its synthetic dataset.
     PYTHONPATH=src python -m repro_torch.launch.search --device cpu \
         --arch dscnn --width 8 --data gsc --batch 8 --steps 3,3,2
 
-``--profile N`` traces N extra search steps with ``torch.profiler``
-after the run and prints the device time by kernel and the device's busy
-share of the traced window (CUDA only).
+``--profile N`` times N extra search steps untraced, then traces N more
+with ``torch.profiler`` and prints the device time by kernel, the device
+operations (kernels, copies) a step and the device's busy share of the
+traced window (CUDA only).
 """
 from __future__ import annotations
 
@@ -25,9 +26,10 @@ from repro_torch.models import cnn
 
 
 def _profile(comp, res, args, n_steps: int):
-    """Trace ``n_steps`` JointSearch steps continuing from the result's
-    network and selection parameters; print the kernels by device time
-    and the device's busy share of the window."""
+    """Time ``n_steps`` JointSearch steps continuing from the result's
+    network and selection parameters, then trace as many; print the
+    kernels by device time, the device operations a step and the
+    device's busy share of the traced window."""
     from torch.profiler import ProfilerActivity, profile
 
     state = phases.CompressionState(
@@ -38,6 +40,10 @@ def _profile(comp, res, args, n_steps: int):
     ts = search.init_train_state(state)
     search.run(state, start_step=n_steps, train_state=ts)   # warm up
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    search.run(state, start_step=1, train_state=ts)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -46,13 +52,19 @@ def _profile(comp, res, args, n_steps: int):
         wall = time.perf_counter() - t0
     # device time: the kernel rows only (an operator's row repeats the
     # time of the kernels it launched)
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=25))
     # the timed window runs n_steps steps plus the final discretize and
     # evaluation of JointSearch.run
+    print(f"[profile] untraced: {n_steps} search steps + discretize in "
+          f"{untraced:.3f} s = {1e3 * untraced / n_steps:.1f} ms a step")
     print(f"[profile] {n_steps} search steps + discretize in {wall:.3f} s; "
+          f"{launches} device operations (kernels, copies) = "
+          f"{launches / n_steps:.0f} a step; "
           f"device busy {dev_us / 1e6:.3f} s = "
           f"{100 * dev_us / 1e6 / wall:.1f}% of the window (kernel time "
           f"summed; overlapping streams would count twice; the profiler "

@@ -564,6 +564,166 @@ def test_mps_combine_misaligned_view(cuda):
                        mops.mps_combine_ref(w, probs, (0, 2, 4, 8)))
 
 
+K4_PWS = [(0, 2, 4, 8), (2, 4, 8), (8,), (0, 8, 0, 2),
+          (2, 3, 4, 5, 6, 7, 8, 16)]
+# small rows of few elements; problems large enough for the ring kernel
+# whose tiles hold 8, 4 and 2 rows, the last tile short; and one as large
+# whose rows are too long for two stages
+K4_RAGGED_TILES = [(1, 4), (9, 8), (13, 64), (3, 256), (7, 512),
+                   (37501, 64), (9377, 256), (4689, 512), (40, 60000)]
+
+
+def _k4_case(dev, m, k, pw, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(m, k, generator=g, device=dev)
+    w[0, :3] = 0.0
+    if m > 2:
+        w[2] = 0.0                                # an all-zero row
+    probs = torch.softmax(torch.randn(m, len(pw), generator=g, device=dev),
+                          -1)
+    up = torch.randn(m, k, generator=g, device=dev)
+    return w, probs, up
+
+
+def _k4_check_bwd(w, probs, up, pw, dw, dprobs):
+    """dW bit for bit against the plain version on the card; dprobs
+    within the summation bound 2 K 2^-24 sum_k |g q| of a float64 row
+    sum of the plain version's products g * Q_p(W)."""
+    want_dw, _ = mops._vjp_bwd(w, probs, pw, up)
+    assert torch.equal(dw, want_dw)
+    k = w.shape[1]
+    for p in range(len(pw)):
+        onehot = torch.zeros_like(probs)
+        onehot[:, p] = 1.0
+        q = mops.mps_combine_ref(w, onehot, pw)   # Q_p(W), 0 if 0-bit
+        prod = (up * q).double()
+        exact = prod.sum(1)
+        bound = 2 * k * 2.0 ** -24 * prod.abs().sum(1)
+        err = (dprobs[:, p].double() - exact).abs()
+        assert bool((err <= bound).all()), (p, float((err - bound).max()))
+
+
+@pytest.mark.parametrize("m,k", K4_SHAPES + K4_RAGGED_TILES)
+@pytest.mark.parametrize("pw", K4_PWS)
+def test_mps_combine_kernels_precision_sets(cuda, pw, m, k):
+    """The forward bit for bit and its absmax exactly; the backward
+    kernel's dW bit for bit against ``_vjp_bwd`` on the card and its
+    dprobs within the summation bound; one launch each."""
+    w, probs, up = _k4_case(cuda, m, k, pw, m * 31 + k + len(pw))
+    absmax = torch.empty(m, device=cuda)
+    before = (mops.mps_combine_fwd.launches, mops.mps_combine_bwd.launches)
+    got = mops.mps_combine_fwd(w, probs, pw, absmax)
+    dw, dprobs = mops.mps_combine_bwd(w, probs, absmax, up, pw)
+    torch.cuda.synchronize()
+    assert (mops.mps_combine_fwd.launches,
+            mops.mps_combine_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, mops.mps_combine_ref(w, probs, pw))
+    assert torch.equal(absmax, torch.amax(w.abs(), 1))
+    _k4_check_bwd(w, probs, up, pw, dw, dprobs)
+
+
+@pytest.mark.parametrize("pw", K4_PWS)
+def test_mps_combine_misaligned_views_both_kernels(cuda, pw):
+    """Views off a 16-byte boundary take the simple kernels, bitwise."""
+    w0, probs, up0 = _k4_case(cuda, 64, 576, pw, 5)
+    views = []
+    for t in (w0, up0):
+        base = torch.empty(t.numel() + 1, device=cuda)
+        base[1:] = t.reshape(-1)
+        views.append(base[1:].view(t.shape))
+    w, up = views
+    absmax = torch.empty(64, device=cuda)
+    assert torch.equal(mops.mps_combine_fwd(w, probs, pw, absmax),
+                       mops.mps_combine_ref(w, probs, pw))
+    assert torch.equal(absmax, torch.amax(w.abs(), 1))
+    dw, dprobs = mops.mps_combine_bwd(w, probs, absmax, up, pw)
+    torch.cuda.synchronize()
+    _k4_check_bwd(w, probs, up, pw, dw, dprobs)
+
+
+@pytest.mark.parametrize("m", [16, 4700])
+@pytest.mark.parametrize("pw", [(0, 2, 4, 8), (2, 3, 4, 5, 6, 7, 8, 16)])
+def test_mps_combine_ties_clip_boundary_zero_row(cuda, pw, m):
+    """Exact ties W = (k + 0.5) s, several elements on +-absmax (the STE
+    mask 0.5) and an all-zero row (the 1e-8 floor), on the card: 16 rows
+    take the simple kernels, 4700 the ring kernel."""
+    k = 512
+    g = torch.Generator(device="cuda").manual_seed(2)
+    w = torch.rand(m, k, generator=g, device=cuda) * 2 - 1
+    qmax = float(2 ** (max(pw) - 1) - 1)
+    a = 2.0
+    s = torch.tensor(a) * (torch.tensor(1.0) / torch.tensor(qmax))
+    ties = ((torch.arange(k) % int(qmax)).float() + 0.5) * s
+    w[0] = ties.to(cuda)
+    w[0, 0] = a
+    w[1, :40:3] = a
+    w[1, 1:40:3] = -a
+    w[2] = 0.0
+    ratio = w / s.to(cuda)
+    assert int((ratio[0, 1:] == ratio[0, 1:].floor() + 0.5).sum()) >= k // 2
+    assert int((ratio[1].abs() == qmax).sum()) >= 20
+    probs = torch.softmax(torch.randn(m, len(pw), generator=g, device=cuda),
+                          -1)
+    up = torch.randn(m, k, generator=g, device=cuda)
+    absmax = torch.empty(m, device=cuda)
+    out = mops.mps_combine_fwd(w, probs, pw, absmax)
+    dw, dprobs = mops.mps_combine_bwd(w, probs, absmax, up, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mops.mps_combine_ref(w, probs, pw))
+    assert torch.equal(out[2], torch.zeros_like(out[2]))
+    _k4_check_bwd(w, probs, up, pw, dw, dprobs)
+    assert torch.equal(dprobs[2], torch.zeros_like(dprobs[2]))
+
+
+def test_mps_combine_two_streams(cuda):
+    """Each launch runs on the caller's current stream: two streams at
+    once give each its own bitwise results."""
+    pw = (0, 2, 4, 8)
+    cases = [_k4_case(cuda, 512, 4608, pw, 10 + i) for i in range(2)]
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    outs = []
+    for (w, probs, up), st in zip(cases, streams):
+        with torch.cuda.stream(st):
+            absmax = torch.empty(512, device=cuda)
+            out = mops.mps_combine_fwd(w, probs, pw, absmax)
+            outs.append((out, absmax, *mops.mps_combine_bwd(w, probs, absmax,
+                                                            up, pw)))
+    torch.cuda.synchronize()
+    for (w, probs, up), (out, absmax, dw, dprobs) in zip(cases, outs):
+        assert torch.equal(out, mops.mps_combine_ref(w, probs, pw))
+        assert torch.equal(absmax, torch.amax(w.abs(), 1))
+        _k4_check_bwd(w, probs, up, pw, dw, dprobs)
+
+
+def test_mps_combine_routes_by_size(cuda):
+    """The ring kernel (bulk copies into a shared-memory ring) takes an
+    aligned problem of at least 16384 elements an SM forward, 4096
+    backward; the simple kernels take smaller ones, ragged rows and rows
+    too long for two stages.  Read from the profiler's kernel names."""
+    from torch.profiler import ProfilerActivity, profile
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    pw = (0, 2, 4, 8)
+
+    def taken(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if "mps_" in e.key}
+        assert len(names) == 1, names
+        return "ring" if "mps_ring_kernel" in names.pop() else "simple"
+
+    for m, k in K4_SHAPES + K4_RAGGED_TILES:
+        w, probs, up = _k4_case(cuda, m, k, pw, 3)
+        absmax = torch.empty(m, device=cuda)
+        fits = k % 4 == 0 and k != 60000
+        assert taken(lambda: mops.mps_combine_fwd(w, probs, pw, absmax)) == (
+            "ring" if fits and m * k >= 16384 * sms else "simple"), (m, k)
+        assert taken(lambda: mops.mps_combine_bwd(w, probs, absmax, up,
+                                                  pw)) == (
+            "ring" if fits and m * k >= 4096 * sms else "simple"), (m, k)
+
+
 def _ssd_case(dev, c, h, p, n, seed):
     g = torch.Generator(device="cpu").manual_seed(seed)
     dec = torch.rand(c, h, generator=g) * 0.7 + 0.3
