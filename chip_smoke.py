@@ -28,7 +28,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
               over a search step's 21 nodes, each named by the kernel it
               took (ring or simple) and, where the ring runs, beside the
               simple kernels; one launch of the stamped forward
-              (mps_combine_probe) for its phase split in cycles.
+              (mps_combine_probe) for its phase split in cycles; K4 at
+              llama3.2-1b's projections (512/2048/8192 x 2048, 2048 x
+              8192 rows x K), also through the LM's channel-last route
+              from (K, C_out) weights (forward and dW bitwise, dprobs in
+              bound), timed likewise with the transposing copy into rows,
+              summed over a train step's 112 projections.
 4. rng     -- the threefry2x32 generator on the card against the CPU
               (bits, uniforms, randints bit-equal; normal, gumbel within
               stated ULPs); the device sampler's cost per decode step.
@@ -56,7 +61,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
               around the run must each be 21 weight nodes x search steps;
               finite losses; a plan with
               bits in pw and the classifier unpruned.
-8. report  -- one JSON line of kernels, the card's name and power limit,
+8. train   -- path 4: the paper's joint search on llama3.2-1b at full
+              width (remat, f32 master weights, adam at 3e-4, random
+              weights from seed 0) through make_train_step(search=True),
+              4 steps of batch 4 x 256 tokens; K4's forward launched 112 x
+              steps x 2 (the remat recompute) and its backward 112 x
+              steps, no other kernel and no call of the plain quantizer
+              stack; finite losses and grad norms, every gamma leaf moved,
+              a finite mps_size_cost; step ms, tokens/s, peak memory; one
+              profiled step's busy share and K4's share; then
+              extract_plan (112 groups, bits in pw), bound, and served (2
+              greedy requests x 8 tokens, paged) on K1, K2 and K3.
+9. resume  -- llama3.2-1b-smoke under deterministic algorithms: 2 steps,
+              a checkpoint, restore_latest into a fresh template and 2
+              more equal 4 uninterrupted steps bit for bit.
+10. report -- one JSON line of kernels, the card's name and power limit,
               and last the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -606,6 +625,23 @@ def _k4_inputs(g, dev, m, k, view=False):
     return w, probs, up
 
 
+def _k4_dprobs_check(w, probs, up, dprobs, where):
+    """dprobs within the summation bound 2 K 2^-24 sum_k |g q| of a
+    float64 row sum of the plain version's products."""
+    from repro_torch.kernels.mps_combine import ops as mops
+    k = w.shape[1]
+    for p in range(len(K4_PW)):
+        onehot = torch.zeros_like(probs)
+        onehot[:, p] = 1.0
+        prod = (up * mops.mps_combine_ref(w, onehot, K4_PW)).double()
+        err = (dprobs[:, p].double() - prod.sum(1)).abs()
+        bound = 2 * k * 2.0 ** -24 * prod.abs().sum(1)
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"K4 backward dprobs[:, {p}] outside the "
+                                 f"summation bound at {where}: "
+                                 f"{float((err - bound).max())}")
+
+
 def _k4_check(w, probs, up):
     """Both kernels against their plain versions: the forward and its
     absmax bit for bit, dW bit for bit, dprobs within the summation bound
@@ -627,16 +663,7 @@ def _k4_check(w, probs, up):
     if not torch.equal(dw, want_dw):
         raise AssertionError(f"K4 backward dW not bitwise at {where}: max "
                              f"|diff| {(dw - want_dw).abs().max().item()}")
-    for p in range(len(K4_PW)):
-        onehot = torch.zeros_like(probs)
-        onehot[:, p] = 1.0
-        prod = (up * mops.mps_combine_ref(w, onehot, K4_PW)).double()
-        err = (dprobs[:, p].double() - prod.sum(1)).abs()
-        bound = 2 * k * 2.0 ** -24 * prod.abs().sum(1)
-        if not bool((err <= bound).all()):
-            raise AssertionError(f"K4 backward dprobs[:, {p}] outside the "
-                                 f"summation bound at {where}: "
-                                 f"{float((err - bound).max())}")
+    _k4_dprobs_check(w, probs, up, dprobs, where)
     return ((got - want).abs().max().item(),
             (dw - want_dw).abs().max().item(),
             (dprobs - want_dp).abs().max().item())
@@ -680,6 +707,186 @@ def k4_probe(dev, m, k):
                 stages=stages, warps_a_row=gw)
 
 
+def k4_lm_shapes():
+    """(C_out, K) of llama3.2-1b's block projections -- the rows K4 takes
+    from each (K, C_out) weight in a train step -- with their count over
+    the super-blocks (112 in all)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = registry.get("llama3.2-1b")
+    d, ff = cfg.d_model, cfg.d_ff
+    q, kv = cfg.h_eff * cfg.head_dim, cfg.hkv_eff * cfg.head_dim
+    kn = {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
+          "w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
+    shapes = {}
+    for _, _, name in lm._plan_weights(cfg):
+        k, n = kn[name]
+        shapes[(n, k)] = shapes.get((n, k), 0) + lm.n_superblocks(cfg)
+    return shapes
+
+
+def _k4_route_check(g, dev, m, k):
+    """K4 through the LM's channel-last route (``core.mps.kernel_combine``
+    with ``channel_axis=1``) from a (K, C_out) weight, with autograd: the
+    effective weight and dW bitwise against the plain versions on the
+    rows, dprobs within its summation bound.  Returns the max |diff| of
+    the forward and dW."""
+    from repro_torch.core import mps
+    from repro_torch.kernels.mps_combine import ops as mops
+    w, probs, up = _k4_inputs(g, dev, m, k)
+    w_kn = w.T.contiguous().requires_grad_()
+    p = probs.clone().requires_grad_()
+    out = mps.kernel_combine(w_kn, p, K4_PW, channel_axis=1)
+    out.backward(up.T.contiguous())
+    torch.cuda.synchronize()
+    want = mops.mps_combine_ref(w, probs, K4_PW)
+    want_dw, _ = mops._vjp_bwd(w, probs, K4_PW, up)
+    where = f"{k}x{m} (K, C_out) through kernel_combine"
+    if out.shape != (k, m) or not torch.equal(out.detach().T, want):
+        raise AssertionError(f"K4 route forward not bitwise at {where}")
+    if not torch.equal(w_kn.grad.T, want_dw):
+        raise AssertionError(f"K4 route dW not bitwise at {where}")
+    _k4_dprobs_check(w, probs, up, p.grad, where)
+    return ((out.detach().T - want).abs().max().item(),
+            (w_kn.grad.T - want_dw).abs().max().item())
+
+
+def phase_k4_lm(dev, flush, g):
+    """K4 at llama3.2-1b's projection shapes: checked through the
+    channel-last route, timed as the search shapes are, with the device
+    time of the transposing copy of a (K, C_out) f32 weight into rows
+    (the route's copy of W in the forward, of the upstream gradient in the
+    backward), summed over one train step's 112 projections with remat:
+    two forward launches and two W copies a projection (the recompute),
+    one backward launch and one gradient copy."""
+    shapes = k4_lm_shapes()
+    errs = [0.0, 0.0]
+    for m, k in shapes:
+        e = _k4_check(*_k4_inputs(g, dev, m, k))
+        r = _k4_route_check(g, dev, m, k)
+        errs = [max(errs[0], e[0], r[0]), max(errs[1], e[1], r[1])]
+    log(f"[kernels] K4 at llama3.2-1b's projections {list(shapes)} "
+        f"(rows x K), pw {K4_PW}: direct and through the channel-last route "
+        f"from (K, C_out) weights, forward and dW bitwise, dprobs within "
+        f"the summation bound")
+    per, tot = {}, dict.fromkeys(K4_SUMS + ("copy",), 0.0)
+    for (m, k), n in shapes.items():
+        r = _k4_time(dev, flush, g, m, k)
+        w_kn = torch.randn(k, m, generator=g, device=dev)
+        r["copy"] = device_ms(lambda: torch.movedim(w_kn, 1, 0).contiguous(),
+                              30, flush, names=False)
+        r["copy_bound"] = bound(2 * m * k * 4, 0, "f32")[0]
+        per[f"{m}x{k}"] = dict(r, projections=n)
+        for key in tot:
+            # remat: the forward and its W copy run twice a step
+            rep = 3 if key == "copy" else 2 if key.startswith("fwd") else 1
+            tot[key] += n * rep * r[key]
+        _k4_log(m, k, f"{n} projections a train step", r)
+        log(f"[kernels] K4 {m}x{k}: the transposing copy of the (K, C_out) "
+            f"weight into rows {r['copy']:.4f} ms device (bound "
+            f"{r['copy_bound']:.4f}, bytes)")
+    log(f"[kernels] K4 one llama3.2-1b train step (112 projections, remat: "
+        f"2 forward + 1 backward launches and 3 transposing copies each; "
+        f"ms): forward {tot['fwd']:.4f} device / {tot['fwd_ms']:.4f} events, "
+        f"plain {tot['fwd_plain']:.4f}, bound {tot['fwd_bound']:.4f}; "
+        f"backward {tot['bwd']:.4f} device / {tot['bwd_ms']:.4f} events, "
+        f"plain _vjp_bwd {tot['bwd_plain']:.4f}, bound "
+        f"{tot['bwd_bound']:.4f}; copies {tot['copy']:.4f} device")
+    return dict(shapes=per, train_step=tot, max_abs_err=errs[0],
+                dw_max_abs_err=errs[1])
+
+
+K4_SUMS = ("fwd", "bwd", "fwd_ms", "bwd_ms", "fwd_plain", "bwd_plain",
+           "fwd_bound", "bwd_bound")
+
+
+def _k4_time(dev, flush, g, m, k):
+    """Both K4 kernels at one (rows, K) shape, launched through their C
+    entry points as the wrappers launch them: device ms (profiler) and
+    event ms, the kernel each took, their plain versions' device ms, the
+    byte / operation bounds, and where the ring runs the simple kernels
+    beside it."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mps_combine import ops as mops
+    fwd_c = build.load("mps_combine")
+    bwd_c = build.symbol("mps_combine", "mps_combine_bwd_launch")
+    packed, n_p = mops._packed(K4_PW), len(K4_PW)
+    n_nz = sum(1 for b in K4_PW if b)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    copies = [_k4_inputs(g, dev, m, k) for _ in range(4)]
+    it = iter(range(10 ** 9))
+
+    def pick():
+        return copies[next(it) % len(copies)]
+
+    absmax = torch.amax(copies[0][0].abs(), 1)
+    outs = (torch.empty(m, k, device=dev), torch.empty(m, n_p, device=dev))
+
+    def fwd():
+        w, probs, _ = pick()
+        build.check(fwd_c(w.data_ptr(), probs.data_ptr(),
+                          outs[0].data_ptr(), absmax.data_ptr(), m, k,
+                          n_p, packed, stream), "mps_combine")
+
+    def bwd():
+        w, probs, up = pick()
+        build.check(bwd_c(w.data_ptr(), up.data_ptr(), probs.data_ptr(),
+                          absmax.data_ptr(), outs[0].data_ptr(),
+                          outs[1].data_ptr(), m, k, n_p, packed,
+                          stream), "mps_combine_bwd")
+
+    def fwd_plain():
+        w, probs, _ = pick()
+        mops.mps_combine_ref(w, probs, K4_PW)
+
+    def bwd_plain():
+        w, probs, up = pick()
+        mops._vjp_bwd(w, probs, K4_PW, up)
+
+    def kind():     # the kernel the last device_ms timed
+        return "ring" if any("mps_ring" in n for n in device_ms.names) \
+            else "simple"
+
+    fb, fby = bound(2 * m * k * 4 + m * n_p * 4 + m * 4,
+                    7 * m * k * n_nz, "f32")
+    # per element and nonzero precision: the forward's seven, the mask's
+    # two compares, dW's multiply-multiply-add, dprobs' multiply-add
+    bb, bby = bound(3 * m * k * 4 + 2 * m * n_p * 4 + m * 4,
+                    14 * m * k * n_nz, "f32")
+    r = dict(fwd=device_ms(fwd, 30, flush, "mps_"))
+    r["fwd_kernel"] = kind()
+    r["bwd"] = device_ms(bwd, 30, flush, "mps_")
+    r["bwd_kernel"] = kind()
+    r.update(fwd_ms=time_ms(fwd, 30, flush),
+             bwd_ms=time_ms(bwd, 30, flush),
+             fwd_plain=device_ms(fwd_plain, 10, flush, names=False),
+             bwd_plain=device_ms(bwd_plain, 10, flush, names=False),
+             fwd_bound=fb, bwd_bound=bb, bound_by=(fby, bby))
+    if "ring" in (r["fwd_kernel"], r["bwd_kernel"]):
+        # the simple kernels at the same shape: views off a 16-byte
+        # boundary take them
+        wv, pv, uv = _k4_inputs(g, dev, m, k, view=True)
+        av = torch.amax(wv.abs(), 1)
+        r["simple"] = (
+            device_ms(lambda: mops.mps_combine_fwd(wv, pv, K4_PW, av),
+                      30, flush, "mps_"),
+            device_ms(lambda: mops.mps_combine_bwd(wv, pv, av, uv, K4_PW),
+                      30, flush, "mps_"))
+    return r
+
+
+def _k4_log(m, k, what, r):
+    simple = (f"; the simple kernels {r['simple'][0]:.4f} / "
+              f"{r['simple'][1]:.4f}" if "simple" in r else "")
+    log(f"[kernels] K4 {m}x{k} ({what}): forward {r['fwd']:.4f} ms device, "
+        f"{r['fwd_kernel']} kernel ({r['fwd_ms']:.4f} events), plain "
+        f"{r['fwd_plain']:.4f}, bound {r['fwd_bound']:.4f} "
+        f"({r['bound_by'][0]}); backward {r['bwd']:.4f} device, "
+        f"{r['bwd_kernel']} kernel ({r['bwd_ms']:.4f} events), plain "
+        f"_vjp_bwd {r['bwd_plain']:.4f}, bound {r['bwd_bound']:.4f} "
+        f"({r['bound_by'][1]}){simple}")
+
+
 def phase_k4(dev, flush):
     """K4's forward and backward kernels: checked at every resnet18 search
     shape, ragged, long-row, ring-sized and misaligned; timed at every
@@ -715,89 +922,13 @@ def phase_k4(dev, flush):
         f"1e-4 of autograd through the plain version (max |diff| "
         f"{grad_err:.3g})")
 
-    # every search shape timed: both kernels as the search launches them,
-    # their plain versions, and the simple kernels where the ring runs
-    fwd_c = build.load("mps_combine")
-    bwd_c = build.symbol("mps_combine", "mps_combine_bwd_launch")
-    packed, n_p = mops._packed(K4_PW), len(K4_PW)
-    n_nz = sum(1 for b in K4_PW if b)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    per, tot = {}, dict.fromkeys(
-        ("fwd", "bwd", "fwd_ms", "bwd_ms", "fwd_plain", "bwd_plain",
-         "fwd_bound", "bwd_bound"), 0.0)
-
-    def kind():     # the kernel the last device_ms timed
-        return "ring" if any("mps_ring" in n for n in device_ms.names) \
-            else "simple"
-
+    per, tot = {}, dict.fromkeys(K4_SUMS, 0.0)
     for (m, k), nodes in shapes.items():
-        copies = [_k4_inputs(g, dev, m, k) for _ in range(4)]
-        it = iter(range(10 ** 9))
-
-        def pick():
-            return copies[next(it) % len(copies)]
-
-        absmax = torch.amax(copies[0][0].abs(), 1)
-        outs = (torch.empty(m, k, device=dev), torch.empty(m, n_p, device=dev))
-
-        def fwd():
-            w, probs, _ = pick()
-            build.check(fwd_c(w.data_ptr(), probs.data_ptr(),
-                              outs[0].data_ptr(), absmax.data_ptr(), m, k,
-                              n_p, packed, stream), "mps_combine")
-
-        def bwd():
-            w, probs, up = pick()
-            build.check(bwd_c(w.data_ptr(), up.data_ptr(), probs.data_ptr(),
-                              absmax.data_ptr(), outs[0].data_ptr(),
-                              outs[1].data_ptr(), m, k, n_p, packed,
-                              stream), "mps_combine_bwd")
-
-        def fwd_plain():
-            w, probs, _ = pick()
-            mops.mps_combine_ref(w, probs, K4_PW)
-
-        def bwd_plain():
-            w, probs, up = pick()
-            mops._vjp_bwd(w, probs, K4_PW, up)
-
-        fb, fby = bound(2 * m * k * 4 + m * n_p * 4 + m * 4,
-                        7 * m * k * n_nz, "f32")
-        # per element and nonzero precision: the forward's seven, the mask's
-        # two compares, dW's multiply-multiply-add, dprobs' multiply-add
-        bb, bby = bound(3 * m * k * 4 + 2 * m * n_p * 4 + m * 4,
-                        14 * m * k * n_nz, "f32")
-        r = dict(nodes=nodes, fwd=device_ms(fwd, 30, flush, "mps_"))
-        r["fwd_kernel"] = kind()
-        r["bwd"] = device_ms(bwd, 30, flush, "mps_")
-        r["bwd_kernel"] = kind()
-        r.update(fwd_ms=time_ms(fwd, 30, flush),
-                 bwd_ms=time_ms(bwd, 30, flush),
-                 fwd_plain=device_ms(fwd_plain, 10, flush, names=False),
-                 bwd_plain=device_ms(bwd_plain, 10, flush, names=False),
-                 fwd_bound=fb, bwd_bound=bb, bound_by=(fby, bby))
-        if "ring" in (r["fwd_kernel"], r["bwd_kernel"]):
-            # the simple kernels at the same shape: views off a 16-byte
-            # boundary take them
-            wv, pv, uv = _k4_inputs(g, dev, m, k, view=True)
-            av = torch.amax(wv.abs(), 1)
-            r["simple"] = (
-                device_ms(lambda: mops.mps_combine_fwd(wv, pv, K4_PW, av),
-                          30, flush, "mps_"),
-                device_ms(lambda: mops.mps_combine_bwd(wv, pv, av, uv,
-                                                       K4_PW),
-                          30, flush, "mps_"))
+        r = dict(_k4_time(dev, flush, g, m, k), nodes=nodes)
         per[(m, k)] = r
         for key in tot:
             tot[key] += nodes * r[key]
-        simple = (f"; the simple kernels {r['simple'][0]:.4f} / "
-                  f"{r['simple'][1]:.4f}" if "simple" in r else "")
-        log(f"[kernels] K4 {m}x{k} ({nodes} node(s)): forward "
-            f"{r['fwd']:.4f} ms device, {r['fwd_kernel']} kernel "
-            f"({r['fwd_ms']:.4f} events), plain {r['fwd_plain']:.4f}, bound "
-            f"{fb:.4f} ({fby}); backward {r['bwd']:.4f} device, "
-            f"{r['bwd_kernel']} kernel ({r['bwd_ms']:.4f} events), plain "
-            f"_vjp_bwd {r['bwd_plain']:.4f}, bound {bb:.4f} ({bby}){simple}")
+        _k4_log(m, k, f"{nodes} node(s)", r)
     n_nodes = sum(shapes.values())
     log(f"[kernels] K4 one search step ({n_nodes} nodes, node-weighted sums, "
         f"ms): forward {tot['fwd']:.4f} device / {tot['fwd_ms']:.4f} events, "
@@ -806,6 +937,7 @@ def phase_k4(dev, flush):
         f"plain _vjp_bwd {tot['bwd_plain']:.4f}, bound "
         f"{tot['bwd_bound']:.4f}")
     probe = k4_probe(dev, 512, 4608)
+    lm_k4 = phase_k4_lm(dev, flush, g)
 
     m, k = max(shapes, key=lambda s: s[0] * s[1])     # 512 x 4608
     r = per[(m, k)]
@@ -821,7 +953,8 @@ def phase_k4(dev, flush):
                    bound_by=r["bound_by"][0], backward_max_abs_diff=grad_err,
                    step_device_ms=tot["fwd"], step_ms=tot["fwd_ms"],
                    step_plain_ms=tot["fwd_plain"],
-                   step_bound_ms=tot["fwd_bound"], probe=probe)
+                   step_bound_ms=tot["fwd_bound"], probe=probe,
+                   lm=lm_k4)
     bwd_row = dict(common, kernel_taken=r["bwd_kernel"],
                    max_abs_err=dp_err, dw_max_abs_err=dw_err, ms=r["bwd_ms"],
                    device_ms=r["bwd"],
@@ -1184,7 +1317,7 @@ def phase_mamba_layer(cfg, p_dev, dev, label):
     p_cpu = {k: {"w": to_cpu(v["w"])} if isinstance(v, dict) else v.cpu()
              for k, v in p_dev.items()}
     k1_per_call = sum(len(w.bits) for w in _planned(p_dev).values())
-    getw = lm._getw
+    getw = lm._make_getw(cfg, None)
     g = torch.Generator(device=dev).manual_seed(6)
     errs = []
     for s in (2048, 509):
@@ -1482,6 +1615,248 @@ def phase_search(dev, counters, smi):
     return got, per_step
 
 
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 256
+
+
+def _count_plain_stack():
+    """Count calls of the plain quantizer stack (``core.quantizers.
+    quantize_weights_multi``), which a CUDA weight must never reach."""
+    from repro_torch.core import quantizers
+    inner = quantizers.quantize_weights_multi
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+
+    quantizers.quantize_weights_multi = counted
+    return calls, lambda: setattr(quantizers, "quantize_weights_multi",
+                                  inner)
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}" if path else k)
+    else:
+        yield path, tree
+
+
+def phase_train(dev, counters, smi, k4_lm):
+    """Path 4: the paper's joint search on full-width llama3.2-1b (remat,
+    f32 master weights, adam at 3e-4, random weights from seed 0) through
+    ``launch.steps.make_train_step(search=True)`` for TRAIN_STEPS steps;
+    K4's launches read around the run; one more step profiled; then the
+    searched plan extracted, bound and served on K1-K3."""
+    from repro_torch.configs import registry
+    from repro_torch.core import mps
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+    from repro_torch.serve import engine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+
+    cfg = registry.get("llama3.2-1b")
+    pw = cfg.mps_precisions
+    n_proj = lm.mps_param_count(cfg) * lm.n_superblocks(cfg)
+    if not cfg.remat or cfg.param_dtype != "float32" or \
+            cfg.optimizer != "adam" or n_proj != 112:
+        raise AssertionError(f"train: unexpected config {cfg}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, mps_on=True)
+    n_params = sum(t.numel() for k, t in _leaves(params)
+                   if not k.endswith("gamma"))
+    opt = optimizers.make_optimizer(cfg.optimizer, 3e-4)
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    step_fn = steps_lib.make_train_step(cfg, opt, search=True)
+    gamma0 = {k: t.clone() for k, t in _leaves(state["params"])
+              if k.endswith("gamma")}
+
+    def batch_at(step):
+        return synthetic.lm_batch(cfg.vocab, TRAIN_SEQ + 1, TRAIN_BATCH,
+                                  step, device=dev)
+
+    batches = [batch_at(i) for i in range(TRAIN_STEPS)]
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, remat {cfg.remat}, {cfg.param_dtype} master weights, "
+        f"{cfg.optimizer} at 3e-4; {n_params / 1e9:.3f} B parameters + "
+        f"{len(gamma0)} gamma leaves ({n_proj} projections), pw {pw}; "
+        f"search, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}")
+    plain, restore = _count_plain_stack()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    times, losses, norms = [], [], []
+    try:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            p, o, loss = step_fn(state["params"], state["opt"], batch, i)
+            state = {"params": p, "opt": o}
+            losses.append(float(loss))
+            norms.append(float(step_fn.grad_norm))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        restore()
+    got = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    need = {"mps_combine": n_proj * TRAIN_STEPS * 2,       # + the recompute
+            "mps_combine_bwd": n_proj * TRAIN_STEPS}
+    if any(got[k] != v for k, v in need.items()) or any(
+            v for k, v in got.items() if k not in need):
+        raise AssertionError(f"train: launches {got}, need {need} and no "
+                             f"other kernel")
+    if plain[0]:
+        raise AssertionError(f"train: {plain[0]} projections took the plain "
+                             f"quantizer stack")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+    moved = [k for k, t in _leaves(state["params"])
+             if k.endswith("gamma") and not torch.equal(t, gamma0[k])]
+    if len(moved) != len(gamma0):
+        raise AssertionError(f"train: only {len(moved)} of {len(gamma0)} "
+                             f"gamma leaves moved")
+    with torch.no_grad():
+        cost = float(lm.mps_size_cost(cfg, state["params"],
+                                      mps.SearchCtx(tau=1.0)))
+    if not np.isfinite(cost):
+        raise AssertionError(f"train: mps_size_cost {cost}")
+    ms = 1e3 * float(np.median(times[1:]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3)
+    log(f"[train] {TRAIN_STEPS} search steps on {torch.cuda.get_device_name(dev)}"
+        f" ({smi}): losses {[round(v, 4) for v in losses]}, grad norms "
+        f"{[round(v, 4) for v in norms]}; step ms {[round(1e3 * t, 1) for t in times]}"
+        f", median of steps 2-{TRAIN_STEPS} {ms:.1f} ms = {tok_s:.0f} "
+        f"training tokens/s; peak memory {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); mps_size_cost {cost:.6g} bytes;"
+        f" K4 launches {got['mps_combine']} forward = {n_proj} x "
+        f"{TRAIN_STEPS} x 2 (remat recompute), {got['mps_combine_bwd']} "
+        f"backward = {n_proj} x {TRAIN_STEPS}; plain quantizer stack: 0 "
+        f"calls; all {len(gamma0)} gamma leaves moved")
+
+    state, prof = train.profile_steps(step_fn, state, batch_at, TRAIN_STEPS,
+                                      1, dev)
+    k4_s = sum(v for k, v in prof["kernels"].items() if "mps_" in k)
+    copy_s = k4_lm["train_step"]["copy"] / 1e3
+    busy = prof["device_s"] / prof["wall_s"]
+    log(f"[train] one profiled step: wall {1e3 * prof['wall_s']:.1f} ms, "
+        f"device {1e3 * prof['device_s']:.1f} ms = {100 * busy:.1f}% busy, "
+        f"{prof['launches']} device operations; K4 {1e3 * k4_s:.2f} ms = "
+        f"{100 * k4_s / prof['device_s']:.2f}% of device time; the "
+        f"transposing copies {1e3 * copy_s:.2f} ms = "
+        f"{100 * copy_s / prof['device_s']:.2f}% (from the kernels phase's "
+        f"copy times x 3 a projection)")
+    top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1])[:8]
+    log("[train] top kernels of the profiled step (device ms): " + "; ".join(
+        f"{k[:60]} {1e3 * v:.2f}" for k, v in top))
+
+    del state["opt"]
+    params = state["params"]
+    plan = lm.extract_plan(cfg, params)
+    bits = {int(b) for v in plan.channel_bits.values() for b in v}
+    if len(plan.groups) != n_proj or not bits <= set(pw) or \
+            plan.meta != {"track": "lm", "arch": cfg.name}:
+        raise AssertionError(f"train: plan {plan.summary()}, bits "
+                             f"{sorted(bits)}, meta {plan.meta}")
+    t0 = time.perf_counter()
+    bound_layers = plan.bind(lm.serve_weight_groups(cfg, params))
+    if sorted(bound_layers) != list(plan.groups):
+        raise AssertionError("train: the plan did not bind every group")
+    del bound_layers
+    server = engine.InferenceServer(cfg, params, plan=plan, max_len=128,
+                                    max_batch=2, cache="paged", page_size=16,
+                                    device=dev)
+    setup = time.perf_counter() - t0
+    seen = [0]
+    _check_logits(server, seen)
+    rng = np.random.default_rng(7)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=n).astype(
+        np.int32), sampling=SamplingParams(max_tokens=8))
+        for i, n in enumerate((37, 90))]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    out = server.serve(reqs)
+    torch.cuda.synchronize()
+    served = {k: fn.launches for k, fn in counters.items()}
+    if any(len(out[i]) != 8 for i in range(2)) or not seen[0]:
+        raise AssertionError(f"train: served {out}")
+    for k in ("quant_matmul", "paged_attention", "paged_prefill"):
+        if not served[k]:
+            raise AssertionError(f"train: serving the plan never launched {k}"
+                                 f": {served}")
+    log(f"[train] searched plan: {plan.summary()}, bits {sorted(bits)}; bind "
+        f"+ apply_plan + server {setup:.2f} s; served 2 greedy requests x 8 "
+        f"tokens (prompts 37, 90) on the paged cache, {seen[0]} logits rows "
+        f"finite; launches {served}")
+    return dict(launches=got, served=served, ms=ms, tok_s=tok_s,
+                peak_bytes=peak, busy=busy, k4_share=k4_s / prof["device_s"])
+
+
+def phase_resume(dev):
+    """Resume on the card at llama3.2-1b-smoke under deterministic
+    algorithms: 4 uninterrupted search steps against 2 steps, a
+    checkpoint, the state restored by ``restore_latest`` into a freshly
+    built template, and 2 more -- every parameter and moment bit for
+    bit."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+
+    cfg = registry.get("llama3.2-1b-smoke")
+    opt = optimizers.make_optimizer(cfg.optimizer, 3e-4)
+    step_fn = steps_lib.make_train_step(cfg, opt, search=True)
+
+    def fresh():
+        p = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev, mps_on=True)
+        return {"params": p, "opt": opt.init(p)}
+
+    def run(state, steps):
+        for i in steps:
+            b = synthetic.lm_batch(cfg.vocab, 65, 4, i, device=dev)
+            p, o, _ = step_fn(state["params"], state["opt"], b, i)
+            state = {"params": p, "opt": o}
+        return state
+
+    # cuBLAS is deterministic under this workspace setting, which
+    # torch.use_deterministic_algorithms requires
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        full = run(fresh(), range(4))
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d, keep=2)
+            mgr.save(1, run(fresh(), range(2)))
+            restored, meta = mgr.restore_latest(fresh())
+            resumed = run(restored, range(meta["step"] + 1, 4))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = dict(_leaves(full)), dict(_leaves(resumed))
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    if sorted(a) != sorted(b) or bad:
+        raise AssertionError(f"resume: {len(bad)} of {len(a)} leaves differ "
+                             f"from the uninterrupted run: {bad[:4]}")
+    log(f"[resume] {cfg.name} on the card, deterministic algorithms: 2 steps "
+        f"+ checkpoint + restore_latest into a fresh template + 2 steps == 4 "
+        f"uninterrupted steps, all {len(a)} parameter and moment leaves bit "
+        f"for bit")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1526,6 +1901,8 @@ def main():
     runs = phase_serve(dev, counters)
     mamba_runs = phase_mamba(dev, counters)
     search_launches, _ = phase_search(dev, counters, smi)
+    trained = phase_train(dev, counters, smi, rows["mps_combine"]["lm"])
+    phase_resume(dev)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -1546,8 +1923,9 @@ def main():
     for k, r in rows.items():
         src, rep = meta[k]
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep}
-        if k in ("mps_combine", "mps_combine_bwd"):    # path 2: the search
-            row.update(launches=search_launches[k], path="search")
+        if k in ("mps_combine", "mps_combine_bwd"):    # paths 2 and 4
+            row.update(launches=search_launches[k], path="search",
+                       launches_train=trained["launches"][k])
         elif k == "ssd_scan":       # path 3: mamba serving
             row.update(launches=mamba_runs["plan"][k],
                        launches_float=mamba_runs["float"][k],
@@ -1557,6 +1935,7 @@ def main():
                        launches_float=runs["float"][k], path="serve")
             if k == "paged_prefill":
                 row.update(logits_vs_dense=runs["paged_vs_dense"])
+            row.update(launches_train_plan=trained["served"][k])
             if k == "quant_matmul":
                 row.update(launches_mamba=mamba_runs["plan"][k])
                 r["max_abs_err"] = max(r["max_abs_err"],

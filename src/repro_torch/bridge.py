@@ -6,6 +6,10 @@ into numpy arrays (for example ``jax.tree.map(np.asarray, tree)``):
 * ``params_from_jax`` takes any such tree -- ``repro.models.lm``'s LM
   parameters with their stacked ``(n_superblocks, ...)`` leaves, or a
   CNN's -- and gives the same dicts of torch tensors on ``device``.
+* ``lm_params_from_jax`` checks an LM tree first: ``embed``, ``blocks``,
+  ``final_norm`` and ``lm_head``; every ``blocks`` leaf stacked on one
+  leading ``n_superblocks`` axis; and, where a projection carries one,
+  ``gamma (n_superblocks, C_out, |P_W|)``.
 * ``cnn_params_from_jax`` checks a ``repro.models.cnn`` tree first: per
   weight node ``w`` (OIHW or (C_out, C_in)), ``b`` and, before BN
   folding, ``bn`` with ``scale``/``bias``/``mean``/``var``.
@@ -31,6 +35,52 @@ def params_from_jax(tree, device="cpu"):
 def _require(cond: bool, msg: str):
     if not cond:
         raise ValueError(msg)
+
+
+def _leaf_shapes(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_shapes(v, f"{path}.{k}" if path else k)
+    else:
+        yield path, np.shape(tree)
+
+
+def _check_gammas(tree, nsb, n_pw, path):
+    if not isinstance(tree, dict):
+        return
+    if "gamma" in tree:
+        w, g = np.shape(tree["w"]), np.shape(tree["gamma"])
+        _require(len(g) == 3 and g[:2] == (nsb, w[-1])
+                 and (n_pw is None or g[2] == n_pw),
+                 f"{path}.gamma: shape {g} for w {w}, want (n_superblocks "
+                 f"{nsb}, C_out {w[-1]}, |P_W|"
+                 f"{'' if n_pw is None else ' ' + str(n_pw)})")
+    for k, v in tree.items():
+        _check_gammas(v, nsb, n_pw, f"{path}.{k}")
+
+
+def lm_params_from_jax(tree, device="cpu", cfg=None):
+    """A ``repro.models.lm`` parameter tree (``init_params(...,
+    mps_on=...)``); ``cfg`` (the port's ``ArchConfig``) also fixes the
+    super-block count and |P_W|."""
+    _require({"embed", "blocks", "final_norm", "lm_head"} <= set(tree),
+             f"an LM tree holds embed, blocks, final_norm and lm_head, got "
+             f"{sorted(tree)}")
+    shapes = list(_leaf_shapes(tree["blocks"], "blocks"))
+    nsb = {s[0] if s else None for _, s in shapes}
+    _require(len(nsb) == 1 and None not in nsb,
+             f"blocks leaves must share one leading super-block axis, got "
+             f"{sorted((p, s) for p, s in shapes)[:4]}...")
+    nsb = nsb.pop()
+    n_pw = None
+    if cfg is not None:
+        from repro_torch.models import lm
+        _require(nsb == lm.n_superblocks(cfg),
+                 f"{nsb} super-blocks, {cfg.name} has "
+                 f"{lm.n_superblocks(cfg)}")
+        n_pw = len(cfg.mps_precisions)
+    _check_gammas(tree["blocks"], nsb, n_pw, "blocks")
+    return params_from_jax(tree, device)
 
 
 def cnn_params_from_jax(tree, device="cpu"):

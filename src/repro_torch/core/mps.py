@@ -28,10 +28,12 @@ class SearchCtx:
 
     ``use_kernel``: None runs the Eq. 5 combine through kernel K4
     (``kernels/mps_combine``) when the weight is a CUDA tensor and
-    through the plain quantizer stack on the CPU; True or False pins
-    the choice.  K4 takes every weight with ``channel_axis == 0``, viewed
-    as (C_out, -1): the per-row absmax of the flattened rest is the
-    per-output-channel absmax."""
+    through the plain quantizer stack on the CPU.  True takes K4 for any
+    weight (its plain version on a CPU tensor) and raises for a weight
+    K4 cannot take; False takes the plain stack, on the CPU only.  K4
+    takes a float32 weight with any ``channel_axis``: the channel axis
+    moved to the front, the rest flattened into rows (:func:`kernel_combine`).
+    """
     method: str = sampling.SOFTMAX
     tau: torch.Tensor | float = 1.0
     rng: Optional[torch.Tensor] = None
@@ -73,17 +75,39 @@ def effective_weight(w: torch.Tensor, gamma: torch.Tensor,
         # layer, broadcast over channels (gradients sum over channels)
         probs = probs.expand(w.shape[channel_axis], probs.shape[1])
     use_kernel = w.is_cuda if ctx.use_kernel is None else ctx.use_kernel
-    if use_kernel and channel_axis == 0:
-        from repro_torch.kernels.mps_combine import ops as mps_ops
-        flat = mps_ops.mps_combine(w.reshape(w.shape[0], -1),
-                                   probs.contiguous(), precisions)
-        return flat.reshape(w.shape)
+    if use_kernel:
+        return kernel_combine(w, probs, precisions, channel_axis)
+    if w.is_cuda:
+        raise ValueError("SearchCtx(use_kernel=False) runs the plain "
+                         "quantizer stack, which takes CPU weights only; a "
+                         "CUDA weight goes through kernel K4")
     qs = quantizers.quantize_weights_multi(w, precisions, channel_axis)
     # reshape probs so that the channel dim broadcasts on `channel_axis`
     shape = [len(precisions)] + [1] * w.ndim
     shape[1 + channel_axis] = w.shape[channel_axis]
     probs_b = torch.movedim(probs, -1, 0).reshape(shape)
     return torch.sum(probs_b * qs, dim=0)
+
+
+def kernel_combine(w: torch.Tensor, probs: torch.Tensor,
+                   precisions: tuple[int, ...], channel_axis: int = 0
+                   ) -> torch.Tensor:
+    """Eq. 5 through kernel K4 for a weight whose output channels lie on
+    ``channel_axis``: the axis moved to the front and the rest flattened
+    into rows of a contiguous ``(C_out, -1)`` copy (a transposing copy
+    unless ``channel_axis`` is 0), combined by ``mps_combine``, and
+    handed back as a view with the weight's layout.  The backward's
+    upstream gradient takes the same transposing copy into rows, and dW
+    comes back through the view.  Raises for a weight K4 cannot take."""
+    from repro_torch.kernels.mps_combine import ops as mps_ops
+    if w.dtype != torch.float32 or probs.dtype != torch.float32:
+        raise TypeError(f"kernel K4 takes float32 weights and "
+                        f"probabilities, got {w.dtype} and {probs.dtype}")
+    axis = channel_axis % w.ndim
+    rows = torch.movedim(w, axis, 0)
+    flat = rows.reshape(rows.shape[0], -1).contiguous()
+    out = mps_ops.mps_combine(flat, probs.contiguous(), precisions)
+    return torch.movedim(out.reshape(rows.shape), 0, axis)
 
 
 def effective_activation(x: torch.Tensor, delta: torch.Tensor,

@@ -12,7 +12,11 @@ ULPs, the same images.
 Quirk kept from the reference: the templates are keyed by
 ``abs(hash(spec.name)) % 2**31``, and Python salts string hashes per
 process, so templates (and the two packages' agreement) hold only within
-one process.  ``lm_batch`` is not ported yet (ROADMAP, LM training).
+one process.
+
+``lm_batch`` is the LM token stream, drawn through the same key stream
+as the JAX package, so its tokens and targets equal the reference's int
+for int.
 """
 from __future__ import annotations
 
@@ -101,3 +105,31 @@ def eval_set(spec: ClassificationSpec, n_batches: int, batch: int,
              seed: int = 10_000, device=None):
     return [class_batch(spec, 10_000_000 + i, batch, seed, device)
             for i in range(n_batches)]
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+
+def lm_batch(vocab: int, seq_len: int, batch: int, step: int,
+             seed: int = 0, structure: float = 0.9, device=None):
+    """Deterministic learnable token stream (``repro.data.synthetic.
+    lm_batch``): tokens follow the noisy affine recurrence ``t[i+1] =
+    (a * t[i] + b) % vocab`` with per-sequence ``(a, b)`` drawn from a
+    tiny set.  Returns {"tokens", "targets"} of (batch, seq_len - 1)
+    int32 on ``device`` (default cpu)."""
+    dev = torch.device("cpu" if device is None else device)
+    key = trng.fold_in(trng.key(seed, dev), step)
+    k0, k1, k2, k3 = trng.split(key, 4)
+    mults = torch.tensor([3, 5, 7, 11], dtype=torch.int64, device=dev)
+    a = mults[trng.randint(k0, (batch,), 0, 4).long()]
+    b = trng.randint(k1, (batch,), 0, 13).long()
+    t = trng.randint(k2, (batch,), 0, vocab).long()
+    toks = torch.empty((batch, seq_len), dtype=torch.int64, device=dev)
+    for i in range(seq_len):
+        t = (a * t + b) % vocab
+        toks[:, i] = t
+    noise_mask = trng.bernoulli(k3, 1 - structure, toks.shape)
+    noise = trng.randint(trng.fold_in(k3, 1), toks.shape, 0, vocab)
+    toks = torch.where(noise_mask, noise.long(), toks).to(torch.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}

@@ -1,0 +1,167 @@
+"""Train an LM, optionally under the paper's joint search
+(``repro.launch.train``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+        --arch llama3.2-1b-smoke --steps 4 --search --ckpt-dir /tmp/ckpt
+
+Runs on ``cuda`` unless ``--device`` names another device, and raises
+when there is no card.  Parameters come from seed 0, the data from
+``data.synthetic.lm_batch`` (a pure function of the step), the optimizer
+is ``cfg.optimizer`` at 3e-4.  ``--search`` trains with the per-channel
+selection logits (``init_params(mps_on=True)``, ``make_train_step(...,
+search=True)``) and prints the plan ``lm.extract_plan`` takes from them.
+
+Fault tolerance as in the reference: with ``--ckpt-dir`` a run resumes
+from the newest readable checkpoint, saves every ``--ckpt-every`` steps
+and at the end, and on SIGTERM saves the step it finished and exits.
+
+``--profile N`` (CUDA) times N more steps untraced, then traces N with
+``torch.profiler`` and prints the device time by kernel, the device
+operations a step and the device's busy share of the traced window.
+The multi-device mesh flags stay with ROADMAP slice E.
+"""
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import time
+
+import torch
+
+from repro_torch.checkpoint.checkpoint import CheckpointManager
+from repro_torch.configs import registry
+from repro_torch.data import synthetic
+from repro_torch.device import resolve_device
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import lm
+from repro_torch.optim import optimizers
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def profile_steps(step_fn, state, batch_at, first: int, n: int, dev):
+    """Run steps ``first .. first + n - 1`` from ``state`` under
+    ``torch.profiler``.  Returns the new state and ``{"wall_s",
+    "device_s", "launches", "kernels"}``: the window's wall time, the
+    device time summed over its kernel rows, their count (kernels and
+    copies) and device seconds by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for step in range(first, first + n):
+            p, o, _ = step_fn(state["params"], state["opt"], batch_at(step),
+                              step)
+            state = {"params": p, "opt": o}
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    # the kernel rows only: an operator's row repeats its kernels' time
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = {e.key: e.self_device_time_total / 1e6 for e in rows}
+    return state, {"wall_s": wall, "device_s": sum(kernels.values()),
+                   "launches": sum(e.count for e in rows),
+                   "kernels": kernels, "table": prof.key_averages().table(
+                       sort_by="self_device_time_total", row_limit=20)}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b-smoke")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--search", action="store_true",
+                    help="joint MPS + pruning objective (paper Sec. 4)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--profile", type=int, default=0,
+                    help="time and trace this many extra steps (CUDA)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = registry.get(args.arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen, dev, mps_on=args.search)
+    opt = optimizers.make_optimizer(cfg.optimizer, 3e-4)
+    step_fn = steps_lib.make_train_step(cfg, opt, search=args.search)
+    state = {"params": params, "opt": opt.init(params)}
+
+    def batch_at(step):
+        return synthetic.lm_batch(cfg.vocab, args.seq + 1, args.batch, step,
+                                  device=dev)
+
+    mgr, start = None, 0
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, keep=2)
+        restored, meta = mgr.restore_latest(state)
+        if restored is not None:
+            state, start = restored, meta["step"] + 1
+            print(f"[train] resumed from step {meta['step']}", flush=True)
+
+    stop = {"flag": False}
+    prev = signal.signal(signal.SIGTERM, lambda *_: stop.update(flag=True))
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"[train] {cfg.name} on {where}: steps {start}..{args.steps - 1}, "
+          f"batch {args.batch} x seq {args.seq}, search {args.search}",
+          flush=True)
+    losses = []
+    t0 = time.perf_counter()
+    try:
+        for step in range(start, args.steps):
+            p, o, loss = step_fn(state["params"], state["opt"], batch_at(step),
+                                 step)
+            state = {"params": p, "opt": o}
+            losses.append(float(loss))
+            print(f"[train] step {step} loss {losses[-1]:.4f} grad norm "
+                  f"{float(step_fn.grad_norm):.4f} "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            if mgr and (step % args.ckpt_every == 0 and step > start
+                        or stop["flag"]):
+                mgr.save(step, state, blocking=stop["flag"])
+            if stop["flag"]:
+                print("[train] SIGTERM: checkpointed, exiting", flush=True)
+                sys.exit(0)
+        if mgr:
+            mgr.wait()
+            mgr.save(args.steps - 1, state)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    print(f"[train] done: losses {[round(v, 4) for v in losses]}",
+          flush=True)
+    if args.search:
+        print(f"[train] {lm.extract_plan(cfg, state['params']).summary()}",
+              flush=True)
+    if args.profile:
+        if dev.type != "cuda":
+            raise RuntimeError("--profile times the card; run on cuda")
+        t0 = time.perf_counter()
+        for step in range(args.steps, args.steps + args.profile):
+            p, o, _ = step_fn(state["params"], state["opt"], batch_at(step),
+                              step)
+            state = {"params": p, "opt": o}
+        _sync(dev)
+        untraced = time.perf_counter() - t0
+        state, prof = profile_steps(step_fn, state, batch_at,
+                                    args.steps + args.profile, args.profile,
+                                    dev)
+        print(prof["table"])
+        n = args.profile
+        print(f"[profile] untraced: {n} steps in {untraced:.3f} s = "
+              f"{1e3 * untraced / n:.1f} ms a step; traced: {n} steps in "
+              f"{prof['wall_s']:.3f} s, {prof['launches']} device operations "
+              f"(kernels, copies) = {prof['launches'] / n:.0f} a step; device "
+              f"busy {prof['device_s']:.3f} s = "
+              f"{100 * prof['device_s'] / prof['wall_s']:.1f}% of the window "
+              f"(kernel time summed; the profiler slows the host)")
+    return {"state": state, "losses": losses, "start": start}
+
+
+if __name__ == "__main__":
+    main()

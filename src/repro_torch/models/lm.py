@@ -2,7 +2,11 @@
 
 Parameters are a nested dict of tensors with the JAX package's tree and
 shapes: each super-block's weights are stacked ``(n_superblocks, ...)``
-under ``params["blocks"]["l<i>"]``.  A tree bound to a plan
+under ``params["blocks"]["l<i>"]``; with ``mps_on`` every block
+projection also carries its per-output-channel selection logits
+``gamma (n_superblocks, C_out, |P_W|)`` (the paper's joint search on the
+LM track: ``loss_fn`` with a ``SearchCtx``, ``mps_size_cost``,
+``extract_plan``).  A tree bound to a plan
 (``serve.engine.apply_plan``) holds ``blocks`` as a tuple of per-super-
 block trees instead, with :class:`~repro_torch.nn.quantized.PackedLinear`
 weights.  Either way the forward is a Python loop over super-blocks;
@@ -17,9 +21,12 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import mps, sampling
 from repro_torch.device import resolve_device
 from repro_torch.nn import blocks
 from repro_torch.nn import quantized as nnq
@@ -98,10 +105,13 @@ def _plan_weights(cfg: ArchConfig):
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> dict:
+                device=None, mps_on: bool = False) -> dict:
     """Random parameters with ``lm.init_params``' tree and shapes (not its
     numbers: ``jax.random`` and ``torch.Generator`` differ), drawn on
-    ``device`` (default ``cuda``) from ``generator`` (default seed 0)."""
+    ``device`` (default ``cuda``) from ``generator`` (default seed 0).
+    ``mps_on`` gives every block projection its float32 selection logits
+    ``gamma (nsb, C_out, |P_W|)`` at the paper's Eq. 13 init (the
+    reference's values); ``embed`` and ``lm_head`` carry none."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -114,8 +124,12 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     def w(shape, scale=None, stack=True):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
         full = ((nsb,) if stack else ()) + shape
-        return {"w": torch.randn(full, generator=generator, device=dev,
-                                 dtype=torch.float32).to(dtype) * scale}
+        out = {"w": torch.randn(full, generator=generator, device=dev,
+                                dtype=torch.float32).to(dtype) * scale}
+        if mps_on and stack:
+            out["gamma"] = sampling.init_selection_logits(
+                cfg.mps_precisions, (nsb, shape[-1]), dev)
+        return out
 
     def vec(shape, init=0.0, stack=True):
         full = ((nsb,) if stack else ()) + shape
@@ -160,19 +174,39 @@ def _mamba_params(cfg: ArchConfig, w, vec) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _getw(pp):
-    """Weight provider: dense weights cast to bf16 at the point of use; a
-    :class:`PackedLinear` goes through untouched."""
-    w = pp["w"]
-    if isinstance(w, nnq.PackedLinear):
-        return w
-    return w.to(torch.bfloat16)
+def _make_getw(cfg: ArchConfig, ctx: Optional[mps.SearchCtx]):
+    """Weight provider (``lm._make_effective_w``): a :class:`PackedLinear`
+    goes through untouched; under a ``SearchCtx`` a weight with a gamma
+    becomes its Eq. 5 effective weight (``core.mps.effective_weight``,
+    kernel K4 on the card, its output channels on the last axis); every
+    dense weight is cast to bf16 at the point of use."""
+    def getw(pp):
+        w = pp["w"]
+        if isinstance(w, nnq.PackedLinear):
+            return w
+        if ctx is None or "gamma" not in pp:
+            return w.to(torch.bfloat16)
+        return mps.effective_weight(
+            w.float(), pp["gamma"], cfg.mps_precisions, ctx,
+            channel_axis=w.dim() - 1).to(torch.bfloat16)
+    return getw
 
 
 def _index(tree, j: int):
     if isinstance(tree, dict):
         return {k: _index(v, j) for k, v in tree.items()}
     return tree[j]
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-super-block trees of a stacked tree, each leaf one
+    ``torch.unbind`` view: the backward stacks the n gradients once,
+    where indexing ``leaf[j]`` n times would scatter each into a zero
+    tensor of the whole stack and sum n of them."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][j] for k in tree} for j in range(n)]
+    return torch.unbind(tree)
 
 
 def _stack(trees: list):
@@ -197,12 +231,52 @@ def _embed_in(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
                             device=x.device)
 
 
+def _superblock(cfg: ArchConfig, blk, x, s, *, mode, caches, j, pos, getw,
+                tables):
+    """One super-block's layers.  ``x`` is the bf16 residual stream, ``s``
+    the f32 sum it was rounded from (see :func:`forward`).  Returns (x,
+    s, the block's new caches)."""
+    kinds = {"attn": "full", "attn_local": "local",
+             "attn_chunked": "chunked"}
+    new = {}
+    for i, spec in enumerate(block_pattern(cfg)):
+        p = blk[f"l{i}"]
+        hn = blocks.rmsnorm(s, p["norm1"], cfg.norm_eps).to(x.dtype)
+        if spec.mixer == "mamba":
+            st = None if caches is None else \
+                _index(caches[f"l{i}"]["mamba"], j)
+            y, st_new = blocks.mamba2_layer(
+                p["mixer"], hn, cfg, mode=mode, state=st, effective_w=getw)
+            if st is not None:
+                _store(st, st_new)
+            new[f"l{i}"] = {"mamba": st_new}
+        else:
+            kv = None if caches is None else _index(caches[f"l{i}"]["kv"], j)
+            y, kv_new = blocks.attention_layer(
+                p["mixer"], hn, cfg, kind=kinds[spec.mixer], mode=mode,
+                cache=kv, pos=pos, effective_w=getw, tables=tables)
+            new[f"l{i}"] = {"kv": kv_new}
+        s = x.float() + y.float()
+        x = s.to(x.dtype)
+        if spec.ffn is None:
+            continue
+        h2 = blocks.rmsnorm(s, p["norm2"], cfg.norm_eps).to(x.dtype)
+        s = x.float() + blocks.ffn_swiglu(p["ffn"], h2,
+                                          effective_w=getw).float()
+        x = s.to(x.dtype)
+    return x, s, new
+
+
 def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
             caches=None, pos=None, logits_mode: str = "full",
-            last_pos=None, tables=None):
+            last_pos=None, tables=None, ctx: Optional[mps.SearchCtx] = None):
     """Returns (logits | hidden, caches).
 
-    batch: {"tokens": (B, S) int}.  mode: prefill | decode.  logits_mode:
+    batch: {"tokens": (B, S) int}.  mode: train | prefill | decode; train
+    takes and returns no caches and, with ``cfg.remat``, recomputes each
+    super-block in the backward (``torch.utils.checkpoint``, as the
+    reference's ``jax.checkpoint``).  ctx: a ``SearchCtx`` turns every
+    weight with a gamma into its effective weight.  logits_mode:
     "full" | "last" (one position: S-1, or ``last_pos``, a () tensor) |
     "hidden".  tables: (B, P) int32 block tables when ``caches`` holds
     page pools (see :func:`init_paged_caches`); for a paged prefill
@@ -214,8 +288,12 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     state, as the JAX package does.
     """
     pattern = block_pattern(cfg)
-    kinds = {"attn": "full", "attn_local": "local",
-             "attn_chunked": "chunked"}
+    if mode == "train" and any(sp.mixer == "mamba" for sp in pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: training a Mamba-2 stack is not ported yet (kernel "
+            f"K5 has no backward); it comes with ROADMAP slice C4 (SSM "
+            f"training)")
+    getw = _make_getw(cfg, ctx)
     x = _embed_in(cfg, params, batch["tokens"])
     # ``s`` is the f32 residual sum ``x`` was rounded from.  An RMSNorm
     # after a residual add reads ``s``, not ``x``: XLA fuses the add into
@@ -227,41 +305,25 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     per_sb = params["blocks"]
     stacked = not isinstance(per_sb, (list, tuple))
     nsb = n_superblocks(cfg)
+    remat = mode == "train" and cfg.remat and stacked
     out_caches = []
+    if stacked:
+        per_sb = _unstack(per_sb, nsb)
     for j in range(nsb):
-        blk = _index(per_sb, j) if stacked else per_sb[j]
+        blk = per_sb[j]
+        kw = dict(mode=mode, caches=caches, j=j, pos=pos, getw=getw,
+                  tables=tables)
+        if remat:
+            x = checkpoint(lambda xj, blk=blk, kw=kw: _superblock(
+                cfg, blk, xj, xj, **kw)[0], x, use_reentrant=False)
+            continue
         if stacked:
             s = x
-        new = {}
-        for i, spec in enumerate(pattern):
-            p = blk[f"l{i}"]
-            hn = blocks.rmsnorm(s, p["norm1"], cfg.norm_eps).to(x.dtype)
-            if spec.mixer == "mamba":
-                st = None if caches is None else \
-                    _index(caches[f"l{i}"]["mamba"], j)
-                y, st_new = blocks.mamba2_layer(
-                    p["mixer"], hn, cfg, mode=mode, state=st,
-                    effective_w=_getw)
-                if st is not None:
-                    _store(st, st_new)
-                new[f"l{i}"] = {"mamba": st_new}
-            else:
-                kv = None if caches is None else \
-                    _index(caches[f"l{i}"]["kv"], j)
-                y, kv_new = blocks.attention_layer(
-                    p["mixer"], hn, cfg, kind=kinds[spec.mixer], mode=mode,
-                    cache=kv, pos=pos, effective_w=_getw, tables=tables)
-                new[f"l{i}"] = {"kv": kv_new}
-            s = x.float() + y.float()
-            x = s.to(x.dtype)
-            if spec.ffn is None:
-                continue
-            h2 = blocks.rmsnorm(s, p["norm2"], cfg.norm_eps).to(x.dtype)
-            s = x.float() + blocks.ffn_swiglu(p["ffn"], h2,
-                                              effective_w=_getw).float()
-            x = s.to(x.dtype)
+        x, s, new = _superblock(cfg, blk, x, s, **kw)
         out_caches.append(new)
-    if caches is None:
+    if mode == "train":
+        caches = None
+    elif caches is None:
         caches = _stack(out_caches)
     if stacked:
         s = x
@@ -278,6 +340,81 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     if cfg.final_softcap > 0:
         logits = blocks.softcap(logits, cfg.final_softcap)
     return logits, caches
+
+
+LOSS_SEQ_CHUNKS = 8
+
+
+def loss_fn(cfg: ArchConfig, params, batch,
+            ctx: Optional[mps.SearchCtx] = None, lam: float = 0.0
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy (+ ``lam * mps_size_cost`` under a
+    ``SearchCtx``).  The logits are formed over ``LOSS_SEQ_CHUNKS``
+    sequence chunks, each recomputed in the backward, so the f32 (B, S, V)
+    logits never exist at once; the chunk sums are added in order, as the
+    reference does."""
+    hidden, _ = forward(cfg, params, batch, mode="train", ctx=ctx,
+                        logits_mode="hidden")
+    targets = batch["targets"].long()
+    head = params["lm_head"]["w"].to(torch.bfloat16)
+
+    def chunk_nll(x_c, tgt_c):
+        logits = torch.matmul(x_c, head)
+        if cfg.final_softcap > 0:
+            logits = blocks.softcap(logits, cfg.final_softcap)
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.take_along_dim(logits, tgt_c[..., None], dim=-1)[..., 0]
+        return torch.sum(logz - tgt)
+
+    b, s, _ = hidden.shape
+    nc = LOSS_SEQ_CHUNKS if s % LOSS_SEQ_CHUNKS == 0 else 1
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nc):
+        sl = slice(i * (s // nc), (i + 1) * (s // nc))
+        total = total + checkpoint(chunk_nll, hidden[:, sl], targets[:, sl],
+                                   use_reentrant=False)
+    task = total / float(b * s)
+    if ctx is not None and lam > 0.0:
+        task = task + lam * mps_size_cost(cfg, params, ctx)
+    return task
+
+
+def _gamma_nodes(tree):
+    """Every ``{"w", "gamma", ...}`` node, in the reference's order."""
+    if not isinstance(tree, dict):
+        return
+    if "w" in tree and "gamma" in tree:
+        yield tree
+        return
+    for k in sorted(tree):
+        yield from _gamma_nodes(tree[k])
+
+
+def mps_size_cost(cfg: ArchConfig, params, ctx: mps.SearchCtx
+                  ) -> torch.Tensor:
+    """Differentiable expected size in bytes over every gamma-carrying
+    weight (paper Eq. 9 with C_in fixed per super-block: the residual
+    stream keeps d_model; pruning shows through the 0-bit channels)."""
+    total = None
+    for node in _gamma_nodes(params):
+        w, gm = node["w"], node["gamma"]
+        cin = math.prod(w.shape[:-1])
+        if gm.dim() == 3:          # stacked over super-blocks
+            cin //= gm.shape[0]
+        eb = mps.expected_bits(gm, cfg.mps_precisions, ctx)
+        term = torch.sum(eb) * cin / 8.0
+        total = term if total is None else total + term
+    if total is None:
+        raise ValueError("mps_size_cost needs parameters with gammas "
+                         "(init_params(..., mps_on=True))")
+    return total
+
+
+def mps_param_count(cfg: ArchConfig) -> int:
+    """Number of gamma-carrying weight matrices (stacked over super-blocks,
+    so one per projection of the pattern)."""
+    return len(_plan_weights(cfg))
 
 
 def decode_step(cfg: ArchConfig, params, token_batch, caches, pos,
@@ -375,3 +512,29 @@ def serve_weight_groups(cfg: ArchConfig, params) -> dict:
         for j in range(w.shape[0]):
             out[f"blocks.{ln}.{sub}.{name}.sb{j}"] = w[j].T
     return out
+
+
+def extract_plan(cfg: ArchConfig, params, px=(8,), meta=None):
+    """Discretize an LM's selection logits into a
+    :class:`~repro_torch.api.plan.CompressionPlan` (paper Eq. 7/8 on the
+    LM track): per super-block, each output channel takes
+    ``pw[argmax gamma]``, under the :func:`serve_weight_groups` names.
+    ``params`` must carry gammas (``init_params(mps_on=True)``, e.g.
+    after a ``make_train_step(search=True)`` run)."""
+    from repro_torch.api.plan import CompressionPlan
+
+    pw = np.asarray(cfg.mps_precisions)
+    gamma = {}
+    for ln, sub, name in _plan_weights(cfg):
+        node = params["blocks"][ln][sub][name]
+        if "gamma" not in node:
+            raise KeyError(f"blocks.{ln}.{sub}.{name} carries no gamma; "
+                           f"extract_plan needs init_params(mps_on=True)")
+        g = node["gamma"].detach().float().cpu().numpy()  # (nsb, C, |P|)
+        bits = pw[np.argmax(g, axis=-1)]                  # (nsb, C)
+        for j in range(bits.shape[0]):
+            gamma[f"blocks.{ln}.{sub}.{name}.sb{j}"] = bits[j]
+    assignment = {"gamma": gamma, "delta": {}, "alpha": {}}
+    base = {"track": "lm", "arch": cfg.name}
+    return CompressionPlan.from_assignment(
+        assignment, cfg.mps_precisions, px, meta={**base, **(meta or {})})

@@ -79,9 +79,9 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, lens, *,
 def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
                     mode: str = "prefill", cache=None, pos=None,
                     effective_w=None, tables=None):
-    """kind: full | local | chunked.  mode: prefill | decode.
+    """kind: full | local | chunked.  mode: train | prefill | decode.
 
-    Returns (y, new_cache).  Dense: cache = {"k","v"} of (B, S, Hkv, D);
+    Returns (y, new_cache); train mode takes and returns no cache.  Dense: cache = {"k","v"} of (B, S, Hkv, D);
     prefill returns the prompt's K/V as the new cache, decode writes the
     token's K/V at ``pos`` ((B,) per-slot positions, or one shared ()).
     Paged (``tables`` (B, P) given): cache["k"/"v"] are page pools
@@ -142,7 +142,7 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
             out = decode_attention(q, ck, cv, posn, window=window,
                                    chunked=chunked, cap=cfg.attn_softcap)
         new_cache = cache if cache is not None else {"k": ck, "v": cv}
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         positions = torch.arange(s, device=dev)
         q = rope(q, positions, cfg.rope_theta)
         kk = rope(kk, positions, cfg.rope_theta)
@@ -166,9 +166,10 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
         else:
             out = flash_attention(q, kk, vv, causal=True, window=window,
                                   chunked=chunked, cap=cfg.attn_softcap)
-            new_cache = {"k": kk, "v": vv}
+            new_cache = {"k": kk, "v": vv} if mode == "prefill" else None
     else:
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "
+                         f"{mode!r}")
 
     y = linear(out.reshape(b, s, h * hd), getw(p["wo"]))
     return y, new_cache

@@ -2,14 +2,16 @@
 of tensors (``repro.optim.optimizers``): ``update`` returns new tensors
 and a new state, as the JAX package's does; nothing is updated in place.
 
-``adam_int8`` and ``state_logical_axes`` serve LM training and are not
-ported yet (ROADMAP, slice B queue head).
+``adam_int8`` keeps its moments int8 with the parameter's shape.
+``state_logical_axes`` is mesh code and stays with ROADMAP slice E.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.core import quantizers
 
 
 class Optimizer(NamedTuple):
@@ -101,15 +103,88 @@ def adam(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
     return Optimizer(init, update)
 
 
+# ---------------------------------------------------------------------------
+# int8 quantized optimizer state
+# ---------------------------------------------------------------------------
+# Moments are stored int8 with the parameter's shape plus one f32 scale
+# per last-axis row (shape = param.shape[:-1]); v is quantized in
+# sqrt-space for relative precision.  ``/ 127.0`` is the multiply by
+# f32(1/127) that the reference computes under ``jax.jit``.
+
+
+def _q8_row(x: torch.Tensor):
+    inv = quantizers.recip(127.0, x)
+    if x.dim() == 0:
+        scale = torch.clamp_min(torch.abs(x), 1e-12) * inv
+        q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+        return q, scale.float()
+    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True) * inv
+    scale = torch.clamp_min(scale, 1e-12)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0].float()
+
+
+def _dq8_row(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if q.dim() == 0:
+        return q.float() * scale
+    return q.float() * scale[..., None]
+
+
+def adam_int8(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
+              eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """Adam with int8 row-quantized first/second moments (2 bytes+/param);
+    each leaf's state is ``{"mq", "ms", "vq", "vs"}``."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        def leaf(p):
+            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            mq, ms = _q8_row(z)
+            vq, vs = _q8_row(z)
+            return {"mq": mq, "ms": ms, "vq": vq, "vs": vs}
+        return tree_map(leaf, params)
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        t = step + 1
+        lr_t = lr_fn(step)
+
+        def leaf(p, g, s):
+            bc1 = 1 - _f32(b1, p) ** t
+            bc2 = 1 - _f32(b2, p) ** t
+            g = g.float()
+            m = _dq8_row(s["mq"], s["ms"])
+            vsqrt = _dq8_row(s["vq"], s["vs"])
+            v = vsqrt * vsqrt
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if weight_decay:
+                upd = upd + weight_decay * p.float()
+            new_p = (p.float() - lr_t * upd).to(p.dtype)
+            mq, ms = _q8_row(m)
+            vq, vs = _q8_row(torch.sqrt(v))
+            return new_p, {"mq": mq, "ms": ms, "vq": vq, "vs": vs}
+
+        def walk(p, g, s):     # the state holds a dict per parameter leaf
+            if not isinstance(p, dict):
+                return leaf(p, g, s)
+            outs = {k: walk(p[k], g[k], s[k]) for k in p}
+            return ({k: o[0] for k, o in outs.items()},
+                    {k: o[1] for k, o in outs.items()})
+
+        return walk(params, grads, state)
+
+    return Optimizer(init, update)
+
+
 def make_optimizer(name: str, lr) -> Optimizer:
     if name == "adam":
         return adam(lr)
+    if name == "adam_int8":
+        return adam_int8(lr)
     if name == "sgd":
         return sgd(lr, momentum=0.9)
-    if name == "adam_int8":
-        raise NotImplementedError(
-            "adam_int8 is not ported yet (ROADMAP slice B queue head, "
-            "with LM training)")
     raise ValueError(name)
 
 

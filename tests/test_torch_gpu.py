@@ -780,3 +780,67 @@ def test_ssd_scan_dispatch_and_checks(cuda):
     with pytest.raises(ValueError):
         sops.ssd_scan(dc, sc, s0)
     assert sops.ssd_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# K4 on the LM's channel-last weights, and one LM search step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,n", [(64, 16), (64, 128), (128, 64),
+                                 (2048, 512), (512, 2048)])
+def test_mps_combine_channel_last_route(cuda, k, n):
+    """``core.mps.effective_weight`` on a (K, C_out) weight -- the LM's
+    layout -- runs K4 on its rows under the default context: the
+    effective weight and dW bit for bit against the plain versions on
+    the transposed rows, dprobs within the summation bound, one launch of
+    each kernel."""
+    from repro_torch.core import mps
+    pw = (0, 2, 4, 8)
+    w, probs, up = _k4_case(cuda, n, k, pw, seed=n + k)
+    w_kn = w.T.contiguous().requires_grad_()
+    p = probs.clone().requires_grad_()
+    mops.mps_combine_fwd.launches = mops.mps_combine_bwd.launches = 0
+    out = mps.kernel_combine(w_kn, p, pw, channel_axis=1)
+    out.backward(up.T.contiguous())
+    torch.cuda.synchronize()
+    assert (mops.mps_combine_fwd.launches,
+            mops.mps_combine_bwd.launches) == (1, 1)
+    assert out.shape == (k, n)
+    assert torch.equal(out.detach().T, mops.mps_combine_ref(w, probs, pw))
+    _k4_check_bwd(w, probs, up, pw, w_kn.grad.T, p.grad)
+    # the same through effective_weight (softmax of gamma): K4, never the
+    # plain stack
+    gamma = torch.randn(n, len(pw), device=cuda)
+    eff = mps.effective_weight(w_kn.detach(), gamma, pw, mps.SearchCtx(),
+                               channel_axis=1)
+    assert torch.equal(eff.T, mops.mps_combine_ref(
+        w, torch.softmax(gamma, -1), pw))
+    with pytest.raises(ValueError, match="CPU weights only"):
+        mps.effective_weight(w_kn.detach(), gamma, pw,
+                             mps.SearchCtx(use_kernel=False), channel_axis=1)
+
+
+def test_lm_search_step_on_the_card(cuda):
+    """One search step of ``llama3.2-1b-smoke`` (remat on) on the card:
+    finite loss and gradient norm, every projection's K4 forward launched
+    twice (the recompute) and its backward once."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+    cfg = dataclasses.replace(registry.get("llama3.2-1b-smoke"), remat=True)
+    params = lm.init_params(cfg, device=cuda, mps_on=True)
+    opt = optimizers.make_optimizer("adam", 3e-4)
+    step = steps.make_train_step(cfg, opt, search=True)
+    batch = synthetic.lm_batch(cfg.vocab, 65, 4, 0, device=cuda)
+    mops.mps_combine_fwd.launches = mops.mps_combine_bwd.launches = 0
+    new, _, loss = step(params, opt.init(params), batch, 0)
+    torch.cuda.synchronize()
+    n_proj = lm.mps_param_count(cfg) * lm.n_superblocks(cfg)
+    assert (mops.mps_combine_fwd.launches,
+            mops.mps_combine_bwd.launches) == (2 * n_proj, n_proj)
+    assert np.isfinite(float(loss)) and np.isfinite(float(step.grad_norm))
+    assert all(torch.isfinite(t).all() for t in optimizers.tree_leaves(new))

@@ -34,6 +34,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.kernels.mps_combine.ref\n"
         "import repro_torch.kernels.ssd_scan.ops\n"
         "import repro_torch.launch.search\n"
+        "import repro_torch.launch.train, repro_torch.launch.steps\n"
+        "import repro_torch.optim.grad, repro_torch.checkpoint.checkpoint\n"
+        "import repro_torch.models.lm\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "assert not bad, bad\n")
@@ -69,6 +72,9 @@ def test_entry_points_refuse_cpu_fallback():
         engine.InferenceServer(cfg, params, max_len=16, max_batch=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm.init_params(cfg)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "llama3.2-1b-smoke", "--steps", "1"])
 
 
 def test_unported_families_name_their_roadmap_item():
