@@ -75,7 +75,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
 9. resume  -- llama3.2-1b-smoke under deterministic algorithms: 2 steps,
               a checkpoint, restore_latest into a fresh template and 2
               more equal 4 uninterrupted steps bit for bit.
-10. report -- one JSON line of kernels, the card's name and power limit,
+10. sweep  -- path 5: the paper's Pareto-front sweep through
+              repro_torch.sweep.SweepRunner at full width.  gsc (DS-CNN
+              width 64, lams 2 and 20 + 1 adaptive, 8 / 8 / 4 steps, warm
+              points 4 + 4, batch 32, checkpoints every 4) uninterrupted,
+              then killed in the second point's finetune and resumed: the
+              two stores byte-identical under deterministic algorithms;
+              a rerun over the store launches nothing; the w8 / w2
+              baselines and the iso-accuracy report.  cifar10 (ResNet-9
+              width 16), one cold and one warm point.  llama3.2-1b, two
+              points (4 and 2 search steps, batch 4 x 256), each ~6 GB
+              warm-start handoff written to a temporary workdir removed at
+              the end; the front's first plan loaded from the store and
+              served (2 greedy requests x 8 tokens) on K1-K3.  K4 launched
+              weight nodes x JointSearch steps each way (cnn), 112 x
+              (steps x 2 + eval batches) forward and 112 x steps backward
+              (lm); no weight on the plain quantizer stack; finite losses,
+              scores and costs; seconds a point, handoff bytes and seconds.
+11. report -- one JSON line of kernels, the card's name and power limit,
               and last the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -83,6 +100,7 @@ Imports torch, numpy and the port (``src/repro_torch``) only.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -1857,6 +1875,362 @@ def phase_resume(dev):
         f"for bit")
 
 
+# path 5: the paper's Pareto-front sweep (sweep/, launch/sweep.py)
+SWEEP_GSC = dict(name="gsc", track="cnn", bench="gsc", width=64,
+                 lams=(2.0, 20.0), adaptive_points=1, warmup_steps=8,
+                 search_steps=8, finetune_steps=4, batch=32,
+                 eval_batches=2, checkpoint_every=4)
+SWEEP_C10 = dict(SWEEP_GSC, name="c10", bench="cifar10", width=16,
+                 adaptive_points=0)
+# lm_lr as launch/train.py's: the spec's default 0.05 (sized for the
+# smoke archs) took full-width llama3.2-1b's loss to NaN in 5 steps
+SWEEP_LM = dict(name="lm", track="lm", bench="llama3.2-1b",
+                lams=(0.5, 4.0), search_steps=4, batch=4, seq=256,
+                lm_lr=3e-4, eval_batches=1, checkpoint_every=0)
+
+
+def _sweep_runner_cls():
+    """``SweepRunner`` timing each executed point (synchronised) and each
+    warm-start handoff write and read, with the handoff's bytes."""
+    from repro_torch import sweep
+
+    class Timed(sweep.SweepRunner):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.points, self.handoffs = [], []
+
+        def _execute_point(self, index, name, lam, points, hooks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = super()._execute_point(index, name, lam, points, hooks)
+            torch.cuda.synchronize()
+            self.points.append((name, rec["steps"],
+                                time.perf_counter() - t0))
+            return rec
+
+        def _save_handoff(self, index, tree):
+            t0 = time.perf_counter()
+            super()._save_handoff(index, tree)
+            path = self._ptdir(index, "handoff")
+            nbytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+            self.handoffs.append(("write", index, nbytes,
+                                  time.perf_counter() - t0))
+
+        def _load_handoff(self, index, template):
+            t0 = time.perf_counter()
+            tree = super()._load_handoff(index, template)
+            torch.cuda.synchronize()
+            self.handoffs.append(("read", index, None,
+                                  time.perf_counter() - t0))
+            return tree
+
+    return Timed
+
+
+def _store_fingerprint(store):
+    """Entry JSON bytes, plan hashes and the front: what the sweep's
+    kill/resume byte identity compares."""
+    entries = {}
+    for name in store.names():
+        with open(store._entry_path(name), "rb") as f:
+            entries[name] = f.read()
+    return (entries, sorted(e["plan"] for e in store.entries()),
+            [e["name"] for e in store.front()])
+
+
+def _search_steps_needed(store, spec, kind="point"):
+    """JointSearch steps the stored entries of one sweep took: a cold
+    point (or a baseline) ``search_steps``, a warm one ``warm_search()``
+    -- from the spec, as the runner's recipe is built."""
+    return sum(spec.warm_search() if e["lineage"]["warm"]
+               else spec.search_steps
+               for e in store.query(kind=kind, sweep=spec.name))
+
+
+class _Counting:
+    """Kernel launch counts read as differences between snapshots."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        for fn in counters.values():
+            fn.launches = 0
+        self.total = {k: 0 for k in counters}
+        self._last = dict(self.total)
+
+    def take(self):
+        torch.cuda.synchronize()
+        now = {k: fn.launches for k, fn in self.counters.items()}
+        got = {k: now[k] - self._last[k] for k in now}
+        self._last = now
+        self.total = now
+        return got
+
+
+def _sweep_points_log(tag, runner, smi):
+    for name, steps, sec in runner.points:
+        log(f"[sweep] {tag} {name}: {steps} steps in {sec:.2f} s = "
+            f"{1e3 * sec / steps:.0f} ms a step with set-up and evaluation "
+            f"({smi})")
+
+
+def _cnn_sweep_gate(tag, got, n_nodes, need_steps, counted_steps):
+    need = n_nodes * need_steps
+    if counted_steps != need_steps or any(
+            got[k] != need for k in ("mps_combine", "mps_combine_bwd")) \
+            or any(v for k, v in got.items()
+                   if k not in ("mps_combine", "mps_combine_bwd")):
+        raise AssertionError(
+            f"sweep {tag}: launches {got}, JointSearch steps counted "
+            f"{counted_steps}; need {n_nodes} nodes x {need_steps} steps = "
+            f"{need} each way and no other kernel")
+    log(f"[sweep] {tag}: K4 launches {got['mps_combine']} forward, "
+        f"{got['mps_combine_bwd']} backward; derived {n_nodes} weight nodes "
+        f"x {need_steps} JointSearch steps (search_steps a cold point, "
+        f"warm_search() a warm one) = {need} each")
+
+
+def _check_entries_finite(tag, store):
+    for e in store.entries():
+        vals = list(e["metrics"].values()) + list(e["costs"].values())
+        if not all(np.isfinite(vals)):
+            raise AssertionError(f"sweep {tag}: {e['name']} has non-finite "
+                                 f"metrics/costs {e['metrics']} {e['costs']}")
+
+
+def phase_sweep(dev, counters, smi):
+    """Path 5: the paper's Pareto-front sweep through
+    ``repro_torch.sweep.SweepRunner`` at full width -- DS-CNN (gsc, width
+    64) uninterrupted and killed-then-resumed into a byte-identical
+    store, its w8 / w2 baselines and iso-accuracy report; ResNet-9
+    (cifar10, width 16), two points; llama3.2-1b, two points, its front
+    plan loaded from the store and served on K1-K3."""
+    import shutil
+    import tempfile
+
+    from repro_torch import sweep
+    from repro_torch.api import phases
+    from repro_torch.configs import registry
+    from repro_torch.models import cnn, lm
+    from repro_torch.serve import engine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+
+    Timed = _sweep_runner_cls()
+    root = tempfile.mkdtemp(prefix="sweep_")
+
+    class StepCount(phases.Hook):
+        """JointSearch steps run (counted) and the LM's losses."""
+
+        def __init__(self):
+            self.search, self.losses = 0, []
+
+        def on_step(self, phase, state, step, metrics, train_state):
+            self.search += phase.name == "search"
+            if phase.name == "lm_search":
+                self.losses.append(float(metrics["loss"]))
+
+    class Boom(phases.Hook):
+        """Kill the sweep in the second point's finetune."""
+
+        def __init__(self):
+            self.finetunes, self.armed = 0, True
+
+        def on_phase_start(self, phase, state):
+            self.finetunes += phase.name == "finetune"
+
+        def on_step(self, phase, state, step, metrics, train_state):
+            if self.armed and phase.name == "finetune" and \
+                    self.finetunes == 2:
+                self.armed = False
+                raise RuntimeError("boom")
+
+    def runner(spec, sub, cls=Timed):
+        store = sweep.PlanStore(os.path.join(root, sub, "store"))
+        return cls(spec, store, os.path.join(root, sub, "work"),
+                   device=dev, verbose=True), store
+
+    plain, restore = _count_plain_stack()
+    count = _Counting(counters)
+    out = {}
+    t_phase = time.perf_counter()
+    try:
+        # ---- gsc, DS-CNN at its published width 64, deterministic
+        spec = sweep.SweepSpec(**SWEEP_GSC)
+        n_nodes = len(cnn.dscnn(width=spec.width).weight_nodes())
+        old = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        try:
+            ra, sa = runner(spec, "gsc_a")
+            hook = StepCount()
+            count.take()
+            sum_a = ra.run(hooks=[hook])
+            _cnn_sweep_gate("gsc uninterrupted", count.take(), n_nodes,
+                            _search_steps_needed(sa, spec), hook.search)
+            rb, sb = runner(spec, "gsc_b")
+            hook_b = StepCount()
+            try:
+                rb.run(hooks=[Boom(), hook_b])
+                raise AssertionError("sweep: the kill hook never fired")
+            except RuntimeError as e:
+                if str(e) != "boom":
+                    raise
+            killed = sb.names()
+            rb2, sb = runner(spec, "gsc_b")
+            sum_b = rb2.run(hooks=[hook_b])
+            _cnn_sweep_gate("gsc killed + resumed", count.take(), n_nodes,
+                            _search_steps_needed(sb, spec), hook_b.search)
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if old is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = old
+        fa, fb = _store_fingerprint(sa), _store_fingerprint(sb)
+        if fa != fb or sum_b["loaded"] != 1:
+            raise AssertionError(f"sweep: killed-and-resumed store differs "
+                                 f"from the uninterrupted one: {fa[2]} vs "
+                                 f"{fb[2]}, plans {fa[1]} vs {fb[1]}, "
+                                 f"resume {sum_b}")
+        log(f"[sweep] gsc (dscnn width {spec.width}, {n_nodes} weight "
+            f"nodes, batch {spec.batch}, lams {spec.lams} + "
+            f"{spec.adaptive_points} adaptive): points {sum_a['points']}, "
+            f"front {sum_a['front']}; killed in the second point's "
+            f"finetune with {killed} stored, resumed "
+            f"({sum_b['loaded']} loaded, {sum_b['executed']} executed): "
+            f"{len(fa[0])} entry JSONs byte-identical, plan hashes and "
+            f"front equal, under deterministic algorithms")
+        _sweep_points_log("gsc", ra, smi)
+        for e in sa.entries():
+            log(f"[sweep] gsc {e['name']}: lam {e['lineage']['lam']:g}, "
+                f"warm {e['lineage']['warm']}, score "
+                f"{e['metrics']['score']:.4f}, size {e['costs']['size']:.1f}"
+                f" bytes, pruned {e['metrics']['prune_fraction']:.3f}, plan "
+                f"{e['plan'][:12]}")
+        rh, _ = runner(spec, "gsc_a")
+        count.take()
+        hits = rh.run()
+        got = count.take()
+        if hits["executed"] or any(got.values()):
+            raise AssertionError(f"sweep: store hits ran {hits} and "
+                                 f"launched {got}")
+        log(f"[sweep] gsc again over the same store: {hits['loaded']} "
+            f"store hits, 0 executed, no kernel launched")
+        hook = StepCount()
+        for bits in (8, 2):
+            ra.baseline(bits, hooks=[hook])
+        _cnn_sweep_gate("gsc w8 + w2 baselines", count.take(), n_nodes,
+                        _search_steps_needed(sa, spec, kind="baseline"),
+                        hook.search)
+        iso = ra.iso_report()
+        for label, row in iso.items():
+            log(f"[sweep] gsc iso-accuracy vs {label}: baseline score "
+                f"{row['baseline_score']:.4f}, size "
+                f"{row['baseline_cost']:.1f} bytes, reduction "
+                f"{row['reduction_pct']}%")
+        log("[sweep] these accuracies come from synthetic data "
+            "(synthetic.GSC_LIKE) after a few steps, so the reductions are "
+            "not the paper's numbers")
+        _check_entries_finite("gsc", sa)
+
+        # ---- cifar10, ResNet-9 at width 16: one cold, one warm point
+        spec = sweep.SweepSpec(**SWEEP_C10)
+        n_nodes = len(cnn.resnet9(width=spec.width).weight_nodes())
+        rc, sc = runner(spec, "c10")
+        hook = StepCount()
+        sum_c = rc.run(hooks=[hook])
+        _cnn_sweep_gate("cifar10", count.take(), n_nodes,
+                        _search_steps_needed(sc, spec), hook.search)
+        if sum_c["points"] != ["c10.pt00", "c10.pt01"]:
+            raise AssertionError(f"sweep cifar10: {sum_c}")
+        _check_entries_finite("cifar10", sc)
+        _sweep_points_log("cifar10", rc, smi)
+
+        # ---- lm track, full-width llama3.2-1b
+        spec = sweep.SweepSpec(**SWEEP_LM)
+        cfg = registry.get(spec.bench)
+        n_proj = lm.mps_param_count(cfg) * lm.n_superblocks(cfg)
+        rl, sl = runner(spec, "lm")
+        hook = StepCount()
+        count.take()
+        sum_l = rl.run(hooks=[hook])
+        got = count.take()
+        steps = sum(e["lineage"]["steps"] for e in sl.entries())
+        n_pts = len(sl.names())
+        fwd_a_step = 2 if cfg.remat else 1       # remat recomputes it
+        need = {"mps_combine": n_proj * (fwd_a_step * steps
+                                         + spec.eval_batches * n_pts),
+                "mps_combine_bwd": n_proj * steps}
+        if any(got[k] != v for k, v in need.items()) or any(
+                v for k, v in got.items() if k not in need):
+            raise AssertionError(f"sweep lm: launches {got}, need {need} "
+                                 f"and no other kernel")
+        if not all(np.isfinite(hook.losses)) or len(hook.losses) != steps:
+            raise AssertionError(f"sweep lm: losses {hook.losses}")
+        _check_entries_finite("lm", sl)
+        log(f"[sweep] lm ({cfg.name}, {n_proj} projections, batch "
+            f"{spec.batch} x seq {spec.seq}, lams {spec.lams}): points "
+            f"{sum_l['points']}, front {sum_l['front']}; losses "
+            f"{[round(v, 4) for v in hook.losses]}; K4 launches "
+            f"{got['mps_combine']} forward = {n_proj} x ({steps} steps x "
+            f"{fwd_a_step} (remat {cfg.remat}) + {spec.eval_batches} eval "
+            f"batch x {n_pts} points), "
+            f"{got['mps_combine_bwd']} backward = {n_proj} x {steps}")
+        for e in sl.entries():
+            log(f"[sweep] lm {e['name']}: lam {e['lineage']['lam']:g}, warm "
+                f"{e['lineage']['warm']}, eval loss "
+                f"{e['metrics']['eval_loss']:.4f}, size "
+                f"{e['costs']['size'] / 1e6:.3f} MB, plan {e['plan'][:12]}")
+        _sweep_points_log("lm", rl, smi)
+
+        # the front's first plan, loaded from the store, served on K1-K3
+        first = sl.front(sl.query(kind="point", sweep=spec.name))[0]
+        plan = sl.load(first["name"])
+        params = rl._load_handoff(first["lineage"]["index"],
+                                  {"params": rl._lm_init(cfg)})["params"]
+        for kind, index, nbytes, sec in rl.handoffs:
+            log(f"[sweep] lm handoff {kind} pt{index:02d}: "
+                + (f"{nbytes / 1e9:.3f} GB, " if nbytes else "")
+                + f"{sec:.2f} s ({smi})")
+        server = engine.InferenceServer(cfg, params, plan=plan, max_len=128,
+                                        max_batch=2, cache="paged",
+                                        page_size=16, device=dev)
+        seen = [0]
+        _check_logits(server, seen)
+        rng = np.random.default_rng(11)
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=n)
+                        .astype(np.int32),
+                        sampling=SamplingParams(max_tokens=8))
+                for i, n in enumerate((37, 90))]
+        count.take()
+        served_out = server.serve(reqs)
+        served = count.take()
+        if any(len(served_out[i]) != 8 for i in range(2)) or not seen[0]:
+            raise AssertionError(f"sweep: served {served_out}")
+        for k in ("quant_matmul", "paged_attention", "paged_prefill"):
+            if not served[k]:
+                raise AssertionError(f"sweep: serving the swept plan never "
+                                     f"launched {k}: {served}")
+        log(f"[sweep] lm front plan {first['name']} ({plan.summary()}) "
+            f"loaded from the store and served: 2 greedy requests x 8 "
+            f"tokens on the paged cache, {seen[0]} logits rows finite; "
+            f"launches {served}")
+        del server, params
+        if plain[0]:
+            raise AssertionError(f"sweep: {plain[0]} weights took the plain "
+                                 f"quantizer stack on the card")
+        out.update(launches=dict(count.total), served=served)
+    finally:
+        restore()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[sweep] path 5 in {time.perf_counter() - t_phase:.1f} s; K4 "
+        f"launches over the path {out['launches']['mps_combine']} forward, "
+        f"{out['launches']['mps_combine_bwd']} backward; plain quantizer "
+        f"stack: 0 calls; workdir {root} removed")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1903,6 +2277,7 @@ def main():
     search_launches, _ = phase_search(dev, counters, smi)
     trained = phase_train(dev, counters, smi, rows["mps_combine"]["lm"])
     phase_resume(dev)
+    swept = phase_sweep(dev, counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -1923,9 +2298,10 @@ def main():
     for k, r in rows.items():
         src, rep = meta[k]
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep}
-        if k in ("mps_combine", "mps_combine_bwd"):    # paths 2 and 4
+        if k in ("mps_combine", "mps_combine_bwd"):    # paths 2, 4, 5
             row.update(launches=search_launches[k], path="search",
-                       launches_train=trained["launches"][k])
+                       launches_train=trained["launches"][k],
+                       launches_sweep=swept["launches"][k])
         elif k == "ssd_scan":       # path 3: mamba serving
             row.update(launches=mamba_runs["plan"][k],
                        launches_float=mamba_runs["float"][k],
@@ -1935,7 +2311,8 @@ def main():
                        launches_float=runs["float"][k], path="serve")
             if k == "paged_prefill":
                 row.update(logits_vs_dense=runs["paged_vs_dense"])
-            row.update(launches_train_plan=trained["served"][k])
+            row.update(launches_train_plan=trained["served"][k],
+                        launches_sweep_plan=swept["served"][k])
             if k == "quant_matmul":
                 row.update(launches_mamba=mamba_runs["plan"][k])
                 r["max_abs_err"] = max(r["max_abs_err"],

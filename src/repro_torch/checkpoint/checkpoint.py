@@ -11,10 +11,12 @@
 * async save on a background thread, then ``wait``;
 * ``restore_latest`` skips unreadable files.
 
-Leaves are torch tensors on any device.  numpy has no bfloat16: a bf16
-leaf is stored as its bits (uint16) and its path listed under
-``"bfloat16"`` in the meta record, so it restores bit for bit.  A restore
-gives each leaf the template leaf's dtype and device.
+Leaves are torch tensors on any device, or numpy arrays (a
+``CompressionPlan.to_tree()`` in the Compressor's carry), stored as they
+are.  numpy has no bfloat16: a bf16 leaf is stored as its bits (uint16)
+and its path listed under ``"bfloat16"`` in the meta record, so it
+restores bit for bit.  A restore gives each leaf the template leaf's
+type and dtype (and a tensor the template's device).
 """
 from __future__ import annotations
 
@@ -45,12 +47,20 @@ def _items(tree, prefix=()):
         yield _SEP.join(prefix), tree
 
 
-def _to_host(leaf: torch.Tensor):
+def _to_host(leaf):
     """A numpy copy of one leaf, and whether it holds bf16 bits."""
+    if not torch.is_tensor(leaf):
+        return np.array(leaf), False
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16).copy(), True
     return t.numpy().copy(), False
+
+
+def _flatten(tree) -> dict:
+    """``{leaf path: numpy array}`` of a tree, each array as a checkpoint
+    stores it (bf16 as its uint16 bits)."""
+    return {key: _to_host(leaf)[0] for key, leaf in _items(tree)}
 
 
 def _unflatten(template, flat: dict, bf16: set, prefix=()):
@@ -64,9 +74,11 @@ def _unflatten(template, flat: dict, bf16: set, prefix=()):
     if key not in flat:
         raise KeyError(f"checkpoint is missing leaf {key!r}")
     arr = flat[key]
-    if tuple(arr.shape) != tuple(template.shape):
+    if tuple(arr.shape) != tuple(np.shape(template)):
         raise ValueError(f"shape mismatch for {key!r}: ckpt {arr.shape} vs "
-                         f"template {tuple(template.shape)}")
+                         f"template {tuple(np.shape(template))}")
+    if not torch.is_tensor(template):
+        return arr.astype(np.asarray(template).dtype)
     if key in bf16:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:

@@ -78,6 +78,23 @@ def reorder_permutations(assignment):
     return perms
 
 
+def sublayer_split(assignment, pw: tuple[int, ...]):
+    """After reordering, each layer splits into contiguous per-precision
+    sub-layers.  Returns {group: [(bits, start, stop), ...]} (pruned
+    channels excluded)."""
+    perms = reorder_permutations(assignment)
+    split = {}
+    for grp, bits in assignment["gamma"].items():
+        sorted_bits = np.asarray(bits)[perms[grp]]
+        segs, start = [], 0
+        for b in sorted(set(int(x) for x in sorted_bits if x > 0)):
+            n = int(np.sum(sorted_bits == b))
+            segs.append((b, start, start + n))
+            start += n
+        split[grp] = segs
+    return split
+
+
 def ne16_refine(geoms, assignment, group_size: int = 32):
     """Greedy, monotone-increase precision refinement.
 

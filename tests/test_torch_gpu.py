@@ -844,3 +844,68 @@ def test_lm_search_step_on_the_card(cuda):
             mops.mps_combine_bwd.launches) == (2 * n_proj, n_proj)
     assert np.isfinite(float(loss)) and np.isfinite(float(step.grad_norm))
     assert all(torch.isfinite(t).all() for t in optimizers.tree_leaves(new))
+
+
+def test_cnn_sweep_kill_resume_on_the_card(cuda, tmp_path):
+    """A smoke-size cnn sweep (DS-CNN width 4, the reference test's spec)
+    on the card under deterministic algorithms: killed in the second
+    point's finetune and resumed, its store is byte-identical to the
+    uninterrupted sweep's; every JointSearch step launched K4 forward and
+    backward once a weight node."""
+    import os
+
+    from repro_torch import sweep
+    from repro_torch.api import phases
+    from repro_torch.models import cnn
+
+    class Boom(phases.Hook):
+        def __init__(self):
+            self.finetunes, self.armed = 0, True
+
+        def on_phase_start(self, phase, state):
+            self.finetunes += phase.name == "finetune"
+
+        def on_step(self, phase, state, step, metrics, train_state):
+            if self.armed and phase.name == "finetune" and \
+                    self.finetunes == 2:
+                self.armed = False
+                raise RuntimeError("boom")
+
+    class SearchSteps(phases.Hook):
+        n = 0
+
+        def on_step(self, phase, state, step, metrics, train_state):
+            SearchSteps.n += phase.name == "search"
+
+    spec = sweep.SweepSpec(name="t", track="cnn", bench="gsc",
+                           lams=(2.0, 12.0), adaptive_points=1,
+                           warmup_steps=4, search_steps=4, finetune_steps=2,
+                           batch=8, width=4, eval_batches=2,
+                           checkpoint_every=2)
+
+    def run(root, hooks=()):
+        store = sweep.PlanStore(os.path.join(root, "store"))
+        sweep.SweepRunner(spec, store, os.path.join(root, "work"),
+                          verbose=False, device=cuda).run(hooks=hooks)
+        entries = {n: open(store._entry_path(n), "rb").read()
+                   for n in store.names()}
+        return entries, [e["name"] for e in store.front()]
+
+    old = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        mops.mps_combine_fwd.launches = mops.mps_combine_bwd.launches = 0
+        ref = run(str(tmp_path / "a"), hooks=[SearchSteps()])
+        n_nodes = len(cnn.dscnn(width=4).weight_nodes())
+        assert mops.mps_combine_fwd.launches == \
+            mops.mps_combine_bwd.launches == n_nodes * SearchSteps.n > 0
+        with pytest.raises(RuntimeError, match="boom"):
+            run(str(tmp_path / "b"), hooks=[Boom()])
+        assert run(str(tmp_path / "b")) == ref
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if old is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old

@@ -37,6 +37,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.launch.train, repro_torch.launch.steps\n"
         "import repro_torch.optim.grad, repro_torch.checkpoint.checkpoint\n"
         "import repro_torch.models.lm\n"
+        "import repro_torch.sweep, repro_torch.sweep.front\n"
+        "import repro_torch.sweep.store, repro_torch.sweep.runner\n"
+        "import repro_torch.launch.sweep, repro_torch.core.pipeline\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "assert not bad, bad\n")
@@ -75,6 +78,10 @@ def test_entry_points_refuse_cpu_fallback():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "llama3.2-1b-smoke", "--steps", "1"])
+    from repro_torch.launch import sweep
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sweep.main(["--track", "cnn", "--bench", "gsc", "--width", "4",
+                    "--store", "unused", "--workdir", "unused"])
 
 
 def test_unported_families_name_their_roadmap_item():

@@ -301,5 +301,7 @@ def test_compressor_refuses_cpu_fallback_and_checkpoint():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcomp.Compressor(g, tsyn.GSC_LIKE)
     comp = tcomp.Compressor(g, tsyn.GSC_LIKE, batch=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        comp.run([tph.Warmup(steps=1)], checkpoint=object())
+    # checkpoint= is ported (tests/test_torch_compressor_resume.py); the
+    # metrics registry is what the Compressor still refuses
+    with pytest.raises(NotImplementedError, match="item 12"):
+        comp.run([tph.Warmup(steps=1)], registry=object())
