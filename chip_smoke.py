@@ -92,7 +92,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
               (steps x 2 + eval batches) forward and 112 x steps backward
               (lm); no weight on the plain quantizer stack; finite losses,
               scores and costs; seconds a point, handoff bytes and seconds.
-11. report -- one JSON line of kernels, the card's name and power limit,
+11. moe     -- path 6: MoE serving at full width, depth cut, bf16
+              weights from seed 0.  llama4-scout-17b-a16e at 12 of 48
+              layers (3 super-blocks of 3 chunked + 1 full attention
+              layers, 16 experts top-1 + the shared FFN) bound to
+              synthetic_plan(bits=None, seed=0) on a paged cache (page 16,
+              max_len 9216, 8 slots): 8 greedy requests x 32 tokens,
+              prompts of 64-1024 tokens and of 8176 (decode crosses the
+              8192 chunk boundary on K2) and 8320 (K3's prefill crosses
+              it); then 2 float requests; then one profiled window split
+              a decode step's device time between cuBLAS's products (the
+              expert banks), K1, K2, K3 and the rest.  arctic-480b at 2 of
+              35 layers (128 experts top-2 + the shared FFN), plan-bound,
+              4 requests x 16 tokens.  Each: full-length streams, finite
+              logits, K1 >= 7 x layers x (steps + admissions) plan-bound
+              (0 float), K2 >= layers x steps, K3 >= layers x admissions;
+              paged (K3) vs dense prefill logits of a 64-token prompt
+              within 5e-2 relative L2; peak memory.  Before the paths, the
+              kernels phase holds K2 and K3 against their plain versions
+              at these archs' attention shapes (G = 5 and 7, D = 128,
+              chunked window 8192 across a chunk boundary), timed beside
+              SDPA.  Every path's peak memory is printed.
+12. report -- one JSON line of kernels, the card's name and power limit,
               and last the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -488,6 +509,301 @@ def phase_kernels(dev, flush):
             f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+# the MoE archs' attention: llama4-scout's 40 query heads over 8 KV heads
+# (G = 5) and arctic's 56 over 8 (G = 7), head dim 128 -- the first groups
+# on the card that are not a power of two -- under scout's chunked window
+# of 8192, with positions on both sides of a chunk boundary; path 6's
+# table width (max_len 9216, pages of 16)
+MOE_GROUPS = ((40, 8), (56, 8))
+MOE_WINDOW, MOE_PS, MOE_WIDTH = 8192, 16, 576
+MOE_K2_LENS = [8208, 8191, 8192, 8193, 100, 0, 1000, 5000]   # slot 5 freed
+MOE_K3_LEN = 8320
+
+
+def _chunk_keys(pos, window):
+    """Keys a query at ``pos`` attends under a chunked window."""
+    return pos - (pos // window) * window + 1
+
+
+def _moe_pools(rng, lens, hkv, d, dtype, dev):
+    """Pools of every slot's pages (NaN null page), tables of path 6's
+    width, one set per dtype and shared by both head groups."""
+    b = len(lens)
+    n_pages = sum(-(-n // MOE_PS) for n in lens)
+    k = torch.as_tensor(rng.normal(size=(n_pages + 1, MOE_PS, hkv, d)),
+                        dtype=torch.float32)
+    v = torch.as_tensor(rng.normal(size=(n_pages + 1, MOE_PS, hkv, d)),
+                        dtype=torch.float32)
+    k[0] = v[0] = float("nan")
+    tables = np.zeros((b, MOE_WIDTH), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages + 1))
+    idx = 0
+    for bi, n in enumerate(lens):
+        npg = -(-n // MOE_PS)
+        tables[bi, :npg] = perm[idx:idx + npg]
+        idx += npg
+    return (k.to(dev, dtype), v.to(dev, dtype),
+            torch.as_tensor(tables, device=dev))
+
+
+def _sdpa_chunked(q, kp, vp, tb, hkv, d, q_pos):
+    """SDPA on the gathered K/V, each KV head repeated over its group,
+    masked causally within chunks of the window: the library's call for
+    the same function.  q: (B, H, Sq, D); q_pos: (B, Sq)."""
+    b, h = q.shape[:2]
+    kd, vd = sdpa_kv(kp, vp, tb, h, hkv, d)
+    key_pos = torch.arange(kd.shape[2], device=q.device)
+    mask = (key_pos[None, None, :] <= q_pos[:, :, None]) & (
+        key_pos[None, None, :] // MOE_WINDOW
+        == q_pos[:, :, None] // MOE_WINDOW)
+    mask = mask[:, None]                                   # (B, 1, Sq, T)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, kd, vd, attn_mask=mask)
+    return lib
+
+
+def phase_moe_attention(dev, flush):
+    """K2 and K3 against their plain versions at the MoE archs' attention
+    shapes (G = 5 and 7, D = 128, chunked window 8192 across a chunk
+    boundary), f32 within 2e-5 and bf16 within 1e-2; each timed in bf16
+    beside its plain version, SDPA on the gathered K/V and its bound.
+    Returns ``{"paged_attention": [...], "paged_prefill": [...]}``, a row
+    a group."""
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    rng = np.random.default_rng(19)
+    d, kw = 128, dict(window=MOE_WINDOW, chunked=True)
+    pos = torch.as_tensor([max(n - 1, 0) for n in MOE_K2_LENS],
+                          dtype=torch.int32, device=dev)
+    out = {"paged_attention": {}, "paged_prefill": {}}
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+        kp, vp, tb = _moe_pools(rng, MOE_K2_LENS, 8, d, dtype, dev)
+        kp3, vp3, tb3 = _moe_pools(rng, [MOE_K3_LEN], 8, d, dtype, dev)
+        tb3 = tb3[:, :MOE_K3_LEN // MOE_PS].contiguous()
+        lens3 = torch.as_tensor([MOE_K3_LEN], dtype=torch.int32, device=dev)
+        for h, hkv in MOE_GROUPS:
+            g = h // hkv
+            q = torch.as_tensor(rng.normal(size=(len(MOE_K2_LENS), h, d)),
+                                dtype=torch.float32).to(dev, dtype)
+            got = pops.paged_attention_fwd(q, kp, vp, tb, pos, **kw)
+            torch.cuda.synchronize()
+            want = pops.paged_attention_ref(q, kp, vp, tb, pos, **kw)
+            err2 = (got.float() - want.float()).abs().max().item()
+            if not (torch.isfinite(got).all() and err2 <= tol and
+                    torch.equal(got[5], torch.zeros_like(got[5]))):
+                raise AssertionError(f"K2 G={g} {dtype}: max |diff| {err2} "
+                                     f"> {tol}, non-finite or freed slot "
+                                     f"not zero")
+            q3 = torch.as_tensor(rng.normal(size=(1, MOE_K3_LEN, h, d)),
+                                 dtype=torch.float32).to(dev, dtype)
+            got3 = pops.paged_prefill_fwd(q3, kp3, vp3, tb3, lens3, **kw)
+            torch.cuda.synchronize()
+            want3 = pops.paged_prefill_ref(q3, kp3, vp3, tb3, lens3, **kw)
+            err3 = (got3.float() - want3.float()).abs().max().item()
+            if not (torch.isfinite(got3).all() and err3 <= tol):
+                raise AssertionError(f"K3 G={g} {dtype}: max |diff| {err3} "
+                                     f"> {tol}")
+            log(f"[kernels] G={g} (H={h}, Hkv={hkv}, D={d}), chunked window "
+                f"{MOE_WINDOW}, {dtype}: K2 at lens {MOE_K2_LENS} max |diff| "
+                f"{err2:.3g}, K3 at S={MOE_K3_LEN} max |diff| {err3:.3g} "
+                f"(bound {tol})")
+            if dtype == torch.float32:
+                out["paged_attention"][g] = dict(g=g, max_abs_err=err2)
+                out["paged_prefill"][g] = dict(g=g, max_abs_err=err3)
+                continue
+            r2, r3 = out["paged_attention"][g], out["paged_prefill"][g]
+            # K2: the live pages of each slot's chunk, read once
+            keys = [_chunk_keys(int(p), MOE_WINDOW) if n else 0
+                    for p, n in zip(pos.tolist(), MOE_K2_LENS)]
+            pages = sum(-(-(p % MOE_WINDOW + 1) // MOE_PS) if n else 0
+                        for p, n in zip(pos.tolist(), MOE_K2_LENS))
+            nb = 2 * q.numel() * 2 + 2 * pages * MOE_PS * hkv * d * 2 + \
+                tb.numel() * 4 + pos.numel() * 4
+            bms, by = bound(nb, 4 * h * d * sum(keys), "bf16")
+            lib2 = _sdpa_chunked(q[:, :, None, :], kp, vp, tb, hkv, d,
+                                 pos.long()[:, None])
+            r2.update(
+                shape=f"B=8 H={h} Hkv={hkv} D={d} page {MOE_PS}, table "
+                f"{MOE_WIDTH}, lens {MOE_K2_LENS}, chunked {MOE_WINDOW}, "
+                f"bf16", max_abs_err_bf16=err2,
+                ms=time_ms(lambda: pops.paged_attention_fwd(
+                    q, kp, vp, tb, pos, **kw), 30, flush),
+                device_ms=device_ms(lambda: pops.paged_attention_fwd(
+                    q, kp, vp, tb, pos, **kw), 30, flush, "paged_decode"),
+                plain_ms=time_ms(lambda: pops.paged_attention_ref(
+                    q, kp, vp, tb, pos, **kw), 2, flush),
+                library_ms=time_ms(lib2, 30, flush),
+                library_device_ms=device_ms(lib2, 30, flush, names=False),
+                bound_ms=bms, bound_by=by)
+            # K3: one prompt crossing the boundary; each query attends the
+            # keys of its chunk up to itself
+            qk = sum(_chunk_keys(p, MOE_WINDOW) for p in range(MOE_K3_LEN))
+            nb = 2 * q3.numel() * 2 + 2 * MOE_K3_LEN * hkv * d * 2 + \
+                tb3.numel() * 4
+            bms, by = bound(nb, 4 * h * d * qk, "bf16")
+            lib3 = _sdpa_chunked(
+                q3.transpose(1, 2).contiguous(), kp3, vp3, tb3, hkv, d,
+                torch.arange(MOE_K3_LEN, device=dev)[None])
+            r3.update(
+                shape=f"B=1 S={MOE_K3_LEN} H={h} Hkv={hkv} D={d} page "
+                f"{MOE_PS}, chunked {MOE_WINDOW}, bf16", max_abs_err_bf16=err3,
+                ms=time_ms(lambda: pops.paged_prefill_fwd(
+                    q3, kp3, vp3, tb3, lens3, **kw), 10, flush),
+                device_ms=device_ms(lambda: pops.paged_prefill_fwd(
+                    q3, kp3, vp3, tb3, lens3, **kw), 10, flush,
+                    "paged_prefill_mma_kernel"),
+                plain_ms=time_ms(lambda: pops.paged_prefill_ref(
+                    q3, kp3, vp3, tb3, lens3, **kw), 1, flush),
+                library_ms=time_ms(lib3, 10, flush),
+                library_device_ms=device_ms(lib3, 10, flush, names=False),
+                bound_ms=bms, bound_by=by)
+            for name, r in (("K2", r2), ("K3", r3)):
+                log(f"[kernels] {name} at {r['shape']}: {r['ms']:.4f} ms "
+                    f"(device {r['device_ms']:.4f}), plain "
+                    f"{r['plain_ms']:.2f} ms, SDPA {r['library_ms']:.4f} "
+                    f"(device {r['library_device_ms']:.4f}), bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        del kp, vp, kp3, vp3
+    torch.cuda.empty_cache()
+    return {k: list(v.values()) for k, v in out.items()}
+
+
+def moe_k1_cases():
+    """(M, K, N, bits) of path 6's K1 calls: for each MoE arch at its cut,
+    every precision group of every plan group (the seed-0 synthetic plan
+    path 6 binds, drawn here over the meta-device tree: it depends on
+    the shapes only) and each projection at its full width in 8/4/2
+    bits, at the decode M (the slot count) and the longest padded
+    prompt."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+
+    cases = set()
+    for arch, n_layers, _, slots, lens, _, _ in MOE_PATHS:
+        cfg = dataclasses.replace(registry.get(arch), n_layers=n_layers,
+                                  param_dtype="bfloat16")
+        meta = lm.init_params(cfg, device="meta")
+        groups = lm.serve_weight_groups(cfg, meta)
+        plan = engine.synthetic_plan(cfg, meta, bits=None, seed=0)
+        prefill_m = -(-max(lens) // 16) * 16
+        for grp, w in groups.items():
+            n_full, kk = w.shape
+            cb = np.asarray(plan.channel_bits[grp])
+            widths = [(int((cb == b).sum()), b) for b in (8, 4, 2)]
+            widths += [(n_full, b) for b in (8, 4, 2)]
+            for m in (slots, prefill_m):
+                cases.update((m, kk, n, b) for n, b in widths if n)
+    return sorted(cases)
+
+
+def phase_moe_k1(dev):
+    """K1 bitwise against its int32-exact plain version at path 6's shapes
+    (:func:`moe_k1_cases`): llama4-scout's K = 5120 / 8192 and arctic's
+    K = 7168 / 4864, decode and prefill.  Returns the max |diff| and the
+    number of cases."""
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    cases = moe_k1_cases()
+    sx = torch.ones((), device=dev)
+    xs = {}
+    err = 0.0
+    for m, kk, n, bits in cases:
+        if (m, kk) not in xs:
+            xs[(m, kk)] = torch.randint(-127, 128, (m, kk), generator=g,
+                                        device=dev, dtype=torch.int8)
+        xq = xs[(m, kk)]
+        qmax = 2 ** (bits - 1) - 1
+        wq = torch.randint(-qmax - 1, qmax + 1, (n, kk), generator=g,
+                           device=dev, dtype=torch.int8)
+        sw = torch.rand(n, generator=g, device=dev) * 1e-3
+        got = qops.quant_matmul(xq, qref.pack_weights(wq, bits), sw, sx,
+                                w_bits=bits)
+        torch.cuda.synchronize()
+        want = qref.quant_matmul_ref(xq, wq, sw, sx)
+        diff = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1 not bitwise at MoE shape M={m} K={kk} "
+                                 f"N={n} bits={bits}: max |diff| {diff}")
+        err = max(err, diff)
+    del xs
+    ms = sorted({c[0] for c in cases})
+    ks = sorted({c[1] for c in cases})
+    log(f"[kernels] K1 quant_matmul at path 6's shapes: bitwise equal to "
+        f"the int32 plain version in {len(cases)} cases, M in {ms}, K in "
+        f"{ks}, N from {min(c[2] for c in cases)} to "
+        f"{max(c[2] for c in cases)} (every precision group of the "
+        f"scout / arctic synthetic plans and the full widths), bits 8/4/2")
+    return dict(moe_cases=len(cases), moe_max_abs_err=err)
+
+
+# gemma2-2b's attention: 8 query heads over 4 KV heads of 256, a sliding
+# window of 4096 and the score softcap 50; queries scaled so that the cap
+# bites (scores of tens, where tanh bends)
+CAP_SHAPE = dict(h=8, hkv=4, d=256, ps=16, cap=50.0, window=4096, q_scale=40.0)
+CAP_K2_LENS = [1, 100, 4095, 4096, 4097, 0, 5000, 300]   # slot 5 freed
+CAP_K3_LEN = 4160
+
+
+def phase_softcap_attention(dev):
+    """K2 and K3 with the attention softcap against their plain versions
+    (which compute the capped scores as ``attention.softcap`` does on the
+    card), f32 within 2e-5 and bf16 within 1e-2, at gemma2-2b's attention
+    shape with slots and a prompt across the window's edge.  Returns
+    ``{"paged_attention": err, "paged_prefill": err}`` (f32)."""
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    c = CAP_SHAPE
+    kw = dict(window=c["window"], cap=c["cap"])
+    rng = np.random.default_rng(50)
+    pos = torch.as_tensor([max(n - 1, 0) for n in CAP_K2_LENS],
+                          dtype=torch.int32, device=dev)
+    width = -(-max(CAP_K2_LENS) // c["ps"])
+    lens3 = torch.as_tensor([CAP_K3_LEN], dtype=torch.int32, device=dev)
+    out, msg = {}, []
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+        q, kp, vp, tb = pool_case(rng, CAP_K2_LENS, h=c["h"], hkv=c["hkv"],
+                                  d=c["d"], ps=c["ps"], width=width,
+                                  dtype=dtype, dev=dev)
+        q = (q.float() * c["q_scale"]).to(dtype)
+        got = pops.paged_attention_fwd(q, kp, vp, tb, pos, **kw)
+        torch.cuda.synchronize()
+        want = pops.paged_attention_ref(q, kp, vp, tb, pos, **kw)
+        err2 = (got.float() - want.float()).abs().max().item()
+        if not (torch.isfinite(got).all() and err2 <= tol and
+                torch.equal(got[5], torch.zeros_like(got[5]))):
+            raise AssertionError(f"K2 capped {dtype}: max |diff| {err2} > "
+                                 f"{tol}, non-finite or freed slot not zero")
+        del q, kp, vp, tb
+        q3, kp3, vp3, tb3 = pool_case(
+            rng, [CAP_K3_LEN], h=c["h"], hkv=c["hkv"], d=c["d"], ps=c["ps"],
+            width=CAP_K3_LEN // c["ps"], dtype=dtype, dev=dev, s=CAP_K3_LEN)
+        q3 = (q3.float() * c["q_scale"]).to(dtype)
+        got3 = pops.paged_prefill_fwd(q3, kp3, vp3, tb3, lens3, **kw)
+        torch.cuda.synchronize()
+        want3 = pops.paged_prefill_ref(q3, kp3, vp3, tb3, lens3, **kw)
+        err3 = (got3.float() - want3.float()).abs().max().item()
+        if not (torch.isfinite(got3).all() and err3 <= tol):
+            raise AssertionError(f"K3 capped {dtype}: max |diff| {err3} > "
+                                 f"{tol}")
+        del q3, kp3, vp3, tb3
+        msg.append(f"{dtype}: K2 {err2:.3g}, K3 {err3:.3g} (bound {tol})")
+        if dtype == torch.float32:
+            out = {"paged_attention": err2, "paged_prefill": err3}
+    torch.cuda.empty_cache()
+    log(f"[kernels] K2 / K3 with softcap {c['cap']} at H={c['h']} "
+        f"Hkv={c['hkv']} D={c['d']}, window {c['window']}, queries x "
+        f"{c['q_scale']}, K2 lens {CAP_K2_LENS}, K3 S={CAP_K3_LEN}: max "
+        f"|diff| " + "; ".join(msg))
+    return out
 
 
 # decode shapes timed (M = 8): llama3.2-1b's widest projection at each
@@ -1506,6 +1822,232 @@ def phase_mamba(dev, counters):
     return runs
 
 
+# path 6, MoE serving at full width with depth cut: (arch, layers kept,
+# max_len, slots, prompt lengths, new tokens, float requests).  scout's
+# 8176-token prompt makes decode cross the 8192 chunk boundary on K2, its
+# 8320-token one makes K3's prefill cross it.
+MOE_PATHS = (
+    ("llama4-scout-17b-a16e", 12, 9216, 8,
+     tuple(int(n) for n in np.random.default_rng(0).integers(64, 1025, 6))
+     + (8176, 8320), 32, 2),
+    ("arctic-480b", 2, 1024, 4,
+     tuple(int(n) for n in np.random.default_rng(1).integers(64, 513, 4)),
+     16, 0),
+)
+DEVICE_CLASSES = (("K1", ("qmv_kernel", "qmm_kernel")),
+                  ("K2", ("paged_decode",)),
+                  ("K3", ("paged_prefill",)),
+                  ("cuBLAS products", ("nvjet", "gemm", "gemv", "cutlass",
+                                       "xmma", "Kernel2", "sm90_")))
+
+
+def _device_split(prof):
+    """Device ms of one profiled window by class: the port's kernels,
+    cuBLAS's products (the expert banks, router, lm_head, float
+    projections) and everything else (elementwise, sorts, gathers)."""
+    out = {k: 0.0 for k, _ in DEVICE_CLASSES}
+    out["other"] = 0.0
+    other = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k, keys in DEVICE_CLASSES
+                     if any(x in e.key for x in keys)), "other")
+        out[name] += e.self_device_time_total / 1e3
+        if name == "other":
+            other[e.key[:60]] = e.self_device_time_total / 1e3
+    _device_split.other = sorted(other.items(), key=lambda kv: -kv[1])[:6]
+    return out
+
+
+def _moe_prefill_gap(cfg, params, plan, toks, dev):
+    """Paged (K3, and K3's plain version as the witness) vs dense prefill
+    logits of one prompt whose length is a multiple of 16: the padded
+    paged prefill then sees the dense path's token count, so the same
+    capacity.  Returns relative L2 errors {"k3", "plain"}."""
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+
+    kernel = pops.paged_prefill_fwd
+    srv = engine.InferenceServer(cfg, params, plan=plan, max_len=256,
+                                 max_batch=1, cache="paged", page_size=16,
+                                 device=dev)
+    dense, _ = lm.forward(cfg, srv.params, {"tokens": torch.as_tensor(
+        toks[None], device=dev)}, mode="prefill", logits_mode="last")
+    dense = dense[:, -1].float()
+    out = {}
+    for name, k3 in (("k3", kernel), ("plain", pops.paged_prefill_ref)):
+        srv.begin()
+        h = srv.backend.alloc(0, 0, toks.size)
+        pops.paged_prefill_fwd = k3
+        try:
+            paged = srv._run_prefill(srv.backend, h, toks).float()
+        finally:
+            pops.paged_prefill_fwd = kernel
+        if paged.shape != (1, lm.padded_vocab(cfg)) or not torch.isfinite(
+                paged).all():
+            raise AssertionError(f"{cfg.name} paged prefill logits: shape "
+                                 f"{tuple(paged.shape)} or non-finite")
+        out[name] = ((paged - dense).norm() / dense.norm()).item()
+        srv.end()
+    return out
+
+
+def phase_moe(dev, counters, smi):
+    """Path 6: MoE serving (llama4-scout at 12 of 48 layers, arctic at 2
+    of 35) at full width, bf16 weights from seed 0, on K1-K3."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+
+    result = {}
+    for arch, n_layers, max_len, slots, lens, new, n_float in MOE_PATHS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = dataclasses.replace(registry.get(arch), n_layers=n_layers,
+                                  param_dtype="bfloat16")
+        t0 = time.perf_counter()
+        params = lm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        torch.cuda.synchronize()
+        n_par = sum(v.numel() for _, v in _leaves(params))
+        plan = engine.synthetic_plan(cfg, params, bits=None, seed=0)
+        log(f"[moe] {arch}: {n_layers} of {registry.get(arch).n_layers} "
+            f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+            f"of {cfg.head_dim}, {cfg.n_experts} experts x {cfg.experts_per_token} "
+            f"of d_ff {cfg.expert_d_ff} + shared d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab}; {n_par / 1e9:.3f} B bf16 parameters "
+            f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB) drawn in "
+            f"{time.perf_counter() - t0:.1f} s; {plan.summary()}")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+                   for n in lens]
+        L = cfg.n_layers
+        runs = {}
+        for label, run_plan, n_req in (("plan", plan, len(lens)),
+                                       ("float", None, n_float)):
+            if not n_req:
+                continue
+            t1 = time.perf_counter()
+            server = engine.InferenceServer(
+                cfg, params, plan=run_plan, max_len=max_len,
+                max_batch=slots, cache="paged", page_size=16, device=dev)
+            seen = [0]
+            _check_logits(server, seen)
+            reqs = [Request(uid=i, prompt=prompts[i],
+                            sampling=SamplingParams(max_tokens=new))
+                    for i in range(n_req)]
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t1
+            for fn in counters.values():
+                fn.launches = 0
+            t1 = time.perf_counter()
+            out = server.serve(reqs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            got = {k: fn.launches for k, fn in counters.items()}
+            st = server.stats
+            for i in range(n_req):
+                if len(out[i]) != new:
+                    raise AssertionError(f"{arch} {label}: request {i} gave "
+                                         f"{len(out[i])} of {new} tokens")
+            steps, adm = st["decode_steps"], st["admitted"]
+            need = {"paged_attention": L * steps, "paged_prefill": L * adm,
+                    "quant_matmul": 7 * L * (steps + adm)
+                    if run_plan is not None else 0}
+            for k, lo in need.items():
+                if got[k] < lo or (lo == 0 and got[k] != 0):
+                    raise AssertionError(f"{arch} {label}: {k} launched "
+                                         f"{got[k]} times, need "
+                                         f"{'>= %d' % lo if lo else '0'}")
+            tok = sum(len(v) for v in out.values())
+            log(f"[moe] {arch} {label}: {n_req} requests (prompts "
+                f"{list(lens[:n_req])}) x {new} tokens, {steps} decode "
+                f"steps, {adm} admissions in {dt:.2f} s = {tok / dt:.1f} "
+                f"tok/s (set-up {setup:.1f} s); {seen[0]} logits rows "
+                f"finite; launches {got}; {smi}")
+            runs[label] = dict(launches=got, decode_steps=steps,
+                               admitted=adm, seconds=dt, tok_s=tok / dt)
+            if label == "plan" and arch.startswith("llama4"):
+                runs["decode_split"] = _moe_decode_profile(
+                    server, cfg, prompts, smi)
+            del server
+        rel = _moe_prefill_gap(cfg, params, plan, prompts[0][:64], dev)
+        rel_f = _moe_prefill_gap(cfg, params, None, prompts[0][:64], dev)
+        if max(rel["k3"], rel_f["k3"]) > 5e-2:
+            raise AssertionError(f"{arch} paged vs dense prefill logits: "
+                                 f"relative L2 error {rel} (plan), "
+                                 f"{rel_f} (float) > 5e-2")
+        log(f"[moe] {arch} paged (K3) vs dense prefill logits on a 64-token "
+            f"prompt: relative L2 error {rel['k3']:.3g} plan-bound, "
+            f"{rel_f['k3']:.3g} float (bound 5e-2); witnesses with K3's "
+            f"plain version {rel['plain']:.3g} / {rel_f['plain']:.3g}")
+        runs["paged_vs_dense"] = dict(plan_k3=rel["k3"],
+                                      plan_plain=rel["plain"],
+                                      float_k3=rel_f["k3"],
+                                      float_plain=rel_f["plain"])
+        runs["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        runs["params_b"] = n_par / 1e9
+        log(f"[moe] {arch}: peak memory {runs['peak_gib']:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated); {smi}")
+        result[arch] = runs
+        del params, plan
+        _free(dev)
+    return result
+
+
+def _moe_decode_profile(server, cfg, prompts, smi):
+    """The device time of a decode step by class: 8 requests of 64 prompt
+    tokens served under torch.profiler twice, for 1 token (admissions
+    only) and for 17 (the same admissions and 16 decode steps); the
+    difference over the decode steps splits a step between cuBLAS's
+    products (the expert banks above all), K1, K2, K3 and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+
+    windows = []
+    for n in (1, 17):
+        reqs = [Request(uid=100 + i, prompt=p[:64],
+                        sampling=SamplingParams(max_tokens=n))
+                for i, p in enumerate(prompts[:8])]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            server.serve(reqs)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        windows.append((_device_split(prof), wall,
+                        server.stats["decode_steps"]))
+    (adm, wall_a, _), (full, wall_f, steps) = windows
+    per_step = {k: (full[k] - adm[k]) / steps for k in full}
+    wall_step = (wall_f - wall_a) / steps
+    busy = sum(per_step.values())
+    log(f"[moe] {cfg.name} plan-bound decode step (8 slots, 64-token "
+        f"prompts; {steps} steps, profiled): {wall_step:.2f} ms wall, "
+        f"{busy:.2f} ms device ({100 * busy / wall_step:.1f}% busy); "
+        f"device ms a step by class: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
+        + f"; 8 admissions {sum(adm.values()):.2f} ms device in "
+        f"{wall_a:.1f} ms wall; {smi}")
+    log(f"[moe] largest 'other' kernels of the 17-token window (ms): "
+        + "; ".join(f"{k} {v:.2f}" for k, v in _device_split.other))
+    return dict(step_ms=per_step, step_wall_ms=wall_step, decode_steps=steps,
+                admissions_device_ms=adm, admissions_wall_ms=wall_a)
+
+
+def _free(dev):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+
 class StepTimer:
     """Compressor hook: wall time of every step (synchronised), each
     step's metrics, per phase."""
@@ -2270,14 +2812,43 @@ def main():
                 "mps_combine_bwd": mops.mps_combine_bwd,
                 "ssd_scan": sops.ssd_scan}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    rows = phase_kernels(dev, flush)
-    phase_rng(dev, flush)
-    runs = phase_serve(dev, counters)
-    mamba_runs = phase_mamba(dev, counters)
-    search_launches, _ = phase_search(dev, counters, smi)
-    trained = phase_train(dev, counters, smi, rows["mps_combine"]["lm"])
-    phase_resume(dev)
-    swept = phase_sweep(dev, counters, smi)
+
+    def path(name, fn, *args):
+        """Run one phase; free what it left and print its peak memory."""
+        _free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn(*args)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"[memory] {name}: peak {peak:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated)")
+        _free(dev)
+        return out
+
+    rows = path("kernels", phase_kernels, dev, flush)
+    moe_att = path("kernels (MoE attention shapes)", phase_moe_attention,
+                   dev, flush)
+    for k, v in moe_att.items():
+        rows[k]["moe_groups"] = v
+        rows[k]["max_abs_err"] = max([rows[k]["max_abs_err"]]
+                                     + [r["max_abs_err"] for r in v])
+    moe_k1 = path("kernels (MoE K1 shapes)", phase_moe_k1, dev)
+    rows["quant_matmul"].update(moe_k1)
+    rows["quant_matmul"]["max_abs_err"] = max(
+        rows["quant_matmul"]["max_abs_err"], moe_k1["moe_max_abs_err"])
+    capped = path("kernels (softcap)", phase_softcap_attention, dev)
+    for k, err in capped.items():
+        rows[k]["softcap_max_abs_err"] = err
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], err)
+    path("rng", phase_rng, dev, flush)
+    runs = path("path 1 (llama serve)", phase_serve, dev, counters)
+    mamba_runs = path("path 3 (mamba serve)", phase_mamba, dev, counters)
+    search_launches, _ = path("path 2 (resnet18 search)", phase_search,
+                              dev, counters, smi)
+    trained = path("path 4 (llama train)", phase_train, dev, counters, smi,
+                   rows["mps_combine"]["lm"])
+    path("resume", phase_resume, dev)
+    swept = path("path 5 (sweep)", phase_sweep, dev, counters, smi)
+    moe = path("path 6 (MoE serve)", phase_moe, dev, counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -2313,6 +2884,11 @@ def main():
                 row.update(logits_vs_dense=runs["paged_vs_dense"])
             row.update(launches_train_plan=trained["served"][k],
                         launches_sweep_plan=swept["served"][k])
+            for arch, r_moe in moe.items():
+                row[f"launches_{arch}"] = r_moe["plan"]["launches"][k]
+                if "float" in r_moe:
+                    row[f"launches_{arch}_float"] = \
+                        r_moe["float"]["launches"][k]
             if k == "quant_matmul":
                 row.update(launches_mamba=mamba_runs["plan"][k])
                 r["max_abs_err"] = max(r["max_abs_err"],

@@ -8,8 +8,11 @@ into numpy arrays (for example ``jax.tree.map(np.asarray, tree)``):
   CNN's -- and gives the same dicts of torch tensors on ``device``.
 * ``lm_params_from_jax`` checks an LM tree first: ``embed``, ``blocks``,
   ``final_norm`` and ``lm_head``; every ``blocks`` leaf stacked on one
-  leading ``n_superblocks`` axis; and, where a projection carries one,
-  ``gamma (n_superblocks, C_out, |P_W|)``.
+  leading ``n_superblocks`` axis; an MoE layer's expert banks 4-D,
+  ``(n_superblocks, E, K, N)`` with E its router's width; and, where a
+  projection carries one, ``gamma (n_superblocks, C_out, |P_W|)`` (an
+  expert bank's one gamma, shared by its experts, on the bank's last
+  axis).
 * ``cnn_params_from_jax`` checks a ``repro.models.cnn`` tree first: per
   weight node ``w`` (OIHW or (C_out, C_in)), ``b`` and, before BN
   folding, ``bn`` with ``scale``/``bias``/``mean``/``var``.
@@ -59,6 +62,20 @@ def _check_gammas(tree, nsb, n_pw, path):
         _check_gammas(v, nsb, n_pw, f"{path}.{k}")
 
 
+def _check_banks(tree, path):
+    if not isinstance(tree, dict):
+        return
+    if "router" in tree:
+        e = np.shape(tree["router"]["w"])[-1]
+        for name in ("w_gate", "w_up", "w_down"):
+            w = np.shape(tree[name]["w"])
+            _require(len(w) == 4 and w[1] == e,
+                     f"{path}.{name}: expert bank of shape {w}, want "
+                     f"(n_superblocks, E {e}, K, N)")
+    for k, v in tree.items():
+        _check_banks(v, f"{path}.{k}")
+
+
 def lm_params_from_jax(tree, device="cpu", cfg=None):
     """A ``repro.models.lm`` parameter tree (``init_params(...,
     mps_on=...)``); ``cfg`` (the port's ``ArchConfig``) also fixes the
@@ -80,6 +97,7 @@ def lm_params_from_jax(tree, device="cpu", cfg=None):
                  f"{lm.n_superblocks(cfg)}")
         n_pw = len(cfg.mps_precisions)
     _check_gammas(tree["blocks"], nsb, n_pw, "blocks")
+    _check_banks(tree["blocks"], "blocks")
     return params_from_jax(tree, device)
 
 

@@ -11,6 +11,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch mamba2-780m-smoke --plan demo --cache paged --prompt-len 33
 
+    # MoE (llama4-scout: chunked attention, 16 experts top-1 + a shared
+    # FFN; arctic: 128 experts top-2 + a shared FFN): the router and the
+    # expert banks stay float under a plan, the attention and shared-FFN
+    # projections are its groups
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch llama4-scout-17b-a16e-smoke --plan demo --cache paged
+
 Weights are random (``lm.init_params``, seeded); ``--plan`` takes a saved
 CompressionPlan stem (either package's) or ``demo`` for a synthetic
 mixed-precision plan.  Temperature / top-k sampling runs on the device

@@ -1,4 +1,5 @@
-"""The LM of ``repro.models.lm``, dense and pure-SSM (Mamba-2) families.
+"""The LM of ``repro.models.lm``: the dense, MoE and pure-SSM (Mamba-2)
+families.
 
 Parameters are a nested dict of tensors with the JAX package's tree and
 shapes: each super-block's weights are stacked ``(n_superblocks, ...)``
@@ -6,13 +7,16 @@ under ``params["blocks"]["l<i>"]``; with ``mps_on`` every block
 projection also carries its per-output-channel selection logits
 ``gamma (n_superblocks, C_out, |P_W|)`` (the paper's joint search on the
 LM track: ``loss_fn`` with a ``SearchCtx``, ``mps_size_cost``,
-``extract_plan``).  A tree bound to a plan
+``extract_plan``).  An MoE layer's ``ffn`` holds a ``router`` (D, E) and
+the expert banks ``w_gate`` / ``w_up`` (nsb, E, D, F) and ``w_down``
+(nsb, E, F, D), plus the dense ``shared`` FFN with
+``cfg.dense_residual``.  A tree bound to a plan
 (``serve.engine.apply_plan``) holds ``blocks`` as a tuple of per-super-
 block trees instead, with :class:`~repro_torch.nn.quantized.PackedLinear`
 weights.  Either way the forward is a Python loop over super-blocks;
 caches keep the stacked ``(nsb, ...)`` layout and are updated in place.
 
-MoE, hybrid, enc-dec and frontend architectures raise
+Hybrid, enc-dec and frontend architectures raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -30,10 +34,13 @@ from repro_torch.core import mps, sampling
 from repro_torch.device import resolve_device
 from repro_torch.nn import blocks
 from repro_torch.nn import quantized as nnq
+from repro_torch.nn import xla_numerics
 
 _FAMILY_ITEM = {
-    "moe": "ROADMAP slice C1 (MoE)",
-    "hybrid": "ROADMAP slice C1 (MoE; its Mamba-2 layers are ported)",
+    "hybrid": "ROADMAP slice C1's jamba item (its Mamba-2 and MoE layers "
+              "are ported; one 8-layer super-block holds 4 MoE layers of "
+              "19.3 GB of bf16 experts each, more than one 80 GB card, so "
+              "it waits for a four-chip layout)",
     "encdec": "ROADMAP slice C3 (enc-dec and VLM)",
     "vlm": "ROADMAP slice C3 (enc-dec and VLM)",
 }
@@ -42,13 +49,14 @@ _FAMILY_ITEM = {
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str           # attn | attn_local | attn_chunked | mamba
-    ffn: Optional[str]   # dense | None
+    ffn: Optional[str]   # dense | moe | None
 
 
 def _require_ported(cfg: ArchConfig):
-    dense = cfg.family == "dense" and not cfg.ssm_state
+    dense = cfg.family == "dense" and not cfg.ssm_state and not cfg.is_moe
+    moe = cfg.family == "moe" and cfg.is_moe and not cfg.ssm_state
     ssm = cfg.family == "ssm" and cfg.is_ssm
-    if (not (dense or ssm) or cfg.is_moe or cfg.is_encdec
+    if (not (dense or moe or ssm) or cfg.is_encdec
             or cfg.frontend != "none"):
         item = _FAMILY_ITEM.get(cfg.family, "ROADMAP slice C")
         raise NotImplementedError(
@@ -63,10 +71,15 @@ def block_pattern(cfg: ArchConfig) -> tuple[LayerSpec, ...]:
         return (LayerSpec("mamba", None),)
     if cfg.attn_pattern == "local_global":
         return (LayerSpec("attn_local", "dense"), LayerSpec("attn", "dense"))
+    ffn = "moe" if cfg.is_moe else "dense"
     if cfg.attn_pattern == "chunked":
-        return (LayerSpec("attn_chunked", "dense"),) * 3 + \
-            (LayerSpec("attn", "dense"),)
-    return (LayerSpec("attn", "dense"),)
+        return (LayerSpec("attn_chunked", ffn),) * 3 + (LayerSpec("attn",
+                                                                  ffn),)
+    if cfg.is_moe and cfg.moe_every > 1:
+        return tuple(LayerSpec("attn", "moe" if i % cfg.moe_every ==
+                               cfg.moe_every - 1 else "dense")
+                     for i in range(cfg.moe_every))
+    return (LayerSpec("attn", ffn),)
 
 
 def n_superblocks(cfg: ArchConfig) -> int:
@@ -86,22 +99,32 @@ def padded_vocab(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 
 _MAMBA_PROJ = ("in_b", "in_c", "in_dt", "in_x", "in_z", "out_proj")
+_FFN_PROJ = ("w_gate", "w_up", "w_down")
 
 
 def _plan_weights(cfg: ArchConfig):
     """``(layer, sub, name)`` of every plan-servable projection, in the
     JAX package's order (its ``_walk_plan_weights`` walks a template tree
-    whose dict keys JAX sorts)."""
+    whose dict keys JAX sorts).  ``name`` is dotted below ``sub`` for an
+    MoE layer's shared FFN (``shared.w_down``); its router and 4-D expert
+    banks are no plan groups."""
     out = []
     for i, spec in enumerate(block_pattern(cfg)):
         if spec.mixer == "mamba":
             out += [(f"l{i}", "mixer", n) for n in _MAMBA_PROJ]
         else:
             out += [(f"l{i}", "mixer", n) for n in ("wq", "wk", "wv", "wo")]
-        if spec.ffn is not None:
-            out += [(f"l{i}", "ffn", n)
-                    for n in ("w_gate", "w_up", "w_down")]
+        if spec.ffn == "dense":
+            out += [(f"l{i}", "ffn", n) for n in _FFN_PROJ]
+        elif spec.ffn == "moe" and cfg.dense_residual:
+            out += [(f"l{i}", "ffn", f"shared.{n}") for n in _FFN_PROJ]
     return sorted(out)
+
+
+def _node(tree: dict, dotted: str):
+    for k in dotted.split("."):
+        tree = tree[k]
+    return tree
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -111,9 +134,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     ``device`` (default ``cuda``) from ``generator`` (default seed 0).
     ``mps_on`` gives every block projection its float32 selection logits
     ``gamma (nsb, C_out, |P_W|)`` at the paper's Eq. 13 init (the
-    reference's values); ``embed`` and ``lm_head`` carry none."""
+    reference's values); ``embed`` and ``lm_head`` carry none.  On the
+    ``meta`` device the tree has its shapes and no numbers (no
+    generator)."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = torch.float32 if cfg.param_dtype == "float32" \
         else torch.bfloat16
@@ -121,12 +146,24 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     d, v = cfg.d_model, padded_vocab(cfg)
     h, hkv, hd = cfg.h_eff, cfg.hkv_eff, cfg.head_dim
 
-    def w(shape, scale=None, stack=True):
-        scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    def w(shape, scale=None, stack=True, gamma=True):
+        fan_in = shape[0] if len(shape) == 2 else shape[-2]
+        scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
         full = ((nsb,) if stack else ()) + shape
-        out = {"w": torch.randn(full, generator=generator, device=dev,
-                                dtype=torch.float32).to(dtype) * scale}
-        if mps_on and stack:
+        if len(shape) == 3 and dev.type != "meta":
+            # an expert bank (nsb, E, K, N): drawn one expert at a time,
+            # so no float32 copy of the whole bank is ever made
+            arr = torch.empty(full, dtype=dtype, device=dev)
+            for j in range(nsb):
+                for e in range(shape[0]):
+                    arr[j, e] = torch.randn(
+                        shape[1:], generator=generator, device=dev,
+                        dtype=torch.float32).to(dtype) * scale
+        else:
+            arr = torch.randn(full, generator=generator, device=dev,
+                              dtype=torch.float32).to(dtype) * scale
+        out = {"w": arr}
+        if mps_on and stack and gamma:
             out["gamma"] = sampling.init_selection_logits(
                 cfg.mps_precisions, (nsb, shape[-1]), dev)
         return out
@@ -149,12 +186,30 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
             mixer["k_norm"] = vec((hd,))
         blk[f"l{i}"] = {
             "norm1": vec((d,)), "mixer": mixer, "norm2": vec((d,)),
-            "ffn": {"w_gate": w((d, cfg.d_ff)), "w_up": w((d, cfg.d_ff)),
-                    "w_down": w((cfg.d_ff, d))}}
+            "ffn": _moe_params(cfg, w) if spec.ffn == "moe"
+            else _ffn_params(cfg, w)}
     params["blocks"] = blk
     params["final_norm"] = vec((d,), stack=False)
     params["lm_head"] = w((d, v), scale=0.02, stack=False)
     return params
+
+
+def _ffn_params(cfg: ArchConfig, w) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w_gate": w((d, f)), "w_up": w((d, f)), "w_down": w((f, d))}
+
+
+def _moe_params(cfg: ArchConfig, w) -> dict:
+    """``lm._moe_params``' tree: the router (no gamma), the expert banks
+    and, with ``dense_residual``, the shared FFN.  Under ``mps_on`` each
+    bank carries the reference's one gamma ``(nsb, C_out, |P_W|)``, shared
+    by all its experts."""
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    out = {"router": w((d, e), gamma=False), "w_gate": w((e, d, f)),
+           "w_up": w((e, d, f)), "w_down": w((e, f, d))}
+    if cfg.dense_residual:
+        out["shared"] = _ffn_params(cfg, w)
+    return out
 
 
 def _mamba_params(cfg: ArchConfig, w, vec) -> dict:
@@ -261,8 +316,11 @@ def _superblock(cfg: ArchConfig, blk, x, s, *, mode, caches, j, pos, getw,
         if spec.ffn is None:
             continue
         h2 = blocks.rmsnorm(s, p["norm2"], cfg.norm_eps).to(x.dtype)
-        s = x.float() + blocks.ffn_swiglu(p["ffn"], h2,
-                                          effective_w=getw).float()
+        if spec.ffn == "moe":
+            y2 = blocks.moe_layer(p["ffn"], h2, cfg, effective_w=getw)
+        else:
+            y2 = blocks.ffn_swiglu(p["ffn"], h2, effective_w=getw)
+        s = x.float() + y2.float()
         x = s.to(x.dtype)
     return x, s, new
 
@@ -293,6 +351,11 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
             f"{cfg.name}: training a Mamba-2 stack is not ported yet (kernel "
             f"K5 has no backward); it comes with ROADMAP slice C4 (SSM "
             f"training)")
+    if mode == "train" and any(sp.ffn == "moe" for sp in pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: training an MoE stack is not ported yet (its "
+            f"expert banks share one gamma under the search); it comes with "
+            f"ROADMAP slice C4 for MoE")
     getw = _make_getw(cfg, ctx)
     x = _embed_in(cfg, params, batch["tokens"])
     # ``s`` is the f32 residual sum ``x`` was rounded from.  An RMSNorm
@@ -336,7 +399,8 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
         else:
             idx = torch.as_tensor(last_pos, device=x.device).reshape(1)
             x = x.index_select(1, idx.long())
-    logits = torch.matmul(x, params["lm_head"]["w"].to(torch.bfloat16))
+    logits = xla_numerics.matmul(x, params["lm_head"]["w"].to(
+        torch.bfloat16))
     if cfg.final_softcap > 0:
         logits = blocks.softcap(logits, cfg.final_softcap)
     return logits, caches
@@ -413,8 +477,10 @@ def mps_size_cost(cfg: ArchConfig, params, ctx: mps.SearchCtx
 
 def mps_param_count(cfg: ArchConfig) -> int:
     """Number of gamma-carrying weight matrices (stacked over super-blocks,
-    so one per projection of the pattern)."""
-    return len(_plan_weights(cfg))
+    so one per projection of the pattern), counted in ``init_params``'
+    tree on the meta device."""
+    tree = init_params(cfg, device="meta", mps_on=True)
+    return sum(1 for _ in _gamma_nodes(tree))
 
 
 def decode_step(cfg: ArchConfig, params, token_batch, caches, pos,
@@ -508,7 +574,7 @@ def serve_weight_groups(cfg: ArchConfig, params) -> dict:
     package's order."""
     out = {}
     for ln, sub, name in _plan_weights(cfg):
-        w = params["blocks"][ln][sub][name]["w"]          # (nsb, K, N)
+        w = _node(params["blocks"][ln][sub], name)["w"]   # (nsb, K, N)
         for j in range(w.shape[0]):
             out[f"blocks.{ln}.{sub}.{name}.sb{j}"] = w[j].T
     return out
@@ -526,7 +592,7 @@ def extract_plan(cfg: ArchConfig, params, px=(8,), meta=None):
     pw = np.asarray(cfg.mps_precisions)
     gamma = {}
     for ln, sub, name in _plan_weights(cfg):
-        node = params["blocks"][ln][sub][name]
+        node = _node(params["blocks"][ln][sub], name)
         if "gamma" not in node:
             raise KeyError(f"blocks.{ln}.{sub}.{name} carries no gamma; "
                            f"extract_plan needs init_params(mps_on=True)")

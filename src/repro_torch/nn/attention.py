@@ -12,13 +12,24 @@ import math
 
 import torch
 
+from repro_torch.nn.xla_numerics import xla_tanh
+
 NEG_INF = -1e30
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(logits / cap)`` with the JAX package's numbers under
+    ``jax.jit``: on float32 logits (the attention scores) the division is
+    a multiplication by the float32 reciprocal of ``cap`` and the tanh is
+    XLA's on the CPU (:func:`xla_tanh`; ``torch.tanh`` on the card); bf16
+    logits (the final softcap) take torch's ops, which round to the same
+    bf16 values."""
     if cap <= 0:
         return logits
-    return cap * torch.tanh(logits / cap)
+    if logits.dtype != torch.float32:
+        return cap * torch.tanh(logits / cap)
+    inv = (torch.tensor(1.0) / torch.tensor(cap, dtype=torch.float32)).item()
+    return cap * xla_tanh(logits * inv)
 
 
 def repeat_kv(kv: torch.Tensor, n_rep: int) -> torch.Tensor:

@@ -1,13 +1,16 @@
-"""Building blocks of the dense and pure-SSM families (a subset of
+"""Building blocks of the dense, MoE and pure-SSM families (a subset of
 ``repro.nn.blocks``): linear (dense or plan-quantized), RMSNorm, RoPE,
-softcap, attention (dense and paged, prefill and decode), the SwiGLU FFN
-and the Mamba-2 SSD mixer, whose prefill runs its inter-chunk recurrence
-on kernel K5 (``kernels/ssd_scan``).  The dtype flow mirrors the JAX
+softcap, attention (dense and paged, prefill and decode), the SwiGLU FFN,
+the top-k MoE with capacity-based token dropping (single device) and the
+Mamba-2 SSD mixer, whose prefill runs its inter-chunk recurrence on
+kernel K5 (``kernels/ssd_scan``).  The dtype flow mirrors the JAX
 package: bf16 activations and weights at the point of use, RMSNorm and
 RoPE angles in f32, attention scores and the SSM state in f32 with
 ``-1e30`` masking.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -17,11 +20,12 @@ from repro_torch.nn import quantized as nnq
 from repro_torch.nn.attention import (decode_attention, flash_attention,
                                       softcap)
 from repro_torch.nn.attention import repeat_kv as _repeat_kv
+from repro_torch.nn import xla_numerics as xla
 
 __all__ = ["linear", "rmsnorm", "rope", "softcap", "_repeat_kv",
            "flash_attention", "decode_attention", "paged_decode_attention",
            "paged_prefill_attention", "attention_layer", "ffn_swiglu",
-           "silu", "mamba2_layer"]
+           "moe_route", "moe_layer", "silu", "mamba2_layer"]
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
@@ -29,7 +33,7 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     :class:`~repro_torch.nn.quantized.PackedLinear` (plan-quantized)."""
     if isinstance(w, nnq.PackedLinear):
         return w(x)
-    return torch.matmul(x, w)
+    return xla.matmul(x, w)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
@@ -195,6 +199,75 @@ def ffn_swiglu(p: dict, x: torch.Tensor, effective_w=None) -> torch.Tensor:
     g = linear(x, getw(p["w_gate"]))
     u = linear(x, getw(p["w_up"]))
     return linear(silu(g) * u, getw(p["w_down"]))
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` along the last axis: the k largest values, the
+    lower index first among equal values (a stable descending sort;
+    ``torch.topk`` promises no order for ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
+              capacity: int):
+    """The router of ``blocks._moe_local``.  x: (T, D); router_w: (D, E).
+
+    ``x @ router_w`` in the promoted dtype of the two (bf16 activations
+    and a float32 router give float32, as JAX promotes), softmax in
+    float32, then ``top_k`` experts a token.  Each expert then keeps its
+    ``min(capacity, T)`` tokens of largest gate: a token routed
+    elsewhere has gate 0 there, so a short expert is filled with
+    zero-gate tokens, the lowest indices first (Switch-style dropping).
+    Returns ``gates``, ``ids`` (T, top_k) and ``top_g``, ``top_i`` (E,
+    C), gates in the logits' dtype."""
+    dt = torch.promote_types(x.dtype, router_w.dtype)
+    logits = xla.dot_f32(x.to(dt), router_w.to(dt))            # (T, E)
+    probs = xla.softmax_f32(logits).to(dt)
+    gates, ids = _top_k(probs, top_k)                           # (T, k)
+    gate_e = torch.zeros_like(probs).scatter_(1, ids, gates)    # (T, E)
+    top_g, top_i = _top_k(gate_e.T, min(capacity, x.shape[0]))  # (E, C)
+    return gates, ids, top_g, top_i
+
+
+def _moe_local(x, router_w, w_gate, w_up, w_down, *, top_k: int,
+               capacity: int):
+    """Single-device MoE (``blocks._moe_local`` with every expert local):
+    x (T, D); banks (E, D, F), (E, D, F), (E, F, D).  Every expert runs
+    its SwiGLU on its ``C`` routed tokens (one batched product over the
+    experts), its output in float32 is scaled by the gates and added into
+    a float32 (T, D) sum, then rounded to x's dtype.  A token reaches at
+    most ``top_k`` experts; with ``top_k`` <= 2 the sum of its terms does
+    not depend on their order."""
+    _, _, top_g, top_i = moe_route(x, router_w, top_k=top_k,
+                                   capacity=capacity)
+    xe = x[top_i]                                               # (E, C, D)
+    hh = silu(xla.matmul(xe, w_gate)) * xla.matmul(xe, w_up)
+    oe = xla.matmul_f32(hh, w_down)                             # (E, C, D)
+    upd = oe * top_g[..., None]
+    y = torch.zeros((x.shape[0], x.shape[1]), dtype=upd.dtype,
+                    device=x.device)
+    y.index_add_(0, top_i.reshape(-1), upd.reshape(-1, x.shape[1]))
+    return y.to(x.dtype)
+
+
+def moe_layer(p: dict, x: torch.Tensor, cfg, effective_w=None):
+    """Top-k MoE over ``cfg.n_experts`` (``blocks.moe_layer``' single-device
+    branch: the port has no mesh).  x: (B, S, D).  The capacity counts
+    every row of the batch, padded and idle rows included:
+    ``max(1, ceil(B * S * k * capacity_factor / E))``.  With
+    ``cfg.dense_residual`` the shared SwiGLU FFN is added."""
+    getw = effective_w or (lambda pp: pp["w"])
+    b, s, dm = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = max(1, int(math.ceil(b * s * k * cfg.capacity_factor / e)))
+    y = _moe_local(x.reshape(b * s, dm), p["router"]["w"],
+                   getw(p["w_gate"]), getw(p["w_up"]), getw(p["w_down"]),
+                   top_k=k, capacity=cap)
+    out = y.reshape(b, s, dm)
+    if cfg.dense_residual:
+        out = out + ffn_swiglu(p["shared"], x, effective_w)
+    return out
 
 
 # ---------------------------------------------------------------------------

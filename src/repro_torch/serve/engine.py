@@ -11,11 +11,14 @@
   straight into the page pool and runs kernel K3; decode runs K2 over the
   live prefix of the block tables; every planned projection runs K1.  A
   Mamba-2 stack prefills at exact length, its inter-chunk recurrence on
-  kernel K5, and keeps one SSM state per slot instead of pages.
+  kernel K5, and keeps one SSM state per slot instead of pages.  An MoE
+  stack's expert capacity counts every row of a step (idle decode slots
+  and a paged prompt's padding too, as in the JAX package).
 
 The cache-backend contract is token-for-token invariance: dense and
 paged, solo, batched and preempted, with or without a plan, all emit the
-same token streams.
+same token streams -- except under MoE, whose capacity-based dropping
+depends on the batch by design.
 """
 from __future__ import annotations
 
@@ -48,8 +51,8 @@ def apply_plan(cfg, params, plan, strict: bool = True):
     projection replaced by a :class:`PackedLinear` built from the plan's
     channel bits AND its stored Fig. 3 permutation.  The returned tree
     holds ``blocks`` as a tuple of per-super-block trees (packed shapes
-    differ per layer); other leaves are sliced per super-block and stay
-    float.  ``strict=False`` leaves groups missing from the plan in float
+    differ per layer); other leaves (norms, an MoE layer's router and
+    expert banks) are sliced per super-block and stay float.  ``strict=False`` leaves groups missing from the plan in float
     instead of raising.
     """
     planned = {f"blocks.{ln}.{sub}.{name}"

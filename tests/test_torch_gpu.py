@@ -483,6 +483,95 @@ def test_paged_prefill_bf16_chunk_invariant(cuda, window, chunked, cap):
         assert torch.equal(o, outs[-1])
 
 
+# the MoE archs' attention shapes: llama4-scout's 40 query heads over 8 KV
+# heads (G = 5) and arctic's 56 over 8 (G = 7), head dim 128 -- the first
+# groups that are not a power of two, so K2's last head chunk of a group
+# is partial (ceil(G / HPB) chunks)
+MOE_GROUPS = [(40, 8), (56, 8)]
+
+
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+@pytest.mark.parametrize("h,hkv", MOE_GROUPS)
+def test_paged_decode_moe_groups_vs_plain(cuda, dtype, h, hkv):
+    """K2 at G = 5 and 7, D = 128, a chunked window of 64 with slots on
+    both sides of a chunk boundary (63, 64, 65, 130, 200 tokens), a freed
+    slot, a NaN null page and poisoned tails; within 2e-5 (f32) / 1e-2
+    (bf16) of its plain version, the freed slot exactly zero."""
+    dt, tol = K2_DTYPES[dtype]
+    lens = (63, 64, 65, 130, 0, 200)
+    rng = np.random.default_rng(h)
+    case = make_case(rng, lens, h=h, hkv=hkv, hd=128, ps=16, n_pb=16,
+                     poison_null=True, poison_tail=7.0)
+    args = _on(cuda, case, dt)
+    kw = dict(window=64, chunked=True)
+    got = pops.paged_attention_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = pops.paged_attention_ref(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got[4], torch.zeros_like(got[4]))
+
+
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+@pytest.mark.parametrize("h,hkv", MOE_GROUPS)
+def test_paged_prefill_moe_groups_vs_plain(cuda, dtype, h, hkv):
+    """K3 at G = 5 and 7, D = 128, a chunked window of 64, prompts of 160
+    (crossing two chunk boundaries), 100 and 40 tokens padded to 160 rows:
+    within 2e-5 (f32) / 1e-2 (bf16) of its plain version on every row,
+    padded rows included (they attend causally, as the plain version's
+    do), and finite."""
+    dt, tol = K2_DTYPES[dtype]
+    lens, s = (160, 100, 40), 160
+    rng = np.random.default_rng(h + 1)
+    q, k, v, t, _ = make_case(rng, lens, h=h, hkv=hkv, hd=128, ps=16,
+                              n_pb=s // 16, poison_null=True, s=s)
+    args = _on(cuda, (q, k, v, t, np.asarray(lens, np.int32)), dt)
+    kw = dict(window=64, chunked=True)
+    got = pops.paged_prefill_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = pops.paged_prefill_ref(*args, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_moe_layer_card_vs_cpu(cuda):
+    """``blocks.moe_layer`` on the card against the same call on the CPU
+    (bf16 weights, 16 experts, top-1, a shared FFN, 2 x 24 tokens): the
+    same experts and the same kept tokens a expert, and the output within
+    3e-2 relative L2 (cuBLAS and the CPU round the bf16 products
+    differently)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.nn import blocks
+    cfg = dataclasses.replace(registry.get("llama4-scout-17b-a16e-smoke"),
+                              d_model=256, n_experts=16, moe_d_ff=128,
+                              d_ff=256, param_dtype="bfloat16")
+    params = lm.init_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    p_cpu = lm._index(params["blocks"]["l0"]["ffn"], 0)
+    p_dev = {k: {kk: vv.to(cuda) for kk, vv in v.items()}
+             if k != "shared" else
+             {n: {"w": w["w"].to(cuda)} for n, w in v.items()}
+             for k, v in p_cpu.items()}
+    x = torch.randn(2, 24, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4)).bfloat16()
+    cap = 3                     # ceil(48 * 1 * 1.25 / 16)
+    sel = [blocks.moe_route(xx.reshape(48, -1), p["router"]["w"], top_k=1,
+                            capacity=cap)
+           for xx, p in ((x, p_cpu), (x.to(cuda), p_dev))]
+    for a, b in zip(sel[0][1::2], sel[1][1::2]):   # ids, kept tokens
+        assert torch.equal(a, b.cpu())
+    y_cpu = blocks.moe_layer(p_cpu, x, cfg)
+    y_dev = blocks.moe_layer(p_dev, x.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y_dev).all()
+    rel = float((y_dev.cpu().float() - y_cpu.float()).norm()
+                / y_cpu.float().norm())
+    assert rel <= 3e-2, rel
+
+
 def test_paged_prefill_bf16_main_shape(cuda):
     """llama3.2-1b's prefill shape: one 512-token prompt, 32 query heads
     over 8 KV heads of 64, 16-token pages, bf16."""

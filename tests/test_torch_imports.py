@@ -87,8 +87,8 @@ def test_entry_points_refuse_cpu_fallback():
 def test_unported_families_name_their_roadmap_item():
     from repro_torch.configs import registry
     from repro_torch.models import lm
-    for arch, item in (("jamba-1.5-large-398b-smoke", "C1"),
-                       ("llama4-scout-17b-a16e-smoke", "C1"),
+    for arch, item in (("jamba-1.5-large-398b-smoke", "C1's jamba"),
+                       ("qwen2-vl-72b-smoke", "C3"),
                        ("seamless-m4t-medium-smoke", "C3")):
         with pytest.raises(NotImplementedError, match=item):
             lm.init_params(registry.get(arch), device="cpu")
