@@ -33,7 +33,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
               8192 rows x K), also through the LM's channel-last route
               from (K, C_out) weights (forward and dW bitwise, dprobs in
               bound), timed likewise with the transposing copy into rows,
-              summed over a train step's 112 projections.
+              summed over a train step's 112 projections.  K5's
+              backward kernel against its plain version (ds_in and ds0
+              bitwise, ddecay within 2 P N 2^-24 sum |G prefix| and the
+              same in two runs) at H = 48 and path 7's B * H = 192, C 1
+              to 509, dfinal given and None, the one-float path, timed
+              at C = 8 for both.
 4. rng     -- the threefry2x32 generator on the card against the CPU
               (bits, uniforms, randints bit-equal; normal, gumbel within
               stated ULPs); the device sampler's cost per decode step.
@@ -113,7 +118,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
               at these archs' attention shapes (G = 5 and 7, D = 128,
               chunked window 8192 across a chunk boundary), timed beside
               SDPA.  Every path's peak memory is printed.
-12. report -- one JSON line of kernels, the card's name and power limit,
+12. mamba-train -- path 7: the paper's joint search on full-width
+              mamba2-780m (48 layers, d 1536, 48 heads of 64, state 128,
+              chunk 256; remat, f32 master weights, adam at 3e-4, lam
+              1e-9, random weights from seed 0) through
+              make_train_step(search=True), 4 steps of batch 4 x 2048
+              tokens; K4 launched 288 x steps x 2 forward (the remat
+              recompute) and 288 x steps backward, K5 48 x steps x 2
+              forward and 48 x steps backward, no other kernel; finite
+              losses and grad norms, every gamma leaf moved; K5's backward
+              on step 1's layer 0 at (8, 192, 64, 128) held against its
+              plain version; one full-width layer's train-mode gradients
+              on the card within 1e-2 relative L2 of the CPU's; step ms,
+              tokens/s, peak memory; one profiled step's busy share with
+              K4's and K5's forward and backward device ms; then
+              extract_plan (288 groups), served (2 greedy requests x 8
+              tokens, paged) on K1 and K5.
+13. report -- one JSON line of kernels, the card's name and power limit,
               and last the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -499,6 +520,8 @@ def phase_kernels(dev, flush):
     rows["mps_combine"], rows["mps_combine_bwd"] = phase_k4(dev, flush)
     # -- K5: the mamba2-780m prefill's inter-chunk scan, bitwise -----------
     rows["ssd_scan"] = phase_k5(dev, flush)
+    # -- K5's backward: serving and training shapes, ddecay deterministic -
+    rows["ssd_scan_bwd"] = phase_k5_bwd(dev, flush)
     for k, r in rows.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
@@ -1041,21 +1064,18 @@ def k4_probe(dev, m, k):
                 stages=stages, warps_a_row=gw)
 
 
-def k4_lm_shapes():
-    """(C_out, K) of llama3.2-1b's block projections -- the rows K4 takes
+def k4_lm_shapes(arch):
+    """(C_out, K) of ``arch``'s block projections -- the rows K4 takes
     from each (K, C_out) weight in a train step -- with their count over
-    the super-blocks (112 in all)."""
+    the super-blocks, read from ``init_params``' tree on the meta device
+    (llama3.2-1b: 112 in all; mamba2-780m: 288)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm
-    cfg = registry.get("llama3.2-1b")
-    d, ff = cfg.d_model, cfg.d_ff
-    q, kv = cfg.h_eff * cfg.head_dim, cfg.hkv_eff * cfg.head_dim
-    kn = {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
-          "w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
+    tree = lm.init_params(registry.get(arch), device="meta", mps_on=True)
     shapes = {}
-    for _, _, name in lm._plan_weights(cfg):
-        k, n = kn[name]
-        shapes[(n, k)] = shapes.get((n, k), 0) + lm.n_superblocks(cfg)
+    for node in lm._gamma_nodes(tree):
+        nsb, k, n = node["w"].shape
+        shapes[(n, k)] = shapes.get((n, k), 0) + nsb
     return shapes
 
 
@@ -1085,21 +1105,22 @@ def _k4_route_check(g, dev, m, k):
             (w_kn.grad.T - want_dw).abs().max().item())
 
 
-def phase_k4_lm(dev, flush, g):
-    """K4 at llama3.2-1b's projection shapes: checked through the
-    channel-last route, timed as the search shapes are, with the device
-    time of the transposing copy of a (K, C_out) f32 weight into rows
-    (the route's copy of W in the forward, of the upstream gradient in the
-    backward), summed over one train step's 112 projections with remat:
-    two forward launches and two W copies a projection (the recompute),
-    one backward launch and one gradient copy."""
-    shapes = k4_lm_shapes()
+def phase_k4_lm(dev, flush, g, arch):
+    """K4 at ``arch``'s projection shapes: checked directly and through
+    the channel-last route, timed as the search shapes are, with the
+    device time of the transposing copy of a (K, C_out) f32 weight into
+    rows (the route's copy of W in the forward, of the upstream gradient
+    in the backward), summed over one train step's projections with
+    remat: two forward launches and two W copies a projection (the
+    recompute), one backward launch and one gradient copy."""
+    shapes = k4_lm_shapes(arch)
+    n_proj = sum(shapes.values())
     errs = [0.0, 0.0]
     for m, k in shapes:
         e = _k4_check(*_k4_inputs(g, dev, m, k))
         r = _k4_route_check(g, dev, m, k)
         errs = [max(errs[0], e[0], r[0]), max(errs[1], e[1], r[1])]
-    log(f"[kernels] K4 at llama3.2-1b's projections {list(shapes)} "
+    log(f"[kernels] K4 at {arch}'s projections {list(shapes)} "
         f"(rows x K), pw {K4_PW}: direct and through the channel-last route "
         f"from (K, C_out) weights, forward and dW bitwise, dprobs within "
         f"the summation bound")
@@ -1119,7 +1140,7 @@ def phase_k4_lm(dev, flush, g):
         log(f"[kernels] K4 {m}x{k}: the transposing copy of the (K, C_out) "
             f"weight into rows {r['copy']:.4f} ms device (bound "
             f"{r['copy_bound']:.4f}, bytes)")
-    log(f"[kernels] K4 one llama3.2-1b train step (112 projections, remat: "
+    log(f"[kernels] K4 one {arch} train step ({n_proj} projections, remat: "
         f"2 forward + 1 backward launches and 3 transposing copies each; "
         f"ms): forward {tot['fwd']:.4f} device / {tot['fwd_ms']:.4f} events, "
         f"plain {tot['fwd_plain']:.4f}, bound {tot['fwd_bound']:.4f}; "
@@ -1271,7 +1292,8 @@ def phase_k4(dev, flush):
         f"plain _vjp_bwd {tot['bwd_plain']:.4f}, bound "
         f"{tot['bwd_bound']:.4f}")
     probe = k4_probe(dev, 512, 4608)
-    lm_k4 = phase_k4_lm(dev, flush, g)
+    lm_k4 = phase_k4_lm(dev, flush, g, "llama3.2-1b")
+    mamba_k4 = phase_k4_lm(dev, flush, g, "mamba2-780m")
 
     m, k = max(shapes, key=lambda s: s[0] * s[1])     # 512 x 4608
     r = per[(m, k)]
@@ -1288,7 +1310,7 @@ def phase_k4(dev, flush):
                    step_device_ms=tot["fwd"], step_ms=tot["fwd_ms"],
                    step_plain_ms=tot["fwd_plain"],
                    step_bound_ms=tot["fwd_bound"], probe=probe,
-                   lm=lm_k4)
+                   lm=lm_k4, lm_mamba=mamba_k4)
     bwd_row = dict(common, kernel_taken=r["bwd_kernel"],
                    max_abs_err=dp_err, dw_max_abs_err=dw_err, ms=r["bwd_ms"],
                    device_ms=r["bwd"],
@@ -1354,6 +1376,118 @@ def phase_k5(dev, flush):
                 plain_ms=time_ms(lambda: sops.ssd_scan_ref(*pick()), 20,
                                  flush),
                 library_ms=None, bound_ms=bms, bound_by=by)
+
+
+# path 7 trains at batch 4: K5's backward scans B * heads = 192 rows
+K5_TRAIN_BH = 4 * K5_SHAPE[0]
+
+
+def k5_bwd_check(got, decay, prefix, dprefix, dfinal, where):
+    """Hold ``ssd_scan_bwd``'s results ``got`` against its plain version:
+    ``ds_in`` and ``ds0`` bitwise, ``ddecay`` within ``2 * P * N * 2^-24
+    * sum |G * prefix|`` a (chunk, head), G being ``ds_in``: both sum the
+    same rounded products in different orders.  Returns the largest
+    |ddecay difference| and its ratio to the bound."""
+    from repro_torch.kernels.ssd_scan import ref as sref
+    want = sref.ssd_scan_bwd_ref(decay, prefix, dprefix, dfinal)
+    for k, a, b in zip(("ds_in", "ds0"), got[1:], want[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K5 backward {k} not bitwise at {where}: "
+                                 f"max |diff| {(a - b).abs().max().item()}")
+    pn = prefix.shape[2] * prefix.shape[3]
+    lim = 2 * pn * 2.0 ** -24 * (want[1] * prefix).abs().sum(dim=(2, 3))
+    diff = (got[0] - want[0]).abs()
+    if not bool((diff <= lim).all()):
+        raise AssertionError(f"K5 backward ddecay out of its bound at "
+                             f"{where}: max |diff| {diff.max().item()}, "
+                             f"max diff / bound "
+                             f"{(diff / lim).max().item()}")
+    return diff.max().item(), (diff / lim.clamp_min(1e-30)).max().item()
+
+
+def phase_k5_bwd(dev, flush):
+    """K5's backward kernel against ``ssd_scan_bwd_ref`` at the serving
+    shape (H = 48) and path 7's (B * H = 192), C from 1 to 509, with and
+    without ``dfinal``, on the one-float path (P * N = 15, and a view off
+    the 16-byte boundary); run twice, ``ddecay`` bit for bit the same;
+    timed at C = 8 for both H beside the plain version and its bound."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    _, p, n = K5_SHAPE
+
+    def case(c, h, p=p, n=n, with_final=True):
+        dec = torch.rand(c, h, generator=g, device=dev) * 0.7 + 0.3
+        s_in = torch.randn(c, h, p, n, generator=g, device=dev)
+        s0 = torch.randn(h, p, n, generator=g, device=dev)
+        prefix, _ = sops.ssd_scan_ref(dec, s_in, s0)
+        dprefix = torch.randn(c, h, p, n, generator=g, device=dev)
+        dfinal = torch.randn(h, p, n, generator=g, device=dev) \
+            if with_final else None
+        return dec, prefix, dprefix, dfinal
+
+    err, worst = 0.0, 0.0
+    cases = [(c, h, p, n, wf) for h in (K5_SHAPE[0], K5_TRAIN_BH)
+             for c in (1, 2, 8) for wf in (True, False)]
+    cases += [(509, K5_SHAPE[0], p, n, True), (7, 6, 3, 5, True),
+              (9, 5, 3, 5, False)]
+    for c, h, pp, nn, wf in cases:
+        args = case(c, h, pp, nn, wf)
+        got = sops.ssd_scan_bwd(*args)
+        again = sops.ssd_scan_bwd(*args)
+        torch.cuda.synchronize()
+        where = f"C={c} H={h} P={pp} N={nn} dfinal {'given' if wf else 'None'}"
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K5 backward differs between two runs at "
+                                 f"{where}")
+        e, r = k5_bwd_check(got, *args, where)
+        err, worst = max(err, e), max(worst, r)
+        del args, got, again
+    # a view off the 16-byte boundary takes the one-float path too
+    dec, prefix, dprefix, dfinal = case(8, K5_SHAPE[0])
+    buf = torch.empty(dprefix.numel() + 1, device=dev)
+    buf[1:] = dprefix.reshape(-1)
+    moved = buf[1:].view(dprefix.shape)
+    e, r = k5_bwd_check(sops.ssd_scan_bwd(dec, prefix, moved, dfinal), dec,
+                        prefix, dprefix, dfinal, "a misaligned dprefix")
+    err, worst = max(err, e), max(worst, r)
+    log(f"[kernels] K5 ssd_scan_bwd: ds_in and ds0 bitwise equal to the "
+        f"plain version, ddecay within 2 P N 2^-24 sum|G prefix| (largest "
+        f"|diff| {err:.3g}, {worst:.3g} of its bound) and the same in two "
+        f"runs, at (C, H, {p}, {n}) for C in {{1, 2, 8}}, H in "
+        f"{{{K5_SHAPE[0]}, {K5_TRAIN_BH}}}, dfinal given and None, at C = "
+        f"509, at P * N = 15 and on a misaligned view")
+    rows = {}
+    for h in (K5_SHAPE[0], K5_TRAIN_BH):
+        c = 8
+        copies = [case(c, h) for _ in range(4)]
+        it = iter(range(10 ** 9))
+
+        def pick():
+            return copies[next(it) % len(copies)]
+
+        e = h * p * n
+        # prefix and dprefix read, ds_in written (12 B an element and
+        # chunk), dfinal read and ds0 written, decay read, ddecay written
+        nbytes = 4 * (3 * c * e + 2 * e + 2 * c * h)
+        bms, by = bound(nbytes, 4 * c * e, "f32")
+        rows[h] = dict(
+            shape=f"C={c} H={h} P={p} N={n} f32", max_abs_err=err,
+            ddecay_max_of_bound=worst,
+            ms=time_ms(lambda: sops.ssd_scan_bwd(*pick()), 50, flush),
+            device_ms=device_ms(lambda: sops.ssd_scan_bwd(*pick()), 50,
+                                flush, "ssd_scan_bwd"),
+            plain_ms=time_ms(lambda: sops.ssd_scan_bwd_ref(*pick()), 20,
+                             flush),
+            library_ms=None, bound_ms=bms, bound_by=by)
+        del copies
+        r = rows[h]
+        log(f"[kernels] ssd_scan_bwd at {r['shape']}: {r['ms']:.4f} ms "
+            f"(device {r['device_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    row = rows[K5_SHAPE[0]]
+    row["train_shape"] = rows[K5_TRAIN_BH]
+    return row
 
 
 def _ulps(a, b):
@@ -2360,6 +2494,303 @@ def phase_train(dev, counters, smi, k4_lm):
                 peak_bytes=peak, busy=busy, k4_share=k4_s / prof["device_s"])
 
 
+MAMBA_STEPS, MAMBA_BATCH, MAMBA_SEQ = 4, 4, 2048
+
+
+class _CaptureK5Bwd:
+    """Stands in for ``ops.ssd_scan_bwd``, which the autograd backward
+    calls by its module name, while a ``with`` block runs: call number
+    ``at`` (1-based) keeps clones of its operands and results in
+    ``kept``; the others pass through uncopied.  ``launches`` is the
+    wrapped function's own count, read and written through, so that the
+    count the wrapped function bumps under its module name lands where
+    the counters read it."""
+
+    def __init__(self, sops, at):
+        self.sops, self.inner, self.at = sops, sops.ssd_scan_bwd, at
+        self.calls, self.kept = 0, None
+
+    launches = property(lambda self: self.inner.launches,
+                        lambda self, v: setattr(self.inner, "launches", v))
+
+    def __call__(self, decay, prefix, dprefix, dfinal=None):
+        out = self.inner(decay, prefix, dprefix, dfinal)
+        self.calls += 1
+        if self.calls == self.at:
+            self.kept = [t if t is None else t.clone()
+                         for t in (decay, prefix, dprefix, dfinal, *out)]
+        return out
+
+    def __enter__(self):
+        self.sops.ssd_scan_bwd = self
+        return self
+
+    def __exit__(self, *exc):
+        self.sops.ssd_scan_bwd = self.inner
+
+
+def phase_mamba_train_layer(cfg, p_dev, dev):
+    """One full-width Mamba-2 layer under the search, train mode, 1 x 1024
+    tokens (4 chunks): every parameter's gradient on the card (K4, K5 and
+    its backward) against the same layer on the CPU (plain versions),
+    relative L2 within 1e-2."""
+    from repro_torch.core import mps
+    from repro_torch.models import lm
+    from repro_torch.nn import blocks
+
+    def leaves(device):
+        out = {}
+        for k, v in p_dev.items():
+            if isinstance(v, dict):
+                out[k] = {kk: t.detach().to(device).clone().requires_grad_()
+                          for kk, t in v.items()}
+            else:
+                out[k] = v.detach().to(device).clone().requires_grad_()
+        return out
+
+    getw = lm._make_getw(cfg, mps.SearchCtx(tau=1.0))
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(1, 1024, cfg.d_model, generator=g,
+                    device=dev).to(torch.bfloat16)
+    up = torch.randn(1, 1024, cfg.d_model, generator=g, device=dev)
+    grads = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        p = leaves(d)
+        y, st = blocks.mamba2_layer(p, x.to(d), cfg, mode="train",
+                                    effective_w=getw)
+        (y.float() * up.to(d)).sum().backward()
+        grads[where] = dict(_leaves({k: ({kk: t.grad for kk, t in v.items()}
+                                         if isinstance(v, dict) else v.grad)
+                                     for k, v in p.items()}))
+        if st is not None:
+            raise AssertionError("mamba train layer: train mode returned a "
+                                 "state")
+    rel = {}
+    for k, want in grads["cpu"].items():
+        got = grads["card"][k].cpu().double()
+        want = want.double()
+        rel[k] = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        if not (torch.isfinite(got).all() and rel[k] <= 1e-2):
+            raise AssertionError(f"mamba train layer: {k}'s gradient on the "
+                                 f"card vs the CPU, relative L2 {rel[k]} "
+                                 f"(bound 1e-2)")
+    worst = max(rel, key=rel.get)
+    log(f"[mamba-train] one full-width layer under the search, train mode, "
+        f"1 x 1024 tokens: all {len(rel)} parameter gradients on the card "
+        f"(K4, K5, K5 backward) within 1e-2 relative L2 of the CPU's "
+        f"(plain versions); largest {worst} {rel[worst]:.3g}, median "
+        f"{float(np.median(list(rel.values()))):.3g}")
+    return rel
+
+
+def phase_train_mamba(dev, counters, smi):
+    """Path 7: the paper's joint search on full-width mamba2-780m (48
+    layers, remat, f32 master weights, adam at 3e-4, lam 1e-9, random
+    weights from seed 0) through ``make_train_step(search=True)`` for
+    MAMBA_STEPS steps of 4 x 2048 tokens (K5 scans 8 chunks of 256 a
+    layer, forward and backward); launches read around the run; K5's
+    backward on step 1's first layer held against its plain version; one
+    layer's gradients card vs CPU; one step profiled; then the plan
+    extracted, bound and served on K1 + K5."""
+    from repro_torch.configs import registry
+    from repro_torch.core import mps
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+    from repro_torch.serve import engine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+
+    cfg = registry.get("mamba2-780m")
+    pw = cfg.mps_precisions
+    n_layers = cfg.n_layers
+    n_proj = lm.mps_param_count(cfg) * lm.n_superblocks(cfg)
+    if (n_layers, cfg.d_model, cfg.ssm_heads, cfg.ssm_head_dim,
+            cfg.ssm_state, cfg.ssm_chunk, n_proj) != \
+            (48, 1536, 48, 64, 128, 256, 288) or not cfg.remat or \
+            cfg.param_dtype != "float32" or cfg.optimizer != "adam":
+        raise AssertionError(f"mamba train: unexpected config {cfg}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, mps_on=True)
+    n_params = sum(t.numel() for k, t in _leaves(params)
+                   if not k.endswith("gamma"))
+    opt = optimizers.make_optimizer(cfg.optimizer, 3e-4)
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    step_fn = steps_lib.make_train_step(cfg, opt, search=True, lam=1e-9)
+    gamma0 = {k: t.clone() for k, t in _leaves(state["params"])
+              if k.endswith("gamma")}
+
+    def batch_at(step):
+        return synthetic.lm_batch(cfg.vocab, MAMBA_SEQ + 1, MAMBA_BATCH,
+                                  step, device=dev)
+
+    batches = [batch_at(i) for i in range(MAMBA_STEPS)]
+    chunks = MAMBA_SEQ // cfg.ssm_chunk
+    log(f"[mamba-train] {cfg.name}: {n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, remat "
+        f"{cfg.remat}, {cfg.param_dtype} master weights, {cfg.optimizer} at "
+        f"3e-4, lam 1e-9; {n_params / 1e9:.3f} B parameters + "
+        f"{len(gamma0)} gamma leaves ({n_proj} projections), pw {pw}; "
+        f"search, batch {MAMBA_BATCH} x seq {MAMBA_SEQ} ({chunks} chunks a "
+        f"layer); init {time.perf_counter() - t0:.2f} s")
+    shape = (chunks, MAMBA_BATCH * cfg.ssm_heads, cfg.ssm_head_dim,
+             cfg.ssm_state)
+    plain, restore_plain = _count_plain_stack()
+    # step 1's backward runs layer 47 first: its last K5 backward is
+    # layer 0's
+    capture = _CaptureK5Bwd(sops, at=n_layers)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    times, losses, norms = [], [], []
+    try:
+        for i, batch in enumerate(batches):
+            t1 = time.perf_counter()
+            if i == 0:
+                with capture:
+                    p, o, loss = step_fn(state["params"], state["opt"],
+                                         batch, i)
+            else:
+                p, o, loss = step_fn(state["params"], state["opt"], batch, i)
+            state = {"params": p, "opt": o}
+            losses.append(float(loss))
+            norms.append(float(step_fn.grad_norm))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            if i == 0:
+                # K5's backward of step 1's layer 0 against its plain
+                # version; then the peak is read over steps 2-4, which
+                # hold no copy of it
+                if capture.calls != n_layers or capture.kept is None:
+                    raise AssertionError(f"mamba train: step 1 made "
+                                         f"{capture.calls} K5 backward "
+                                         f"calls, want {n_layers}")
+                decay, prefix, dprefix, dfinal, *out = capture.kept
+                capture.kept = None
+                if tuple(prefix.shape) != shape:
+                    raise AssertionError(f"mamba train: K5 backward took "
+                                         f"{tuple(prefix.shape)}, want "
+                                         f"{shape}")
+                k5_err, k5_ratio = k5_bwd_check(out, decay, prefix, dprefix,
+                                                dfinal, "step 1, layer 0")
+                del decay, prefix, dprefix, dfinal, out
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+    finally:
+        restore_plain()
+    got = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    need = {"mps_combine": n_proj * MAMBA_STEPS * 2,      # + the recompute
+            "mps_combine_bwd": n_proj * MAMBA_STEPS,
+            "ssd_scan": n_layers * MAMBA_STEPS * 2,       # + the recompute
+            "ssd_scan_bwd": n_layers * MAMBA_STEPS}
+    if any(got[k] != v for k, v in need.items()) or any(
+            v for k, v in got.items() if k not in need):
+        raise AssertionError(f"mamba train: launches {got}, need {need} and "
+                             f"no other kernel")
+    if plain[0]:
+        raise AssertionError(f"mamba train: {plain[0]} projections took the "
+                             f"plain quantizer stack")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"mamba train: losses {losses}, grad norms "
+                             f"{norms}")
+    moved = [k for k, t in _leaves(state["params"])
+             if k.endswith("gamma") and not torch.equal(t, gamma0[k])]
+    if len(moved) != len(gamma0):
+        raise AssertionError(f"mamba train: only {len(moved)} of "
+                             f"{len(gamma0)} gamma leaves moved")
+    del gamma0
+    with torch.no_grad():
+        cost = float(lm.mps_size_cost(cfg, state["params"],
+                                      mps.SearchCtx(tau=1.0)))
+    if not np.isfinite(cost):
+        raise AssertionError(f"mamba train: mps_size_cost {cost}")
+    ms = 1e3 * float(np.median(times[1:]))
+    tok_s = MAMBA_BATCH * MAMBA_SEQ / (ms / 1e3)
+    log(f"[mamba-train] {MAMBA_STEPS} search steps on "
+        f"{torch.cuda.get_device_name(dev)} ({smi}): losses "
+        f"{[round(v, 4) for v in losses]}, grad norms "
+        f"{[round(v, 4) for v in norms]}; step ms "
+        f"{[round(1e3 * t, 1) for t in times]}, median of steps "
+        f"2-{MAMBA_STEPS} {ms:.1f} ms = {tok_s:.0f} training tokens/s; peak "
+        f"memory over steps 2-{MAMBA_STEPS} {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated);"
+        f" mps_size_cost {cost:.6g} bytes; launches K4 {got['mps_combine']} "
+        f"forward = {n_proj} x {MAMBA_STEPS} x 2 (remat recompute), "
+        f"{got['mps_combine_bwd']} backward = {n_proj} x {MAMBA_STEPS}; K5 "
+        f"{got['ssd_scan']} forward = {n_layers} x {MAMBA_STEPS} x 2, "
+        f"{got['ssd_scan_bwd']} backward = {n_layers} x {MAMBA_STEPS}; "
+        f"plain quantizer stack: 0 calls; all gamma leaves moved")
+    log(f"[mamba-train] K5 backward of step 1's layer 0 at {shape}: ds_in "
+        f"and ds0 bitwise equal to the plain version, ddecay largest |diff| "
+        f"{k5_err:.3g} = {k5_ratio:.3g} of its bound")
+    layer_rel = phase_mamba_train_layer(
+        cfg, lm._index(state["params"]["blocks"]["l0"]["mixer"], 0), dev)
+
+    state, prof = train.profile_steps(step_fn, state, batch_at, MAMBA_STEPS,
+                                      1, dev)
+    busy = prof["device_s"] / prof["wall_s"]
+    split = {label: sum(v for k, v in prof["kernels"].items() if key in k)
+             for label, key in train.KERNEL_CLASSES}
+    log(f"[mamba-train] one profiled step: wall {1e3 * prof['wall_s']:.1f} "
+        f"ms, device {1e3 * prof['device_s']:.1f} ms = {100 * busy:.1f}% "
+        f"busy, {prof['launches']} device operations; " + "; ".join(
+            f"{label} {1e3 * v:.2f} ms = {100 * v / prof['device_s']:.2f}%"
+            for label, v in split.items()))
+    top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1])[:8]
+    log("[mamba-train] top kernels of the profiled step (device ms): "
+        + "; ".join(f"{k[:60]} {1e3 * v:.2f}" for k, v in top))
+
+    del state["opt"]
+    params = state["params"]
+    plan = lm.extract_plan(cfg, params)
+    bits = {int(b) for v in plan.channel_bits.values() for b in v}
+    if len(plan.groups) != n_proj or not bits <= set(pw) or \
+            plan.meta != {"track": "lm", "arch": cfg.name}:
+        raise AssertionError(f"mamba train: plan {plan.summary()}, bits "
+                             f"{sorted(bits)}, meta {plan.meta}")
+    t1 = time.perf_counter()
+    server = engine.InferenceServer(cfg, params, plan=plan, max_len=128,
+                                    max_batch=2, cache="paged", page_size=16,
+                                    device=dev)
+    setup = time.perf_counter() - t1
+    seen = [0]
+    _check_logits(server, seen)
+    rng = np.random.default_rng(7)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=n).astype(
+        np.int32), sampling=SamplingParams(max_tokens=8))
+        for i, n in enumerate((37, 90))]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    out = server.serve(reqs)
+    torch.cuda.synchronize()
+    served = {k: fn.launches for k, fn in counters.items()}
+    if any(len(out[i]) != 8 for i in range(2)) or not seen[0]:
+        raise AssertionError(f"mamba train: served {out}")
+    if not (served["quant_matmul"] and served["ssd_scan"]) or any(
+            v for k, v in served.items()
+            if k not in ("quant_matmul", "ssd_scan")):
+        raise AssertionError(f"mamba train: serving the plan launched "
+                             f"{served}, need K1 and K5 only")
+    log(f"[mamba-train] searched plan: {plan.summary()}, bits "
+        f"{sorted(bits)}; apply_plan + server {setup:.2f} s; served 2 "
+        f"greedy requests x 8 tokens (prompts 37, 90) on the paged backend, "
+        f"{seen[0]} logits rows finite; launches {served}")
+    return dict(launches=got, served=served, ms=ms, tok_s=tok_s,
+                peak_bytes=peak, busy=busy, split=split, layer_rel=layer_rel,
+                k5_err=k5_err)
+
+
 def phase_resume(dev):
     """Resume on the card at llama3.2-1b-smoke under deterministic
     algorithms: 4 uninterrupted search steps against 2 steps, a
@@ -2810,7 +3241,8 @@ def main():
                 "paged_prefill": pops.paged_prefill_fwd,
                 "mps_combine": mops.mps_combine_fwd,
                 "mps_combine_bwd": mops.mps_combine_bwd,
-                "ssd_scan": sops.ssd_scan}
+                "ssd_scan": sops.ssd_scan,
+                "ssd_scan_bwd": sops.ssd_scan_bwd}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
     def path(name, fn, *args):
@@ -2849,6 +3281,8 @@ def main():
     path("resume", phase_resume, dev)
     swept = path("path 5 (sweep)", phase_sweep, dev, counters, smi)
     moe = path("path 6 (MoE serve)", phase_moe, dev, counters, smi)
+    mamba_trained = path("path 7 (mamba train)", phase_train_mamba, dev,
+                         counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -2864,19 +3298,29 @@ def main():
                             "src/repro/kernels/mps_combine/ops.py:58"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:39"),
+        # the gradient JAX takes of its inline scan (no TPU kernel)
+        "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan.cu",
+                         "src/repro/nn/blocks.py:576-598"),
     }
     kernels = []
     for k, r in rows.items():
         src, rep = meta[k]
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep}
-        if k in ("mps_combine", "mps_combine_bwd"):    # paths 2, 4, 5
+        if k in ("mps_combine", "mps_combine_bwd"):    # paths 2, 4, 5, 7
             row.update(launches=search_launches[k], path="search",
                        launches_train=trained["launches"][k],
-                       launches_sweep=swept["launches"][k])
-        elif k == "ssd_scan":       # path 3: mamba serving
+                       launches_sweep=swept["launches"][k],
+                       launches_train_mamba=mamba_trained["launches"][k])
+        elif k == "ssd_scan":       # path 3: mamba serving; path 7
             row.update(launches=mamba_runs["plan"][k],
                        launches_float=mamba_runs["float"][k],
-                       path="serve_mamba")
+                       path="serve_mamba",
+                       launches_train_mamba=mamba_trained["launches"][k],
+                       launches_train_mamba_plan=mamba_trained["served"][k])
+        elif k == "ssd_scan_bwd":   # path 7: mamba training
+            row.update(launches=mamba_trained["launches"][k],
+                       path="train_mamba")
+            r["max_abs_err"] = max(r["max_abs_err"], mamba_trained["k5_err"])
         else:                       # path 1: serving
             row.update(launches=runs["plan"][k],
                        launches_float=runs["float"][k], path="serve")
@@ -2890,7 +3334,9 @@ def main():
                     row[f"launches_{arch}_float"] = \
                         r_moe["float"]["launches"][k]
             if k == "quant_matmul":
-                row.update(launches_mamba=mamba_runs["plan"][k])
+                row.update(launches_mamba=mamba_runs["plan"][k],
+                           launches_train_mamba_plan=mamba_trained[
+                               "served"][k])
                 r["max_abs_err"] = max(r["max_abs_err"],
                                        mamba_runs["k1_err"])
         row.update({

@@ -16,8 +16,14 @@ from the newest readable checkpoint, saves every ``--ckpt-every`` steps
 and at the end, and on SIGTERM saves the step it finished and exits.
 
 ``--profile N`` (CUDA) times N more steps untraced, then traces N with
-``torch.profiler`` and prints the device time by kernel, the device
-operations a step and the device's busy share of the traced window.
+``torch.profiler`` and prints the device time by kernel, K4's and K5's
+(forward, backward) device ms a step, the device operations a step and
+the device's busy share of the traced window.
+
+A Mamba-2 stack (``--arch mamba2-780m``) trains on sequences that its
+chunk (``ssm_chunk``, or ``--seq`` itself when shorter) tiles; another
+``--seq`` exits with an error.
+
 The multi-device mesh flags stay with ROADMAP slice E.
 """
 from __future__ import annotations
@@ -35,6 +41,7 @@ from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
+from repro_torch.nn import blocks
 from repro_torch.optim import optimizers
 
 
@@ -70,6 +77,13 @@ def profile_steps(step_fn, state, batch_at, first: int, n: int, dev):
                        sort_by="self_device_time_total", row_limit=20)}
 
 
+# the hand-written kernels of a training step, by a fragment of their
+# CUDA names (ssd_scan_kernel is K5's forward only)
+KERNEL_CLASSES = (("K4 forward + backward (mps_*)", "mps_"),
+                  ("K5 forward (ssd_scan_kernel)", "ssd_scan_kernel"),
+                  ("K5 backward (ssd_scan_bwd)", "ssd_scan_bwd"))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b-smoke")
@@ -87,6 +101,11 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = registry.get(args.arch)
+    if cfg.is_ssm:
+        try:
+            blocks.ssm_chunk(cfg, args.seq, "train")
+        except ValueError as e:
+            raise SystemExit(f"--seq {args.seq}: {e}") from None
     gen = torch.Generator(device=dev).manual_seed(0)
     params = lm.init_params(cfg, gen, dev, mps_on=args.search)
     opt = optimizers.make_optimizer(cfg.optimizer, 3e-4)
@@ -153,6 +172,10 @@ def main(argv=None) -> dict:
                                     dev)
         print(prof["table"])
         n = args.profile
+        for label, key in KERNEL_CLASSES:
+            ms = 1e3 * sum(v for k, v in prof["kernels"].items()
+                           if key in k) / n
+            print(f"[profile] {label}: {ms:.3f} device ms a step", flush=True)
         print(f"[profile] untraced: {n} steps in {untraced:.3f} s = "
               f"{1e3 * untraced / n:.1f} ms a step; traced: {n} steps in "
               f"{prof['wall_s']:.3f} s, {prof['launches']} device operations "

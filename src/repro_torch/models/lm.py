@@ -346,16 +346,12 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     state, as the JAX package does.
     """
     pattern = block_pattern(cfg)
-    if mode == "train" and any(sp.mixer == "mamba" for sp in pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training a Mamba-2 stack is not ported yet (kernel "
-            f"K5 has no backward); it comes with ROADMAP slice C4 (SSM "
-            f"training)")
     if mode == "train" and any(sp.ffn == "moe" for sp in pattern):
         raise NotImplementedError(
             f"{cfg.name}: training an MoE stack is not ported yet (its "
-            f"expert banks share one gamma under the search); it comes with "
-            f"ROADMAP slice C4 for MoE")
+            f"expert banks share one gamma under the search, and at full "
+            f"width the f32 weights with Adam outgrow one 80 GB card); it "
+            f"comes with ROADMAP slice E's expert-parallel layout")
     getw = _make_getw(cfg, ctx)
     x = _embed_in(cfg, params, batch["tokens"])
     # ``s`` is the f32 residual sum ``x`` was rounded from.  An RMSNorm

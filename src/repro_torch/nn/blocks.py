@@ -296,16 +296,40 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, mode: str,
     return y, xp[:, s:, :]
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``' formula, ``max(x, 0) + log1p(exp(-|x|))``."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+class _Softplus(torch.autograd.Function):
+    """``jax.nn.softplus``' value, ``max(x, 0) + log1p(exp(-|x|))``, with
+    its gradient ``exp(x - softplus(x))`` (JAX's ``logaddexp`` rule, the
+    logistic).  Autograd through the formula would give 1 at x = 0, where
+    ``clamp_min`` passes the gradient whole and ``abs`` none, and
+    ``dt_bias`` starts at 0.  ``torch.logaddexp(x, 0)`` has JAX's gradient
+    but not this value: its exp and log1p round otherwise (not bitwise
+    with the formula in float32 or bfloat16 on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.exp(x - y)
 
 
-def ssm_chunk(cfg, s: int) -> int:
-    """The prefill's chunk length: the largest divisor of ``s`` that is at
-    most ``cfg.ssm_chunk`` (a prime prompt length gives 1), as the JAX
-    package picks it for exact-length serving prefill."""
+_softplus = _Softplus.apply
+
+
+def ssm_chunk(cfg, s: int, mode: str = "prefill") -> int:
+    """The chunk length of ``s`` tokens.  Prefill: the largest divisor of
+    ``s`` that is at most ``cfg.ssm_chunk`` (a prime prompt length gives
+    1), as the JAX package picks it for exact-length serving prefill.
+    Train: ``min(cfg.ssm_chunk, s)``, which must tile ``s`` (ValueError
+    otherwise), as the JAX package asserts it."""
     q = min(cfg.ssm_chunk, s)
+    if mode == "train" and s % q:
+        raise ValueError(f"{cfg.name}: training takes sequences that chunk "
+                         f"{q} tiles (a multiple of it), got {s} tokens")
     while s % q:
         q -= 1
     return q
@@ -313,11 +337,17 @@ def ssm_chunk(cfg, s: int) -> int:
 
 def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
                  state=None, effective_w=None):
-    """Mamba-2 (SSD) mixer.  x: (B, S, D).  mode: prefill | decode.
+    """Mamba-2 (SSD) mixer.  x: (B, S, D).  mode: train | prefill |
+    decode.
 
     state: {"ssm": (B, H, P, N) f32, "conv": {"x", "b", "c"} of (B, K-1,
     C)}; decode needs it, prefill reads only its ``ssm`` (as the carried
-    initial state; None starts from zeros).  Returns (y, new_state).
+    initial state; None starts from zeros), train none.  Returns (y,
+    new_state), new_state None in train mode.  Train runs prefill's
+    passes from a zero state at chunk ``min(cfg.ssm_chunk, S)``, which
+    must tile S (no divisor search: a shorter chunk would silently change
+    the training shapes); every pass is differentiable, K5's through its
+    backward kernel.
 
     Prefill is the chunked SSD dual form in three passes: (a) batched
     over every chunk, the terms that do not depend on the carried state
@@ -327,8 +357,9 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
     it.  The JAX package runs the same recurrence inline, one chunk per
     ``lax.scan`` step.
     """
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "
+                         f"{mode!r}")
     getw = effective_w or (lambda pp: pp["w"])
     b, s, _ = x.shape
     di, n, hd, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim, \
@@ -366,7 +397,7 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
         y = torch.einsum("bhpn,bn->bhp", s_new, cc_f[:, 0])
         y = (y + d_skip * xs_f[:, 0]).reshape(b, 1, di)
     else:
-        q = ssm_chunk(cfg, s)
+        q = ssm_chunk(cfg, s, mode)
         nc = s // q
         xs_c = xs_f.reshape(b, nc, q, nh, hd)
         bb_c = bb_f.reshape(b, nc, q, n)
@@ -376,7 +407,12 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
         lcum = torch.cumsum(dta.reshape(b, nc, q, nh), dim=2)   # (B,C,Q,H)
         li = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]    # (B,C,Q,Q,H)
         tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-        decay_qq = torch.where(tri[:, :, None], torch.exp(li), 0.0)
+        # masked before the exponential: above the diagonal ``li`` is a
+        # positive sum that reaches ~180 over a 256-long chunk, where exp
+        # overflows and the backward's 0 * inf would make every gradient
+        # NaN.  The same values as the JAX package's where(tri, exp(li),
+        # 0), whose gradient is finite only at short chunks.
+        decay_qq = torch.exp(torch.where(tri[:, :, None], li, -math.inf))
         scores = torch.einsum("bcqn,bctn->bcqt", cc_c, bb_c)[..., None] \
             * decay_qq                                          # (B,C,Q,Q,H)
         y_intra = torch.einsum("bcqth,bcthp->bcqhp",
@@ -405,4 +441,6 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
     y = y.to(x.dtype).float() * silu(z).float()
     y = rmsnorm(y, p["ssm_norm"], cfg.norm_eps).to(x.dtype)
     out = linear(y, getw(p["out_proj"]))
+    if mode == "train":
+        return out, None
     return out, {"ssm": s_new, "conv": new_conv}

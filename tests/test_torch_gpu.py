@@ -660,6 +660,9 @@ K4_PWS = [(0, 2, 4, 8), (2, 4, 8), (8,), (0, 8, 0, 2),
 # whose rows are too long for two stages
 K4_RAGGED_TILES = [(1, 4), (9, 8), (13, 64), (3, 256), (7, 512),
                    (37501, 64), (9377, 256), (4689, 512), (40, 60000)]
+# mamba2-780m's projections as K4 takes them (rows x K): in_z / in_x and
+# out_proj ring-sized, in_b / in_c and in_dt on the simple kernels
+K4_MAMBA = [(3072, 1536), (1536, 3072), (128, 1536), (48, 1536)]
 
 
 def _k4_case(dev, m, k, pw, seed):
@@ -692,7 +695,7 @@ def _k4_check_bwd(w, probs, up, pw, dw, dprobs):
         assert bool((err <= bound).all()), (p, float((err - bound).max()))
 
 
-@pytest.mark.parametrize("m,k", K4_SHAPES + K4_RAGGED_TILES)
+@pytest.mark.parametrize("m,k", K4_SHAPES + K4_RAGGED_TILES + K4_MAMBA)
 @pytest.mark.parametrize("pw", K4_PWS)
 def test_mps_combine_kernels_precision_sets(cuda, pw, m, k):
     """The forward bit for bit and its absmax exactly; the backward
@@ -871,12 +874,133 @@ def test_ssd_scan_dispatch_and_checks(cuda):
     assert sops.ssd_scan.launches == before
 
 
+def _ssd_bwd_case(dev, c, h, p, n, seed, with_final=True):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dec, s_in, s0 = _ssd_case("cpu", c, h, p, n, seed)
+    prefix, _ = sops.ssd_scan_ref(dec, s_in, s0)
+    dprefix = torch.randn(c, h, p, n, generator=g)
+    dfinal = torch.randn(h, p, n, generator=g) if with_final else None
+    return tuple(None if t is None else t.to(dev)
+                 for t in (dec, prefix, dprefix, dfinal))
+
+
+def _ssd_bwd_check(got, dec, prefix, dprefix, dfinal):
+    """ds_in and ds0 bitwise; ddecay within 2 * P * N * 2^-24 * sum |G *
+    prefix| a (chunk, head): both sum the same rounded products, in a
+    fixed tree on the card and in torch's order here."""
+    want = sops.ssd_scan_bwd_ref(dec, prefix, dprefix, dfinal)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    pn = prefix.shape[2] * prefix.shape[3]
+    lim = 2 * pn * 2.0 ** -24 * (want[1] * prefix).abs().sum(dim=(2, 3))
+    assert bool(((got[0] - want[0]).abs() <= lim).all())
+
+
+SSD_BWD_CASES = [(c, h, p, n) for c in (1, 2, 8)
+                 for h, p, n in ((1, 64, 128), (48, 64, 128), (192, 64, 128),
+                                 (3, 5, 7), (2, 3, 1000), (2, 3, 999))] + [
+    (509, 1, 64, 128), (509, 48, 64, 128)]
+
+
+@pytest.mark.parametrize("c,h,p,n", SSD_BWD_CASES)
+@pytest.mark.parametrize("with_final", [True, False])
+def test_ssd_scan_bwd_vs_plain(cuda, c, h, p, n, with_final):
+    """K5's backward kernel against ``ssd_scan_bwd_ref`` at one head, the
+    serving shape (48 heads), path 7's training shape (B * H = 192), P *
+    N odd (the one-float path), heads of 3000 and 2997 elements whose
+    last block is ragged (float4 and one-float paths) and 509 chunks;
+    run twice, every output bit for bit the same."""
+    args = _ssd_bwd_case(cuda, c, h, p, n, seed=c + h + p, with_final=
+                         with_final)
+    before = sops.ssd_scan_bwd.launches
+    got = sops.ssd_scan_bwd(*args)
+    again = sops.ssd_scan_bwd(*args)
+    torch.cuda.synchronize()
+    assert sops.ssd_scan_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _ssd_bwd_check(got, *args)
+
+
+def test_ssd_scan_bwd_misaligned_view(cuda):
+    """A dprefix off a 16-byte boundary takes the one-float path and
+    stays within the check."""
+    dec, prefix, dprefix, dfinal = _ssd_bwd_case(cuda, 4, 3, 64, 128, 11)
+    base = torch.zeros(dprefix.numel() + 1, device=cuda)
+    base[1:] = dprefix.reshape(-1)
+    got = sops.ssd_scan_bwd(dec, prefix, base[1:].view(dprefix.shape),
+                            dfinal)
+    _ssd_bwd_check(got, dec, prefix, dprefix, dfinal)
+
+
+def test_ssd_scan_autograd_on_the_card(cuda):
+    """The autograd function launches the forward once and the backward
+    once, and its gradients equal those of the plain reverse recurrence
+    (the CPU path) bit for bit where the sums agree: ds_in and ds0."""
+    dec, s_in, s0 = _ssd_case(cuda, 8, 48, 64, 128, seed=3)
+    w = torch.randn(8, 48, 64, 128, device=cuda)
+    args = [t.clone().requires_grad_() for t in (dec, s_in, s0)]
+    f0, b0 = sops.ssd_scan.launches, sops.ssd_scan_bwd.launches
+    prefix, final = sops.ssd_scan(*args)
+    ((prefix * w).sum() + final.sum()).backward()
+    torch.cuda.synchronize()
+    assert (sops.ssd_scan.launches - f0, sops.ssd_scan_bwd.launches - b0) \
+        == (1, 1)
+    want = sops.ssd_scan_bwd_ref(dec, prefix.detach(), w,
+                                 torch.ones_like(s0))
+    assert torch.equal(args[1].grad, want[1])
+    assert torch.equal(args[2].grad, want[2])
+    torch.testing.assert_close(args[0].grad, want[0], rtol=1e-5, atol=1e-3)
+
+
+def test_mamba2_train_layer_card_vs_cpu(cuda):
+    """One ``mamba2-780m-smoke`` layer in train mode under the search at
+    chunk 32 over 128 tokens (4 chunks): every parameter's gradient on
+    the card (K4, K5 and its backward) within 1e-2 relative L2 of the
+    CPU's (the plain versions; bf16 products round differently under
+    cuBLAS)."""
+    from repro_torch.configs import registry
+    from repro_torch.core import mps
+    from repro_torch.models import lm
+    from repro_torch.nn import blocks
+    cfg = registry.get("mamba2-780m-smoke")
+    tree = lm._index(lm.init_params(cfg, device="cpu", mps_on=True)
+                     ["blocks"]["l0"]["mixer"], 0)
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn(2, 128, cfg.d_model, generator=g).to(torch.bfloat16)
+    up = torch.randn(2, 128, cfg.d_model, generator=g)
+    getw = lm._make_getw(cfg, mps.SearchCtx(tau=1.0))
+    flat = {(k, kk): t for k, v in tree.items()
+            for kk, t in (v.items() if isinstance(v, dict) else [(None, v)])}
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = {key: t.to(dev).clone().requires_grad_()
+                  for key, t in flat.items()}
+        p = {}
+        for (k, kk), t in leaves.items():
+            if kk is None:
+                p[k] = t
+            else:
+                p.setdefault(k, {})[kk] = t
+        sops.ssd_scan_bwd.launches = 0
+        y, st = blocks.mamba2_layer(p, x.to(dev), cfg, mode="train",
+                                    effective_w=getw)
+        (y.float() * up.to(dev)).sum().backward()
+        assert st is None
+        assert sops.ssd_scan_bwd.launches == (dev == "cuda")
+        grads[dev] = {key: t.grad.cpu().double()
+                      for key, t in leaves.items()}
+    for key, want in grads["cpu"].items():
+        got = grads["cuda"][key]
+        assert torch.isfinite(got).all(), key
+        assert float((got - want).norm() / want.norm()) <= 1e-2, key
+
+
 # ---------------------------------------------------------------------------
 # K4 on the LM's channel-last weights, and one LM search step
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("k,n", [(64, 16), (64, 128), (128, 64),
-                                 (2048, 512), (512, 2048)])
+                                 (2048, 512), (512, 2048)]
+                         + [(k, m) for m, k in K4_MAMBA])
 def test_mps_combine_channel_last_route(cuda, k, n):
     """``core.mps.effective_weight`` on a (K, C_out) weight -- the LM's
     layout -- runs K4 on its rows under the default context: the

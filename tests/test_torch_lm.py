@@ -110,3 +110,63 @@ def test_teacher_forced_logits_match_jax(models, plan_kind):
                                    err_msg=f"{plan_kind}/{cache}")
     # within the port, dense and paged are bitwise equal
     np.testing.assert_array_equal(outs["dense"], outs["paged"])
+
+
+@pytest.fixture(scope="module")
+def one_layer():
+    """``llama3.2-1b-smoke`` cut to one layer, the JAX package's key-0
+    weights, and its jitted hidden-state prefill."""
+    import dataclasses
+    from repro.nn import blocks as jblocks
+    from repro_torch.configs import registry as treg
+    jcfg = dataclasses.replace(registry.get("llama3.2-1b-smoke"), n_layers=1)
+    tcfg = dataclasses.replace(treg.get("llama3.2-1b-smoke"), n_layers=1)
+    jp = jlm.init_params(jcfg, jax.random.key(0))
+    prefill = jax.jit(lambda p, t: jlm.forward(
+        jcfg, p, {"tokens": t}, mode="prefill", logits_mode="hidden")[0])
+    attn = jax.jit(lambda q, k, v: jblocks.flash_attention(q, k, v))
+    return tcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp)), \
+        prefill, attn
+
+
+@pytest.mark.parametrize("seed", [0, 2, 3])
+def test_100_token_prefill_gap_is_the_attention_arithmetic(one_layer, seed,
+                                                           monkeypatch):
+    """A 100-token one-layer prefill differs from the JAX package's in the
+    hidden values of at most one token position, within 1e-2 relative L2
+    of that row (measured: seed 0 37 values of position 58, 5.3e-3; seed 2
+    51 of position 85, 8.6e-3; seed 3 2 of position 19, 7.7e-4; seeds 1,
+    4, 5 none).  The cause is the float32 attention's arithmetic alone:
+    with the JAX package's own ``flash_attention`` in the port's place the
+    hidden states are bitwise.  XLA's CPU sums those einsums in Eigen's
+    blocked orders, which change with the shape (ROADMAP section 3), so
+    the port does not mirror them."""
+    from repro_torch.nn import blocks as tblocks
+    tcfg, jp, tp, prefill, attn = one_layer
+    toks = np.random.default_rng(seed).integers(
+        0, tcfg.vocab, size=(1, 100)).astype(np.int32)
+    want = np.asarray(prefill(jp, toks).astype(jnp.float32))[0]
+
+    def port():
+        with torch.no_grad():
+            h, _ = tlm.forward(tcfg, tp, {"tokens": torch.as_tensor(toks)},
+                               mode="prefill", logits_mode="hidden")
+        return h.float().numpy()[0]
+
+    got = port()
+    rows = np.nonzero((got != want).any(-1))[0]
+    assert len(rows) <= 1, rows
+    for r in rows:
+        rel = np.linalg.norm(got[r] - want[r]) / np.linalg.norm(want[r])
+        assert rel <= 1e-2, (r, rel)
+
+    def jax_attention(q, k, v, **kw):
+        assert kw.get("causal", True) and not kw.get("window") and \
+            not kw.get("cap")
+        out = attn(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                     for t in (q, k, v)))
+        return torch.tensor(np.asarray(out.astype(jnp.float32))).to(
+            q.dtype)
+
+    monkeypatch.setattr(tblocks, "flash_attention", jax_attention)
+    np.testing.assert_array_equal(port(), want)

@@ -272,10 +272,13 @@ def test_mps_size_cost_matches_jax(llama):
 
 
 def test_ssm_train_mode_raises():
+    """A Mamba-2 stack trains (``tests/test_torch_ssm_train.py``) on
+    sequences its chunk tiles; 40 tokens at chunk 32 raise, where serving
+    prefill would fall back to a divisor."""
     cfg = treg.get("mamba2-780m-smoke")
     params = tlm.init_params(cfg, device="cpu", mps_on=True)
-    tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="C4"):
+    tokens = torch.zeros((1, 40), dtype=torch.int32)
+    with pytest.raises(ValueError, match="chunk 32 tiles"):
         tlm.forward(cfg, params, {"tokens": tokens}, mode="train")
 
 
