@@ -134,8 +134,56 @@ Phases, in order; any failure ends the run with a non-zero exit:
               K4's and K5's forward and backward device ms; then
               extract_plan (288 groups), served (2 greedy requests x 8
               tokens, paged) on K1 and K5.
-13. report -- one JSON line of kernels, the card's name and power limit,
-              and last the JSON status line.
+13. encdec-train -- path 8: the paper's joint search on full-width
+              seamless-m4t-medium (12 encoder + 12 decoder layers, d 1024,
+              16 heads of 64, d_ff 4096, vocab 256206 padded to 256256;
+              remat, f32 master weights, adam at 3e-4, lam 1e-9, random
+              weights from seed 0) through make_train_step(search=True), 4
+              steps of 4 x 256 decoder tokens (lm_batch) against 4 x 512
+              encoder frames (the audio frontend stub's, seeded bf16 x
+              0.1); K4 launched 168 x steps x 2 forward (remat recomputes
+              both stacks) and 168 x steps backward -- 84 encoder + 84
+              decoder projections; the 48 cross projections take their raw
+              weights, as in the reference, and never reach K4 -- no
+              other kernel, no call of the plain quantizer stack; finite
+              losses and grad norms, every gamma leaf moved (the cross
+              ones too); one full-width decoder layer's train-mode
+              gradients on the card within 1e-2 relative L2 of the CPU's;
+              step ms, tokens/s, peak memory, one profiled step's busy
+              share and K4's device ms; then extract_plan (132 groups),
+              apply_plan (cross projections on K1, the encoder stacked and
+              float), 2 requests (prompts 37 and 90, 512 frames each)
+              prefilled into dense caches and 8 greedy tokens decoded: K1
+              launched once a precision group of every planned projection
+              a prefill and of all but the cross wk / wv a decode step (a
+              decode step reads the cached encoder K/V and runs no
+              encoder), no other kernel; finite, batched == solo.
+14. vlm     -- path 9: qwen2-vl-72b at published widths (d 8192, 64 / 8
+              heads of 128, d_ff 29568, vocab 152064), 16 of 80 layers,
+              bf16 weights from seed 0 bound to synthetic_plan(bits=None,
+              seed=0); InferenceServer refuses the family (as the
+              reference's does), so a serve.cache.PagedCache (page 16, 4
+              slots of 4128 tokens) is driven through lm.forward and
+              lm.decode_step: 4 requests prefilled from the vision
+              frontend stub's patch embeddings (1024, 2000, 3136 and 4100
+              rows, seeded bf16 x 0.1) and 16 greedy decode steps, the
+              last 4 profiled (device ms a step split into K1, K2, K3,
+              cuBLAS and the rest); K1 launched once a precision group of
+              the 112 planned projections a forward, K3 16 x admissions,
+              K2 16 x steps, nothing else; finite; two requests served
+              alone give their batched streams; 2 float requests (K1 0);
+              paged (K3) vs dense prefill logits of a 64-row prompt within
+              5e-2 relative L2; peak memory.  Before the paths, the
+              kernels phase holds K4 at seamless's three projection shapes
+              (directly and through the channel-last route, timed over a
+              step's 168 projections), K1 bitwise at qwen2-vl's widths (M
+              8 and 2048, 8/4/2-bit; layer 0's plan groups at M 4 and
+              4112) timed beside bf16 torch.matmul, and K2 / K3 at G = 8,
+              D = 128 (lens up to 4116; 4100 rows padded to 4112) against
+              their plain versions, timed beside SDPA.
+15. report -- one JSON line of kernels (with each kernel's launches on
+              paths 8 and 9), the card's name and power limit, and last
+              the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -199,7 +247,9 @@ def device_ms(fn, n, flush, kernel=None, names=True):
     ``kernel=None`` sums every kernel the calls ran except the flush's
     (a library call's cuBLAS / flash kernels, whatever their names).
     The profiler has returned traces that lost launch records between
-    good ones, so each attempt also traces one call: every kernel name it
+    good ones, and traces that each lost one record of the calls' (a
+    flush on each side of them takes such a loss), so each attempt also
+    traces one call: every kernel name it
     holds must appear exactly ``n`` times as often in the ``n`` calls'
     trace, and no other, or both are taken again (twice at most).  The
     names matched are left in ``device_ms.names``."""
@@ -209,9 +259,15 @@ def device_ms(fn, n, flush, kernel=None, names=True):
 
     def trace(calls):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a flush on each side of the calls: where a card's trace
+            # drops its first or last launch record, it drops one of
+            # these, which no count reads
+            flush.zero_()
+            torch.cuda.synchronize()
             for _ in range(calls):
                 flush.zero_()
                 fn()
+            flush.zero_()
             torch.cuda.synchronize()
         return [e for e in prof.key_averages()
                 if e.self_device_time_total > 0
@@ -726,25 +782,20 @@ def moe_k1_cases():
     return sorted(cases)
 
 
-def phase_moe_k1(dev):
-    """K1 bitwise against its int32-exact plain version at path 6's shapes
-    (:func:`moe_k1_cases`): llama4-scout's K = 5120 / 8192 and arctic's
-    K = 7168 / 4864, decode and prefill.  Returns the max |diff| and the
-    number of cases."""
+def _k1_bitwise(dev, cases, seed, where):
+    """K1 on seeded int8 inputs at each (M, K, N, bits) of ``cases``,
+    held bitwise against its int32-exact plain version.  Returns the max
+    |diff| (0 unless it raised)."""
     from repro_torch.kernels.quant_matmul import ops as qops
     from repro_torch.kernels.quant_matmul import ref as qref
 
-    g = torch.Generator(device=dev).manual_seed(6)
-    cases = moe_k1_cases()
+    g = torch.Generator(device=dev).manual_seed(seed)
     sx = torch.ones((), device=dev)
-    xs = {}
     err = 0.0
     for m, kk, n, bits in cases:
-        if (m, kk) not in xs:
-            xs[(m, kk)] = torch.randint(-127, 128, (m, kk), generator=g,
-                                        device=dev, dtype=torch.int8)
-        xq = xs[(m, kk)]
         qmax = 2 ** (bits - 1) - 1
+        xq = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
+                           dtype=torch.int8)
         wq = torch.randint(-qmax - 1, qmax + 1, (n, kk), generator=g,
                            device=dev, dtype=torch.int8)
         sw = torch.rand(n, generator=g, device=dev) * 1e-3
@@ -754,10 +805,21 @@ def phase_moe_k1(dev):
         want = qref.quant_matmul_ref(xq, wq, sw, sx)
         diff = (got - want).abs().max().item()
         if not torch.equal(got, want):
-            raise AssertionError(f"K1 not bitwise at MoE shape M={m} K={kk} "
-                                 f"N={n} bits={bits}: max |diff| {diff}")
+            raise AssertionError(f"K1 not bitwise at {where} shape M={m} "
+                                 f"K={kk} N={n} bits={bits}: max |diff| "
+                                 f"{diff}")
         err = max(err, diff)
-    del xs
+        del xq, wq, got, want
+    return err
+
+
+def phase_moe_k1(dev):
+    """K1 bitwise against its int32-exact plain version at path 6's shapes
+    (:func:`moe_k1_cases`): llama4-scout's K = 5120 / 8192 and arctic's
+    K = 7168 / 4864, decode and prefill.  Returns the max |diff| and the
+    number of cases."""
+    cases = moe_k1_cases()
+    err = _k1_bitwise(dev, cases, 6, "MoE")
     ms = sorted({c[0] for c in cases})
     ks = sorted({c[1] for c in cases})
     log(f"[kernels] K1 quant_matmul at path 6's shapes: bitwise equal to "
@@ -1065,18 +1127,27 @@ def k4_probe(dev, m, k):
 
 
 def k4_lm_shapes(arch):
-    """(C_out, K) of ``arch``'s block projections -- the rows K4 takes
-    from each (K, C_out) weight in a train step -- with their count over
-    the super-blocks, read from ``init_params``' tree on the meta device
-    (llama3.2-1b: 112 in all; mamba2-780m: 288)."""
+    """(C_out, K) of ``arch``'s block projections that reach K4 -- the
+    rows it takes from each (K, C_out) weight in a train step -- with
+    their count over the super-blocks, read from ``init_params``' tree on
+    the meta device, an enc-dec encoder's included (llama3.2-1b: 112 in
+    all; mamba2-780m: 288; seamless-m4t-medium: 168).  A cross attention's
+    projections carry gammas but take the raw weights, as in the
+    reference, so they never reach K4: the cross groups ``lm``'s plan
+    names are taken out."""
     from repro_torch.configs import registry
     from repro_torch.models import lm
-    tree = lm.init_params(registry.get(arch), device="meta", mps_on=True)
+    cfg = registry.get(arch)
+    tree = lm.init_params(cfg, device="meta", mps_on=True)
     shapes = {}
     for node in lm._gamma_nodes(tree):
         nsb, k, n = node["w"].shape
         shapes[(n, k)] = shapes.get((n, k), 0) + nsb
-    return shapes
+    for layer, sub, name in lm._plan_weights(cfg):
+        if sub == "cross":
+            nsb, k, n = tree["blocks"][layer][sub][name]["w"].shape
+            shapes[(n, k)] -= nsb
+    return {mk: c for mk, c in shapes.items() if c}
 
 
 def _k4_route_check(g, dev, m, k):
@@ -1294,6 +1365,7 @@ def phase_k4(dev, flush):
     probe = k4_probe(dev, 512, 4608)
     lm_k4 = phase_k4_lm(dev, flush, g, "llama3.2-1b")
     mamba_k4 = phase_k4_lm(dev, flush, g, "mamba2-780m")
+    seamless_k4 = phase_k4_lm(dev, flush, g, "seamless-m4t-medium")
 
     m, k = max(shapes, key=lambda s: s[0] * s[1])     # 512 x 4608
     r = per[(m, k)]
@@ -1310,7 +1382,7 @@ def phase_k4(dev, flush):
                    step_device_ms=tot["fwd"], step_ms=tot["fwd_ms"],
                    step_plain_ms=tot["fwd_plain"],
                    step_bound_ms=tot["fwd_bound"], probe=probe,
-                   lm=lm_k4, lm_mamba=mamba_k4)
+                   lm=lm_k4, lm_mamba=mamba_k4, lm_seamless=seamless_k4)
     bwd_row = dict(common, kernel_taken=r["bwd_kernel"],
                    max_abs_err=dp_err, dw_max_abs_err=dw_err, ms=r["bwd_ms"],
                    device_ms=r["bwd"],
@@ -3204,6 +3276,824 @@ def phase_sweep(dev, counters, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 8: enc-dec training under the search (seamless-m4t-medium)
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_STEPS, ENCDEC_BATCH, ENCDEC_SEQ, ENCDEC_FRAMES = 4, 4, 256, 512
+ENCDEC_PROMPTS, ENCDEC_NEW = (37, 90), 8
+
+
+def _enc_frames(cfg, b, n, seed, dev):
+    """The audio frontend stub's encoder frames: (b, n, d) bf16, 0.1 x a
+    seeded normal draw on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (0.1 * torch.randn(b, n, cfg.d_model, generator=g,
+                              device=dev)).to(torch.bfloat16)
+
+
+def phase_encdec_train_layer(cfg, blk, dev):
+    """One full-width decoder super-block of the enc-dec stack (self
+    attention, cross attention, FFN) under the search, train mode, 1 x 256
+    tokens against 512 encoder frames: every parameter's gradient on the
+    card (K4 for the self attention and the FFN; the cross attention's
+    raw f32 weights promote the rest of the layer to f32) against the
+    same layer on the CPU (plain versions), relative L2 within 1e-2."""
+    from repro_torch.core import mps
+    from repro_torch.models import lm
+
+    def leaves(tree, device):
+        if isinstance(tree, dict):
+            return {k: leaves(v, device) for k, v in tree.items()}
+        return tree.detach().to(device).clone().requires_grad_()
+
+    getw = lm._make_getw(cfg, mps.SearchCtx(tau=1.0))
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.randn(1, ENCDEC_SEQ, cfg.d_model, generator=g, device=dev)
+         ).to(torch.bfloat16)
+    enc = _enc_frames(cfg, 1, ENCDEC_FRAMES, 12, dev)
+    up = torch.randn(1, ENCDEC_SEQ, cfg.d_model, generator=g, device=dev)
+    grads = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        p = leaves(blk, d)
+        y, _, _ = lm._superblock(
+            cfg, lm.block_pattern(cfg), p, x.to(d), x.to(d), mode="train",
+            caches=None, j=0, pos=None, getw=getw, tables=None,
+            enc_out=enc.to(d))
+        if y.dtype != torch.float32:
+            raise AssertionError(f"encdec train layer: the float cross "
+                                 f"attention left a {y.dtype} stream")
+        (y.float() * up.to(d)).sum().backward()
+        # the cross gammas have none: the cross projections take the raw
+        # weights, so only the size cost reaches their gammas
+        grads[where] = {k: t.grad for k, t in _leaves(p)
+                        if t.grad is not None}
+    if sorted(grads["card"]) != sorted(grads["cpu"]) or any(
+            "/cross/" in k and k.endswith("gamma") for k in grads["cpu"]):
+        raise AssertionError(f"encdec train layer: gradients of "
+                             f"{sorted(grads['card'])} on the card, "
+                             f"{sorted(grads['cpu'])} on the CPU")
+    rel = {}
+    for k, want in grads["cpu"].items():
+        got = grads["card"][k].cpu().double()
+        want = want.double()
+        rel[k] = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        if not (torch.isfinite(got).all() and rel[k] <= 1e-2):
+            raise AssertionError(f"encdec train layer: {k}'s gradient on the "
+                                 f"card vs the CPU, relative L2 {rel[k]} "
+                                 f"(bound 1e-2)")
+    worst = max(rel, key=rel.get)
+    log(f"[encdec-train] one full-width decoder layer under the search, "
+        f"train mode, 1 x {ENCDEC_SEQ} tokens against {ENCDEC_FRAMES} encoder "
+        f"frames: all {len(rel)} parameter gradients on the card (K4; the "
+        f"cross attention's raw weights) within 1e-2 relative L2 of the "
+        f"CPU's (plain versions); largest {worst} {rel[worst]:.3g}, median "
+        f"{float(np.median(list(rel.values()))):.3g}")
+    return rel
+
+
+def _k1_groups(tree, skip=()):
+    """Launches of K1 one call of every PackedLinear in ``tree`` (a tree
+    or a plan-bound tuple of them) makes, one a precision group, leaving
+    out paths holding a name in ``skip``."""
+    from repro_torch.nn import quantized as nnq
+    n = 0
+    for blk in tree if isinstance(tree, (list, tuple)) else [tree]:
+        for path, leaf in _leaves(blk):
+            if isinstance(leaf, nnq.PackedLinear) and \
+                    not any(s in path.split("/") for s in skip):
+                n += len(leaf.bits)
+    return n
+
+
+def encdec_k1_cases(bound):
+    """(M, K, N, bits) K1 takes on path 8's decode of its searched plan
+    ``bound``: every precision group of every decoder PackedLinear at
+    the decode M (1 alone, 2 batched) and the prompts' lengths, the cross
+    wk / wv also at the encoder's frames (their prefill M), and
+    seamless's full (K, N) at 8/4/2 bits at each of those M."""
+    from repro_torch.nn import quantized as nnq
+
+    ms = (1, len(ENCDEC_PROMPTS)) + ENCDEC_PROMPTS
+    cases, full = set(), set()
+    for blk in bound["blocks"]:
+        for path, leaf in _leaves(blk):
+            if not isinstance(leaf, nnq.PackedLinear):
+                continue
+            full.add((leaf.n_in, leaf.n_out))
+            kv = path.split("/")[-2:] in (["cross", "wk"], ["cross", "wv"])
+            for b, _, sw in leaf.groups:
+                cases.update((m, leaf.n_in, sw.shape[0], b)
+                             for m in ms + (ENCDEC_FRAMES,) * kv)
+    cases.update((m, kk, n, b) for kk, n in full for b in (8, 4, 2)
+                 for m in ms + (ENCDEC_FRAMES,))
+    return sorted(cases)
+
+
+def _encdec_decode(cfg, params, prompts, frames, dev, counters=None):
+    """Each request prefilled alone into dense caches with its encoder
+    frames, the caches copied into one ``init_caches(max_len, enc_len)``
+    tree, then greedy decode of the whole batch.  Returns (tokens (B,
+    ENCDEC_NEW), launches of the run or None, finite)."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+
+    b = len(prompts)
+    max_len = max(len(p) for p in prompts) + ENCDEC_NEW
+    caches = lm.init_caches(cfg, b, max_len, enc_len=frames.shape[1],
+                            device=dev)
+    prefill = steps_lib.make_prefill_step(cfg)
+    decode = steps_lib.make_decode_step(cfg)
+    if counters:
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+    finite = True
+    toks = []
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            logits, pc = prefill(params, {
+                "tokens": torch.as_tensor(p[None], device=dev),
+                "enc_embeddings": frames[i:i + 1]})
+            finite &= bool(torch.isfinite(logits).all())
+            for ln, c in caches.items():
+                for kind, kv in c.items():
+                    for k, big in kv.items():
+                        small = pc[ln][kind][k]
+                        big[:, i:i + 1, :small.shape[2]] = small.to(big.dtype)
+            toks.append(int(torch.argmax(logits[0, -1, :cfg.vocab])))
+        out = [toks]
+        pos = torch.as_tensor([len(p) for p in prompts], dtype=torch.int32,
+                              device=dev)
+        for _ in range(ENCDEC_NEW - 1):
+            logits, caches = decode(params, {"tokens": torch.as_tensor(
+                out[-1], device=dev)[:, None]}, caches, pos)
+            finite &= bool(torch.isfinite(logits).all())
+            out.append(torch.argmax(logits[:, -1, :cfg.vocab], -1).tolist())
+            pos = pos + 1
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in counters.items()} if counters \
+        else None
+    return np.asarray(out).T, got, finite
+
+
+def phase_train_encdec(dev, counters, smi):
+    """Path 8: the paper's joint search on full-width seamless-m4t-medium
+    (12 encoder + 12 decoder layers; remat, f32 master weights, adam at
+    3e-4, lam 1e-9, random weights from seed 0) through
+    ``make_train_step(search=True)`` for ENCDEC_STEPS steps on decoder
+    tokens and the audio frontend stub's encoder frames; K4's launches
+    read around the run; one decoder layer's gradients card vs CPU; one
+    more step profiled; then the searched plan extracted, bound (the
+    cross projections on K1, the encoder stacked and float) and decoded
+    greedily on K1 from dense caches."""
+    from repro_torch.configs import registry
+    from repro_torch.core import mps
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+    from repro_torch.serve import engine
+
+    cfg = registry.get(ENCDEC_ARCH)
+    pw = cfg.mps_precisions
+    n_k4 = sum(k4_lm_shapes(ENCDEC_ARCH).values())
+    n_gamma = lm.mps_param_count(cfg)
+    if (cfg.n_layers, cfg.enc_layers, cfg.d_model, cfg.n_heads,
+            cfg.head_dim, cfg.d_ff, lm.padded_vocab(cfg), n_k4, n_gamma) != \
+            (12, 12, 1024, 16, 64, 4096, 256256, 168, 18) or \
+            not cfg.remat or cfg.param_dtype != "float32" or \
+            cfg.optimizer != "adam":
+        raise AssertionError(f"encdec train: unexpected config {cfg}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, mps_on=True)
+    n_params = sum(t.numel() for k, t in _leaves(params)
+                   if not k.endswith("gamma"))
+    opt = optimizers.make_optimizer(cfg.optimizer, 3e-4)
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    step_fn = steps_lib.make_train_step(cfg, opt, search=True, lam=1e-9)
+    gamma0 = {k: t.clone() for k, t in _leaves(state["params"])
+              if k.endswith("gamma")}
+
+    def batch_at(step):
+        b = synthetic.lm_batch(cfg.vocab, ENCDEC_SEQ + 1, ENCDEC_BATCH, step,
+                               device=dev)
+        b["enc_embeddings"] = _enc_frames(cfg, ENCDEC_BATCH, ENCDEC_FRAMES,
+                                          100 + step, dev)
+        return b
+
+    batches = [batch_at(i) for i in range(ENCDEC_STEPS)]
+    log(f"[encdec-train] {cfg.name}: {cfg.enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d {cfg.d_model}, {cfg.n_heads} "
+        f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded "
+        f"{lm.padded_vocab(cfg)}), remat {cfg.remat}, {cfg.param_dtype} "
+        f"master weights, {cfg.optimizer} at 3e-4, lam 1e-9; "
+        f"{n_params / 1e9:.3f} B parameters + {len(gamma0)} gamma leaves "
+        f"({n_gamma} gamma-carrying projections a pattern, {n_k4} reach K4: "
+        f"the 48 cross projections take raw weights); search, batch "
+        f"{ENCDEC_BATCH} x {ENCDEC_SEQ} decoder tokens, {ENCDEC_FRAMES} "
+        f"encoder frames (bf16, 0.1 x a seeded normal); init "
+        f"{time.perf_counter() - t0:.2f} s")
+    plain, restore = _count_plain_stack()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    times, losses, norms = [], [], []
+    try:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            p, o, loss = step_fn(state["params"], state["opt"], batch, i)
+            state = {"params": p, "opt": o}
+            losses.append(float(loss))
+            norms.append(float(step_fn.grad_norm))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        restore()
+    got = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    need = {"mps_combine": n_k4 * ENCDEC_STEPS * 2,     # + the recompute
+            "mps_combine_bwd": n_k4 * ENCDEC_STEPS}
+    if any(got[k] != v for k, v in need.items()) or any(
+            v for k, v in got.items() if k not in need):
+        raise AssertionError(f"encdec train: launches {got}, need {need} "
+                             f"and no other kernel")
+    if plain[0]:
+        raise AssertionError(f"encdec train: {plain[0]} projections took the "
+                             f"plain quantizer stack")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"encdec train: losses {losses}, grad norms "
+                             f"{norms}")
+    moved = [k for k, t in _leaves(state["params"])
+             if k.endswith("gamma") and not torch.equal(t, gamma0[k])]
+    cross = [k for k in gamma0 if "/cross/" in k]
+    if len(moved) != len(gamma0) or len(cross) != 4:
+        raise AssertionError(f"encdec train: {len(moved)} of {len(gamma0)} "
+                             f"gamma leaves moved ({len(cross)} cross)")
+    del gamma0
+    ms = 1e3 * float(np.median(times[1:]))
+    tok_s = ENCDEC_BATCH * ENCDEC_SEQ / (ms / 1e3)
+    log(f"[encdec-train] {ENCDEC_STEPS} search steps on "
+        f"{torch.cuda.get_device_name(dev)} ({smi}): losses "
+        f"{[round(v, 4) for v in losses]}, grad norms "
+        f"{[round(v, 4) for v in norms]}; step ms "
+        f"{[round(1e3 * t, 1) for t in times]}, median of steps "
+        f"2-{ENCDEC_STEPS} {ms:.1f} ms = {tok_s:.0f} training tokens/s "
+        f"(decoder target tokens; with the {ENCDEC_BATCH * ENCDEC_FRAMES} "
+        f"encoder frames a step "
+        f"{ENCDEC_BATCH * (ENCDEC_SEQ + ENCDEC_FRAMES) / (ms / 1e3):.0f} "
+        f"positions/s); peak memory {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); K4 launches "
+        f"{got['mps_combine']} forward = {n_k4} x {ENCDEC_STEPS} x 2 (remat "
+        f"recomputes both stacks), {got['mps_combine_bwd']} backward = "
+        f"{n_k4} x {ENCDEC_STEPS}; plain quantizer stack: 0 calls; all "
+        f"{len(moved)} gamma leaves moved, the 4 cross ones included")
+    layer_rel = phase_encdec_train_layer(
+        cfg, lm._index(state["params"]["blocks"], 0), dev)
+
+    state, prof = train.profile_steps(step_fn, state, batch_at, ENCDEC_STEPS,
+                                      1, dev)
+    k4_s = sum(v for k, v in prof["kernels"].items() if "mps_" in k)
+    busy = prof["device_s"] / prof["wall_s"]
+    log(f"[encdec-train] one profiled step: wall {1e3 * prof['wall_s']:.1f} "
+        f"ms, device {1e3 * prof['device_s']:.1f} ms = {100 * busy:.1f}% "
+        f"busy, {prof['launches']} device operations; K4 {1e3 * k4_s:.2f} ms"
+        f" = {100 * k4_s / prof['device_s']:.2f}% of device time")
+    top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1])[:8]
+    log("[encdec-train] top kernels of the profiled step (device ms): "
+        + "; ".join(f"{k[:60]} {1e3 * v:.2f}" for k, v in top))
+
+    del state["opt"]
+    params = state["params"]
+    with torch.no_grad():
+        cost = float(lm.mps_size_cost(cfg, params, mps.SearchCtx(tau=1.0)))
+    plan = lm.extract_plan(cfg, params)
+    bits = {int(b) for v in plan.channel_bits.values() for b in v}
+    n_groups = len(lm._plan_weights(cfg)) * lm.n_superblocks(cfg)
+    if len(plan.groups) != n_groups or n_groups != 132 or \
+            not bits <= set(pw) or not np.isfinite(cost):
+        raise AssertionError(f"encdec train: plan {plan.summary()}, bits "
+                             f"{sorted(bits)}, size cost {cost}")
+    t0 = time.perf_counter()
+    bound = engine.apply_plan(cfg, params, plan)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    if not isinstance(bound["blocks"], tuple) or \
+            isinstance(bound["enc_blocks"], tuple):
+        raise AssertionError("encdec: apply_plan must unroll blocks and "
+                             "leave enc_blocks stacked")
+    k1_cases = encdec_k1_cases(bound)
+    k1_err = _k1_bitwise(dev, k1_cases, 8, "seamless")
+    log(f"[encdec-train] K1 quant_matmul at the decode's shapes: bitwise "
+        f"equal to the int32 plain version in {len(k1_cases)} cases, M in "
+        f"{sorted({c[0] for c in k1_cases})}, K in "
+        f"{sorted({c[1] for c in k1_cases})}: the projections' full widths "
+        f"at 8/4/2 bits and every precision group of the searched plan (N "
+        f"from {min(c[2] for c in k1_cases)} to "
+        f"{max(c[2] for c in k1_cases)}; M {ENCDEC_FRAMES} for the cross "
+        f"wk / wv over the encoder frames)")
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in ENCDEC_PROMPTS]
+    frames = _enc_frames(cfg, len(prompts), ENCDEC_FRAMES, 200, dev)
+    toks, served, finite = _encdec_decode(cfg, bound, prompts, frames, dev,
+                                          counters)
+    # a prefill runs every planned projection, the cross wk / wv on the
+    # encoder's output included; a decode step reads the cached encoder
+    # K/V, so its cross attention runs wq and wo only
+    per_adm = _k1_groups(bound["blocks"])
+    per_step = _k1_groups(bound["blocks"], skip=("wk", "wv")) + \
+        sum(_k1_groups(blk["l0"]["mixer"], skip=("wq", "wo"))
+            for blk in bound["blocks"])
+    need = len(prompts) * per_adm + (ENCDEC_NEW - 1) * per_step
+    if served["quant_matmul"] != need or any(
+            v for k, v in served.items() if k != "quant_matmul"):
+        raise AssertionError(f"encdec decode: launches {served}, need K1 "
+                             f"{need} and no other kernel")
+    solo = [_encdec_decode(cfg, bound, [p], frames[i:i + 1], dev)[0][0]
+            for i, p in enumerate(prompts)]
+    if not finite or toks.shape != (len(prompts), ENCDEC_NEW) or any(
+            not np.array_equal(toks[i], solo[i]) for i in range(len(solo))):
+        raise AssertionError(f"encdec decode: batched {toks.tolist()}, solo "
+                             f"{[s.tolist() for s in solo]}, finite {finite}")
+    log(f"[encdec-train] searched plan: {plan.summary()}, bits "
+        f"{sorted(bits)}, mps_size_cost {cost:.6g} bytes; apply_plan "
+        f"{setup:.2f} s (132 groups on K1, the encoder stacked and float); 2 "
+        f"requests (prompts {list(ENCDEC_PROMPTS)}, {ENCDEC_FRAMES} encoder "
+        f"frames each) prefilled into dense caches and decoded greedily, "
+        f"{ENCDEC_NEW} tokens each: finite logits, batched == solo; K1 "
+        f"launched {served['quant_matmul']} = {len(prompts)} x {per_adm} a "
+        f"prefill + {ENCDEC_NEW - 1} x {per_step} a decode step (cross wq "
+        f"and wo only: decode reads the cached encoder K/V), no other "
+        f"kernel")
+    return dict(launches=got, served=served, ms=ms, tok_s=tok_s,
+                peak_bytes=peak, busy=busy, k4_share=k4_s / prof["device_s"],
+                k4_ms=1e3 * k4_s, layer_rel_max=max(layer_rel.values()),
+                k1_cases=len(k1_cases), k1_max_abs_err=k1_err)
+
+
+# ---------------------------------------------------------------------------
+# path 9: VLM prefill from patch embeddings and decode (qwen2-vl-72b)
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, VLM_LAYERS = "qwen2-vl-72b", 16
+VLM_LENS, VLM_NEW, VLM_FLOAT = (1024, 2000, 3136, 4100), 16, 2
+VLM_PS = 16
+VLM_MAX_LEN = -(-(max(VLM_LENS) + VLM_NEW) // VLM_PS) * VLM_PS    # 4128
+VLM_PROFILED = 4                # decode steps under the profiler
+
+
+def _vlm_cfg():
+    import dataclasses
+
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get(VLM_ARCH), n_layers=VLM_LAYERS,
+                               param_dtype="bfloat16")
+
+
+def _patches(cfg, n, seed, dev):
+    """The vision frontend stub's patch embeddings of one request: (1, n,
+    d) bf16, 0.1 x a seeded normal draw on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (0.1 * torch.randn(1, n, cfg.d_model, generator=g,
+                              device=dev)).to(torch.bfloat16)
+
+
+def _vlm_serve(cfg, params, reqs, dev, counters, profile=False):
+    """Paged prefill of every request from its patch embeddings (padded to
+    a 16-row q chunk, straight into a ``serve.cache.PagedCache``'s pages,
+    K3) then VLM_NEW greedy decode steps of the batch, each fed the
+    generated tokens at per-slot positions (K2), through ``lm.forward``
+    and ``lm.decode_step``.  ``reqs``: [(seed, length)].  Returns (tokens
+    (B, VLM_NEW + 1), launches, finite, the profiled decode steps' device
+    split or None, admissions)."""
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.serve import cache as cache_mod
+
+    backend = cache_mod.PagedCache(cfg, len(reqs), VLM_MAX_LEN, dev,
+                                   page_size=VLM_PS)
+    prefill = steps_lib.make_paged_prefill_step(cfg)
+    decode = steps_lib.make_decode_step(cfg)
+    q = min(pops.PREFILL_Q, max(8, VLM_PS))
+    embs = [_patches(cfg, n, seed, dev) for seed, n in reqs]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    finite, first, handles = True, [], []
+    with torch.no_grad():
+        for slot, emb in enumerate(embs):
+            n = emb.shape[1]
+            h = backend.alloc(slot, slot, n)
+            spad = -(-n // q) * q
+            padded = torch.zeros((1, spad, cfg.d_model), dtype=emb.dtype,
+                                 device=dev)
+            padded[:, :n] = emb
+            width = min(-(-spad // VLM_PS), backend.table_width)
+            tables = backend.device_tables()[slot:slot + 1, :width]
+            logits, pc = prefill(params, {"embeddings": padded},
+                                 backend.kv_caches(), tables,
+                                 torch.tensor([n], dtype=torch.int32,
+                                              device=dev))
+            backend.insert(h, pc)
+            finite &= bool(torch.isfinite(logits).all())
+            first.append(int(torch.argmax(logits[0, -1, :cfg.vocab])))
+            handles.append(h)
+        out = [first]
+        pos = [n for _, n in reqs]          # each slot's next position
+
+        def step():
+            """One decode step of the batch; appends its tokens."""
+            tables = backend.device_tables()[:, :max(pos) // VLM_PS + 1]
+            logits, caches = decode(
+                params, {"tokens": torch.as_tensor(out[-1], device=dev)[
+                    :, None]}, backend.gather(),
+                torch.as_tensor(pos, dtype=torch.int32, device=dev), tables)
+            backend.commit(caches)
+            out.append(torch.argmax(logits[:, -1, :cfg.vocab], -1).tolist())
+            for i, h in enumerate(handles):
+                pos[i] += 1
+                backend.append(h)
+            return bool(torch.isfinite(logits).all())
+
+        split = None
+        n_plain = VLM_NEW - VLM_PROFILED if profile else VLM_NEW
+        for _ in range(n_plain):
+            finite &= step()
+        if profile:
+            split, ok = _vlm_decode_profile(step)
+            finite &= ok
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in counters.items()}
+    return np.asarray(out).T, got, finite, split, len(reqs)
+
+
+def _vlm_decode_profile(step):
+    """VLM_PROFILED decode steps (``step()`` runs one) under
+    torch.profiler: wall and device ms a step, the device split by class
+    (K1, K2, K3, cuBLAS, other).  Returns (split, finite)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    finite = True
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(VLM_PROFILED):
+            finite &= step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / VLM_PROFILED
+    split = {k: v / VLM_PROFILED for k, v in _device_split(prof).items()}
+    return dict(split, wall_ms=wall, device_ms=sum(split.values()),
+                other_top=_device_split.other), finite
+
+
+def _vlm_prefill_gap(cfg, params, dev):
+    """Paged vs dense prefill logits of one 64-row prompt of patch
+    embeddings: relative L2 error of the last position's logits with K3,
+    and with K3's plain version in its place as the witness.  Returns
+    {"k3", "plain"}."""
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.serve import cache as cache_mod
+
+    emb = _patches(cfg, 64, 64, dev)
+    kernel = pops.paged_prefill_fwd
+    out = {}
+    with torch.no_grad():
+        dense, _ = lm.forward(cfg, params, {"embeddings": emb},
+                              mode="prefill", logits_mode="last")
+        dense = dense[:, -1].float()
+        for name, k3 in (("k3", kernel), ("plain", pops.paged_prefill_ref)):
+            backend = cache_mod.PagedCache(cfg, 1, 128, dev,
+                                           page_size=VLM_PS)
+            backend.alloc(0, 0, 64)
+            pops.paged_prefill_fwd = k3
+            try:
+                paged, _ = steps_lib.make_paged_prefill_step(cfg)(
+                    params, {"embeddings": emb}, backend.kv_caches(),
+                    backend.device_tables()[:, :4],
+                    torch.tensor([64], dtype=torch.int32, device=dev))
+            finally:
+                pops.paged_prefill_fwd = kernel
+            paged = paged[:, -1].float()
+            if not torch.isfinite(paged).all():
+                raise AssertionError("vlm paged prefill logits non-finite")
+            out[name] = ((paged - dense).norm() / dense.norm()).item()
+    return out
+
+
+def phase_vlm(dev, counters, smi):
+    """Path 9: qwen2-vl-72b at published widths, 16 of 80 layers, bf16
+    weights from seed 0, bound to ``synthetic_plan(bits=None, seed=0)``:
+    paged prefill of 4 requests from patch embeddings (K1, K3) and 16
+    greedy decode steps (K1, K2) driven through ``lm.forward`` /
+    ``lm.decode_step`` over a ``serve.cache.PagedCache`` (the server
+    refuses the family, as the reference's does); two requests again
+    alone; then 2 float requests; paged vs dense prefill; one profiled
+    decode window split by class."""
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+
+    cfg = _vlm_cfg()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(v.numel() for _, v in _leaves(params))
+    per_layer = sum(v.numel() for _, v in _leaves(params["blocks"])) \
+        / VLM_LAYERS
+    plan = engine.synthetic_plan(cfg, params, bits=None, seed=0)
+    t1 = time.perf_counter()
+    bound = engine.apply_plan(cfg, params, plan)
+    torch.cuda.synchronize()
+    t_bind = time.perf_counter() - t1
+    log(f"[vlm] {VLM_ARCH}: {VLM_LAYERS} of 80 layers (the depth cut; the "
+        f"pattern is one layer long), d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim} (G = "
+        f"{cfg.n_heads // cfg.n_kv_heads}), d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; {n_par / 1e9:.3f} B bf16 parameters, "
+        f"{per_layer / 1e9:.3f} B a layer "
+        f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB with the "
+        f"bound tree) drawn in {t1 - t0:.1f} s; {plan.summary()}, bound in "
+        f"{t_bind:.1f} s")
+    try:
+        engine.InferenceServer(cfg, params, max_len=64, max_batch=1,
+                               device=dev)
+    except NotImplementedError as e:
+        if "decoder-only token-frontend" not in str(e):
+            raise
+    else:
+        raise AssertionError("InferenceServer took a VLM")
+    L = VLM_LAYERS
+    k1_call = _k1_groups(bound["blocks"])
+    reqs = [(1000 + i, n) for i, n in enumerate(VLM_LENS)]
+    runs = {}
+    t1 = time.perf_counter()
+    toks, got, finite, split, adm = _vlm_serve(cfg, bound, reqs, dev,
+                                               counters, profile=True)
+    dt = time.perf_counter() - t1
+    need = {"quant_matmul": k1_call * (adm + VLM_NEW),
+            "paged_prefill": L * adm, "paged_attention": L * VLM_NEW}
+    if any(got[k] != v for k, v in need.items()) or any(
+            v for k, v in got.items() if k not in need):
+        raise AssertionError(f"vlm plan: launches {got}, need {need} and no "
+                             f"other kernel")
+    solo = {i: _vlm_serve(cfg, bound, [reqs[i]], dev, counters)[0][0]
+            for i in (0, len(reqs) - 1)}
+    if not finite or toks.shape != (len(reqs), VLM_NEW + 1) or any(
+            not np.array_equal(toks[i], s) for i, s in solo.items()):
+        raise AssertionError(f"vlm plan: batched {toks.tolist()}, solo "
+                             f"{ {i: s.tolist() for i, s in solo.items()} }"
+                             f", finite {finite}")
+    log(f"[vlm] plan-bound: {len(reqs)} requests (patch embeddings of "
+        f"{list(VLM_LENS)}) x {VLM_NEW + 1} tokens ({VLM_NEW} decode steps) "
+        f"in {dt:.2f} s; finite logits; requests 0 and {len(reqs) - 1} "
+        f"alone give their batched streams; launches {got} = K1 "
+        f"{k1_call} a forward ({7 * L} PackedLinears, one launch a "
+        f"precision group) x ({adm} admissions + {VLM_NEW} steps), K3 {L} x "
+        f"{adm}, "
+        f"K2 {L} x {VLM_NEW}; {smi}")
+    log(f"[vlm] plan-bound decode step ({len(reqs)} slots at "
+        f"{min(VLM_LENS)}-{max(VLM_LENS)} + {VLM_NEW - VLM_PROFILED} tokens; "
+        f"{VLM_PROFILED} steps profiled): {split['wall_ms']:.2f} ms wall, "
+        f"{split['device_ms']:.2f} ms device "
+        f"({100 * split['device_ms'] / split['wall_ms']:.1f}% busy); device "
+        f"ms a step: " + ", ".join(f"{k} {split[k]:.3f}" for k in
+                                   ("K1", "K2", "K3", "cuBLAS products",
+                                    "other"))
+        + "; largest 'other': " + "; ".join(
+            f"{k} {v / VLM_PROFILED:.3f}" for k, v in split["other_top"]))
+    runs["plan"] = dict(launches=got, decode_steps=VLM_NEW, admitted=adm,
+                        seconds=dt, decode_split=split)
+    float_reqs = reqs[:VLM_FLOAT]
+    t1 = time.perf_counter()
+    ftoks, fgot, ffinite, _, fadm = _vlm_serve(cfg, params, float_reqs, dev,
+                                               counters)
+    dt = time.perf_counter() - t1
+    fneed = {"paged_prefill": L * fadm, "paged_attention": L * VLM_NEW}
+    if any(fgot[k] != v for k, v in fneed.items()) or any(
+            v for k, v in fgot.items() if k not in fneed) or not ffinite:
+        raise AssertionError(f"vlm float: launches {fgot}, need {fneed} and "
+                             f"no other kernel; finite {ffinite}")
+    log(f"[vlm] float: {len(float_reqs)} requests x {VLM_NEW + 1} tokens in "
+        f"{dt:.2f} s, finite; launches {fgot}")
+    runs["float"] = dict(launches=fgot, decode_steps=VLM_NEW, admitted=fadm,
+                         seconds=dt)
+    rel = _vlm_prefill_gap(cfg, bound, dev)
+    rel_f = _vlm_prefill_gap(cfg, params, dev)
+    if max(rel["k3"], rel_f["k3"]) > 5e-2:
+        raise AssertionError(f"vlm paged vs dense prefill logits: relative "
+                             f"L2 {rel} (plan), {rel_f} (float) > 5e-2")
+    log(f"[vlm] paged (K3) vs dense prefill logits on a 64-row prompt: "
+        f"relative L2 error {rel['k3']:.3g} plan-bound, {rel_f['k3']:.3g} "
+        f"float (bound 5e-2); witnesses with K3's plain version "
+        f"{rel['plain']:.3g} / {rel_f['plain']:.3g}")
+    runs["paged_vs_dense"] = dict(plan_k3=rel["k3"], plan_plain=rel["plain"],
+                                  float_k3=rel_f["k3"],
+                                  float_plain=rel_f["plain"])
+    runs["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    runs["params_b"] = n_par / 1e9
+    log(f"[vlm] peak memory {runs['peak_gib']:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); {smi}")
+    return runs
+
+
+# qwen2-vl-72b's projections (K, N): wq / wo, wk / wv, w_gate / w_up,
+# w_down; at the decode slot count, the 2048-row yardstick and path 9's
+# longest padded prompt
+VLM_K1 = ((8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192))
+
+
+def vlm_k1_cases():
+    """(M, K, N, bits) K1 takes on path 9: qwen2-vl's full widths at M 8
+    and 2048, 8/4/2-bit, and every precision group of layer 0 of the
+    seed-0 synthetic plan path 9 binds (drawn over the meta-device tree),
+    the ragged splits of 29568 among them, at the decode M (4 slots) and
+    the longest padded prompt."""
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+
+    cases = {(m, kk, n, b) for m in (8, 2048) for kk, n in VLM_K1
+             for b in (8, 4, 2)}
+    cfg = _vlm_cfg()
+    meta = lm.init_params(cfg, device="meta")
+    plan = engine.synthetic_plan(cfg, meta, bits=None, seed=0)
+    prefill_m = -(-max(VLM_LENS) // 16) * 16
+    for grp, w in lm.serve_weight_groups(cfg, meta).items():
+        if not grp.endswith(".sb0"):
+            continue
+        cb = np.asarray(plan.channel_bits[grp])
+        for b in (8, 4, 2):
+            n = int((cb == b).sum())
+            if n:
+                cases.update({(len(VLM_LENS), w.shape[1], n, b),
+                              (prefill_m, w.shape[1], n, b)})
+    return sorted(cases)
+
+
+def phase_vlm_k1(dev, flush):
+    """K1 bitwise against its int32-exact plain version at path 9's
+    shapes (:func:`vlm_k1_cases`), then timed at the full widths, 4-bit,
+    M 8 (decode layout) and 2048 (tiles) beside bf16 ``torch.matmul`` on
+    the dequantized weight and the bound."""
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    sx = torch.ones((), device=dev)
+    cases = vlm_k1_cases()
+    err = _k1_bitwise(dev, cases, 21, "qwen2-vl")
+    log(f"[kernels] K1 quant_matmul at path 9's shapes: bitwise equal to the "
+        f"int32 plain version in {len(cases)} cases, M in "
+        f"{sorted({c[0] for c in cases})}, (K, N) {list(VLM_K1)} at 8/4/2 "
+        f"bits and layer 0's plan groups (N from "
+        f"{min(c[2] for c in cases)} to {max(c[2] for c in cases)})")
+    timed = []
+    bits = 4
+    for m in (8, 2048):
+        for kk, n in VLM_K1:
+            xq = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
+                               dtype=torch.int8)
+            wq = torch.randint(-8, 8, (n, kk), generator=g, device=dev,
+                               dtype=torch.int8)
+            wp = qref.pack_weights(wq, bits)
+            sw = torch.rand(n, generator=g, device=dev) * 1e-3
+            xb = xq.to(torch.bfloat16)
+            deq = wq.to(torch.bfloat16) * sw[:, None].to(torch.bfloat16)
+            del wq
+            kname = "qmv" if m <= 8 else "qmm_kernel"
+
+            def kern():
+                return qops.quant_matmul(xq, wp, sw, sx, w_bits=bits)
+
+            def mm():
+                return torch.matmul(xb, deq.T)
+
+            bms, by = bound(m * kk + n * kk * bits // 8 + n * 4 + 4
+                            + m * n * 4, 2 * m * n * kk, "int8")
+            r = dict(shape=f"qwen2-vl M={m} K={kk} N={n} {bits}-bit",
+                     ms=time_ms(kern, 10, flush),
+                     device_ms=device_ms(kern, 10, flush, kname),
+                     library_ms=time_ms(mm, 10, flush),
+                     library_device_ms=device_ms(mm, 10, flush, names=False),
+                     bound_ms=bms, bound_by=by)
+            timed.append(r)
+            log(f"[kernels] K1 at {r['shape']}: {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f}); bf16 torch.matmul "
+                f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f})"
+                f"; bound {bms:.4f} ms ({by})")
+            del xq, wp, xb, deq
+    torch.cuda.empty_cache()
+    return dict(vlm_cases=len(cases), vlm_max_abs_err=err, vlm_timed=timed)
+
+
+# path 9's attention: 64 query heads over 8 KV heads (G = 8, the first
+# group of 8 on the card), head dim 128, bf16 pools of 16-token pages,
+# path 9's table width; decode at its prompts' lengths past the new
+# tokens (a freed slot and short ones beside them), prefill of its
+# longest prompt padded to the q chunk
+VLM_H, VLM_HKV, VLM_D = 64, 8, 128
+VLM_K2_LENS = [1040, 2016, 3152, 4116, 0, 1, 16, 17]
+VLM_K3_LEN = 4100
+
+
+def phase_vlm_attention(dev, flush):
+    """K2 and K3 against their plain versions at path 9's attention shape
+    (G = 8, D = 128), f32 within 2e-5 and bf16 within 1e-2; each timed in
+    bf16 beside its plain version, SDPA on the gathered K/V and its
+    bound."""
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    rng = np.random.default_rng(21)
+    h, hkv, d, ps = VLM_H, VLM_HKV, VLM_D, VLM_PS
+    width = VLM_MAX_LEN // ps
+    s3 = -(-VLM_K3_LEN // 16) * 16
+    pos = torch.as_tensor([max(n - 1, 0) for n in VLM_K2_LENS],
+                          dtype=torch.int32, device=dev)
+    lens3 = torch.as_tensor([VLM_K3_LEN], dtype=torch.int32, device=dev)
+    out = {}
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+        q, kp, vp, tb = pool_case(rng, VLM_K2_LENS, h=h, hkv=hkv, d=d, ps=ps,
+                                  width=width, dtype=dtype, dev=dev)
+        got = pops.paged_attention_fwd(q, kp, vp, tb, pos)
+        torch.cuda.synchronize()
+        want = pops.paged_attention_ref(q, kp, vp, tb, pos)
+        err2 = (got.float() - want.float()).abs().max().item()
+        freed = VLM_K2_LENS.index(0)
+        if not (torch.isfinite(got).all() and err2 <= tol and
+                torch.equal(got[freed], torch.zeros_like(got[freed]))):
+            raise AssertionError(f"K2 G=8 D=128 {dtype}: max |diff| {err2} "
+                                 f"> {tol}, non-finite or freed slot not "
+                                 f"zero")
+        q3, kp3, vp3, tb3 = pool_case(rng, [s3], h=h, hkv=hkv, d=d, ps=ps,
+                                      width=s3 // ps, dtype=dtype, dev=dev,
+                                      s=s3)
+        got3 = pops.paged_prefill_fwd(q3, kp3, vp3, tb3, lens3)
+        torch.cuda.synchronize()
+        want3 = pops.paged_prefill_ref(q3, kp3, vp3, tb3, lens3)
+        err3 = (got3[:, :VLM_K3_LEN].float()
+                - want3[:, :VLM_K3_LEN].float()).abs().max().item()
+        if not (torch.isfinite(got3[:, :VLM_K3_LEN]).all() and err3 <= tol):
+            raise AssertionError(f"K3 G=8 D=128 {dtype}: max |diff| {err3} "
+                                 f"> {tol}")
+        log(f"[kernels] G=8 (H={h}, Hkv={hkv}, D={d}), page {ps}, {dtype}: "
+            f"K2 at lens {VLM_K2_LENS} max |diff| {err2:.3g}, K3 at "
+            f"{VLM_K3_LEN} tokens padded to {s3} max |diff| {err3:.3g} "
+            f"(bound {tol})")
+        if dtype == torch.float32:
+            out = {"paged_attention": dict(g=8, max_abs_err=err2),
+                   "paged_prefill": dict(g=8, max_abs_err=err3)}
+            del q, kp, vp, q3, kp3, vp3
+            continue
+        r2, r3 = out["paged_attention"], out["paged_prefill"]
+        r2.update(k2_timing(dev, flush, (q, kp, vp, tb), pos, VLM_K2_LENS,
+                            h, hkv, d, ps),
+                  shape=f"B=8 H={h} Hkv={hkv} D={d} page {ps}, table "
+                  f"{width}, lens {VLM_K2_LENS}, bf16", max_abs_err_bf16=err2)
+        # K3: each real query attends the keys up to itself
+        qk = VLM_K3_LEN * (VLM_K3_LEN + 1) // 2
+        nb = 2 * q3[:, :VLM_K3_LEN].numel() * 2 + \
+            2 * VLM_K3_LEN * hkv * d * 2 + tb3.numel() * 4
+        bms, by = bound(nb, 4 * h * d * qk, "bf16")
+        kd, vd = sdpa_kv(kp3, vp3, tb3, h, hkv, d)
+        qd = q3.transpose(1, 2).contiguous()
+
+        def lib3():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qd, kd, vd, is_causal=True)
+
+        def k3():
+            return pops.paged_prefill_fwd(q3, kp3, vp3, tb3, lens3)
+
+        r3.update(
+            shape=f"B=1 S={VLM_K3_LEN} (padded {s3}) H={h} Hkv={hkv} D={d} "
+            f"page {ps}, bf16", max_abs_err_bf16=err3,
+            ms=time_ms(k3, 10, flush),
+            device_ms=device_ms(k3, 10, flush, "paged_prefill_mma_kernel"),
+            plain_ms=time_ms(lambda: pops.paged_prefill_ref(
+                q3, kp3, vp3, tb3, lens3), 1, flush),
+            library_ms=time_ms(lib3, 10, flush),
+            library_device_ms=device_ms(lib3, 10, flush, names=False),
+            bound_ms=bms, bound_by=by)
+        for name, r in (("K2", r2), ("K3", r3)):
+            log(f"[kernels] {name} at {r['shape']}: {r['ms']:.4f} ms "
+                f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.2f} "
+                f"ms, SDPA {r['library_ms']:.4f} (device "
+                f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f} "
+                f"ms ({r['bound_by']})")
+        del q, kp, vp, q3, kp3, vp3, kd, vd, qd
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3267,6 +4157,16 @@ def main():
     rows["quant_matmul"].update(moe_k1)
     rows["quant_matmul"]["max_abs_err"] = max(
         rows["quant_matmul"]["max_abs_err"], moe_k1["moe_max_abs_err"])
+    vlm_att = path("kernels (VLM attention shapes)", phase_vlm_attention,
+                   dev, flush)
+    for k, v in vlm_att.items():
+        rows[k]["vlm_group"] = v
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"],
+                                     v["max_abs_err"])
+    vlm_k1 = path("kernels (VLM K1 shapes)", phase_vlm_k1, dev, flush)
+    rows["quant_matmul"].update(vlm_k1)
+    rows["quant_matmul"]["max_abs_err"] = max(
+        rows["quant_matmul"]["max_abs_err"], vlm_k1["vlm_max_abs_err"])
     capped = path("kernels (softcap)", phase_softcap_attention, dev)
     for k, err in capped.items():
         rows[k]["softcap_max_abs_err"] = err
@@ -3283,6 +4183,9 @@ def main():
     moe = path("path 6 (MoE serve)", phase_moe, dev, counters, smi)
     mamba_trained = path("path 7 (mamba train)", phase_train_mamba, dev,
                          counters, smi)
+    encdec = path("path 8 (seamless train)", phase_train_encdec, dev,
+                  counters, smi)
+    vlm = path("path 9 (qwen2-vl serve)", phase_vlm, dev, counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -3338,7 +4241,15 @@ def main():
                            launches_train_mamba_plan=mamba_trained[
                                "served"][k])
                 r["max_abs_err"] = max(r["max_abs_err"],
-                                       mamba_runs["k1_err"])
+                                       mamba_runs["k1_err"],
+                                       encdec["k1_max_abs_err"])
+                row.update(encdec_cases=encdec["k1_cases"])
+        # paths 8 and 9: enc-dec training and its plan's decode; VLM
+        # serving plan-bound and float
+        row.update(launches_train_encdec=encdec["launches"][k],
+                   launches_encdec_plan=encdec["served"][k],
+                   launches_vlm=vlm["plan"]["launches"][k],
+                   launches_vlm_float=vlm["float"]["launches"][k])
         row.update({
             "max_abs_err": r["max_abs_err"], "max_abs_diff": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],

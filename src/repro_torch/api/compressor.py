@@ -107,8 +107,8 @@ class Compressor:
             checkpoint_every: int = 50, registry=None) -> CompressionResult:
         if registry is not None:
             raise NotImplementedError(
-                "the metrics registry is not ported yet (ROADMAP item 12, "
-                "obs); run without registry=")
+                "the metrics registry is not ported yet (ROADMAP D12 "
+                "(obs)); run without registry=")
         if self.device.type == "cuda":
             layers.full_precision()
         t_start = time.time()

@@ -8,7 +8,8 @@ into numpy arrays (for example ``jax.tree.map(np.asarray, tree)``):
   CNN's -- and gives the same dicts of torch tensors on ``device``.
 * ``lm_params_from_jax`` checks an LM tree first: ``embed``, ``blocks``,
   ``final_norm`` and ``lm_head``; every ``blocks`` leaf stacked on one
-  leading ``n_superblocks`` axis; an MoE layer's expert banks 4-D,
+  leading ``n_superblocks`` axis (an enc-dec tree's ``enc_blocks`` on
+  the encoder's own, beside ``enc_norm``); an MoE layer's expert banks 4-D,
   ``(n_superblocks, E, K, N)`` with E its router's width; and, where a
   projection carries one, ``gamma (n_superblocks, C_out, |P_W|)`` (an
   expert bank's one gamma, shared by its experts, on the bank's last
@@ -76,28 +77,43 @@ def _check_banks(tree, path):
         _check_banks(v, f"{path}.{k}")
 
 
+def _stack_count(tree, key: str) -> int:
+    shapes = list(_leaf_shapes(tree, key))
+    n = {s[0] if s else None for _, s in shapes}
+    _require(len(n) == 1 and None not in n,
+             f"{key} leaves must share one leading super-block axis, got "
+             f"{sorted((p, s) for p, s in shapes)[:4]}...")
+    return n.pop()
+
+
 def lm_params_from_jax(tree, device="cpu", cfg=None):
     """A ``repro.models.lm`` parameter tree (``init_params(...,
     mps_on=...)``); ``cfg`` (the port's ``ArchConfig``) also fixes the
-    super-block count and |P_W|."""
+    super-block counts and |P_W|.  An enc-dec tree's ``enc_blocks`` are
+    stacked on the encoder's own super-block count, beside ``enc_norm``."""
     _require({"embed", "blocks", "final_norm", "lm_head"} <= set(tree),
              f"an LM tree holds embed, blocks, final_norm and lm_head, got "
              f"{sorted(tree)}")
-    shapes = list(_leaf_shapes(tree["blocks"], "blocks"))
-    nsb = {s[0] if s else None for _, s in shapes}
-    _require(len(nsb) == 1 and None not in nsb,
-             f"blocks leaves must share one leading super-block axis, got "
-             f"{sorted((p, s) for p, s in shapes)[:4]}...")
-    nsb = nsb.pop()
+    _require(("enc_blocks" in tree) == ("enc_norm" in tree),
+             f"an enc-dec tree holds enc_blocks and enc_norm, got "
+             f"{sorted(tree)}")
+    stacks = [k for k in ("blocks", "enc_blocks") if k in tree]
+    counts = {k: _stack_count(tree[k], k) for k in stacks}
     n_pw = None
     if cfg is not None:
         from repro_torch.models import lm
-        _require(nsb == lm.n_superblocks(cfg),
-                 f"{nsb} super-blocks, {cfg.name} has "
-                 f"{lm.n_superblocks(cfg)}")
+        want = {"blocks": lm.n_superblocks(cfg)}
+        if cfg.is_encdec:
+            want["enc_blocks"] = lm.n_enc_superblocks(cfg)
+        _require(sorted(want) == sorted(counts),
+                 f"{cfg.name} has {sorted(want)}, the tree {sorted(counts)}")
+        for k, n in want.items():
+            _require(counts[k] == n, f"{k}: {counts[k]} super-blocks, "
+                                     f"{cfg.name} has {n}")
         n_pw = len(cfg.mps_precisions)
-    _check_gammas(tree["blocks"], nsb, n_pw, "blocks")
-    _check_banks(tree["blocks"], "blocks")
+    for k in stacks:
+        _check_gammas(tree[k], counts[k], n_pw, k)
+        _check_banks(tree[k], k)
     return params_from_jax(tree, device)
 
 

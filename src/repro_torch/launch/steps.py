@@ -57,9 +57,10 @@ def make_prefill_step(cfg: ArchConfig):
 def make_paged_prefill_step(cfg: ArchConfig):
     """Prefill straight into a page pool: ``kv_caches`` is the pool tree
     (written in place), ``tables`` the slot's block tables sliced to the
-    live width, ``lens`` the (B,) real prompt lengths.  ``tokens`` may be
-    padded to a q-chunk boundary: padded rows are never written to the
-    pool, and the logits are read at ``lens[0] - 1``."""
+    live width, ``lens`` the (B,) real prompt lengths.  The batch's
+    ``tokens`` (or a stub frontend's ``embeddings``) may be padded to a
+    q-chunk boundary: padded rows are never written to the pool, and the
+    logits are read at ``lens[0] - 1``."""
     def step_fn(params, batch, kv_caches, tables, lens):
         return lm.forward(cfg, params, batch, mode="prefill",
                           logits_mode="last", last_pos=lens[0] - 1,
@@ -68,7 +69,8 @@ def make_paged_prefill_step(cfg: ArchConfig):
 
 
 def make_decode_step(cfg: ArchConfig):
-    """``tables`` is the paged block-table tensor (None for dense)."""
+    """``token_batch`` holds ``tokens`` (B, 1) or ``embeddings`` (B, 1,
+    D); ``tables`` is the paged block-table tensor (None for dense)."""
     def step_fn(params, token_batch, caches, pos, tables=None):
         return lm.decode_step(cfg, params, token_batch, caches, pos,
                               tables=tables)

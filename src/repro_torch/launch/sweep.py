@@ -17,7 +17,7 @@ the same ``--store``/``--workdir`` loads finished points from the store
 and resumes the in-flight point from its checkpoint; ``--max-points N``
 bounds how many points one invocation executes.  ``--metrics`` and
 ``--trace`` (the reference's obs artifacts) exit with an error until obs
-is ported (ROADMAP item 12).
+is ported (ROADMAP D12 (obs)).
 """
 from __future__ import annotations
 
@@ -80,17 +80,17 @@ def main(argv=None) -> dict:
                          "the iso-accuracy report (cnn track)")
     ap.add_argument("--metrics", default=None, metavar="PATH",
                     help="sweep metrics in Prometheus text format (not "
-                         "ported yet: ROADMAP item 12)")
+                         "ported yet: ROADMAP D12 (obs))")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="the point lifecycle trace as JSON lines (not "
-                         "ported yet: ROADMAP item 12)")
+                         "ported yet: ROADMAP D12 (obs))")
     ap.add_argument("--report", default=None, metavar="PATH",
                     help="write the sweep summary as JSON")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.metrics or args.trace:
         ap.error("--metrics and --trace need the obs layer, which is not "
-                 "ported yet (ROADMAP item 12)")
+                 "ported yet (ROADMAP D12 (obs))")
 
     spec = build_spec(args)
     store = sweep_mod.PlanStore(args.store)

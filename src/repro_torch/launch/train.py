@@ -20,6 +20,12 @@ and at the end, and on SIGTERM saves the step it finished and exits.
 (forward, backward) device ms a step, the device operations a step and
 the device's busy share of the traced window.
 
+An enc-dec stack (``--arch seamless-m4t-medium``) trains on the tokens
+alone, as the reference's launcher does: with no ``enc_embeddings`` in
+the batch its encoder embeds them.  Batches that carry a stub
+frontend's ``embeddings`` or ``enc_embeddings`` pass through
+``launch.steps`` unchanged.
+
 A Mamba-2 stack (``--arch mamba2-780m``) trains on sequences that its
 chunk (``ssm_chunk``, or ``--seq`` itself when shorter) tiles; another
 ``--seq`` exits with an error.

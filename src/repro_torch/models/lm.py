@@ -1,5 +1,5 @@
-"""The LM of ``repro.models.lm``: the dense, MoE and pure-SSM (Mamba-2)
-families.
+"""The LM of ``repro.models.lm``: the dense, MoE, pure-SSM (Mamba-2),
+encoder-decoder and VLM families.
 
 Parameters are a nested dict of tensors with the JAX package's tree and
 shapes: each super-block's weights are stacked ``(n_superblocks, ...)``
@@ -10,18 +10,25 @@ LM track: ``loss_fn`` with a ``SearchCtx``, ``mps_size_cost``,
 ``extract_plan``).  An MoE layer's ``ffn`` holds a ``router`` (D, E) and
 the expert banks ``w_gate`` / ``w_up`` (nsb, E, D, F) and ``w_down``
 (nsb, E, F, D), plus the dense ``shared`` FFN with
-``cfg.dense_residual``.  A tree bound to a plan
-(``serve.engine.apply_plan``) holds ``blocks`` as a tuple of per-super-
-block trees instead, with :class:`~repro_torch.nn.quantized.PackedLinear`
-weights.  Either way the forward is a Python loop over super-blocks;
-caches keep the stacked ``(nsb, ...)`` layout and are updated in place.
+``cfg.dense_residual``.  An enc-dec decoder layer adds ``norm_cross`` and
+a ``cross`` attention set; the encoder is ``enc_blocks`` (bidirectional
+attention + dense FFN, stacked over its own ``enc_layers`` super-blocks)
+and ``enc_norm``.  A batch may carry a stub frontend's ``embeddings``
+(B, S, D) in place of ``tokens``, and for enc-dec ``enc_embeddings``.
+A tree bound to a plan (``serve.engine.apply_plan``) holds ``blocks`` as
+a tuple of per-super-block trees instead, with
+:class:`~repro_torch.nn.quantized.PackedLinear` weights; ``enc_blocks``
+stays stacked and float.  Either way the forward is a Python loop over
+super-blocks; caches keep the stacked ``(nsb, ...)`` layout and are
+updated in place.
 
-Hybrid, enc-dec and frontend architectures raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The hybrid (jamba) raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -41,23 +48,23 @@ _FAMILY_ITEM = {
               "are ported; one 8-layer super-block holds 4 MoE layers of "
               "19.3 GB of bf16 experts each, more than one 80 GB card, so "
               "it waits for a four-chip layout)",
-    "encdec": "ROADMAP slice C3 (enc-dec and VLM)",
-    "vlm": "ROADMAP slice C3 (enc-dec and VLM)",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str           # attn | attn_local | attn_chunked | mamba
+    mixer: str       # attn | attn_local | attn_chunked | attn_bidir | mamba
     ffn: Optional[str]   # dense | moe | None
+    cross: bool = False
 
 
 def _require_ported(cfg: ArchConfig):
-    dense = cfg.family == "dense" and not cfg.ssm_state and not cfg.is_moe
+    plain = not cfg.ssm_state and not cfg.is_moe
+    dense = cfg.family in ("dense", "vlm") and plain and not cfg.is_encdec
+    encdec = cfg.family == "encdec" and plain and cfg.is_encdec
     moe = cfg.family == "moe" and cfg.is_moe and not cfg.ssm_state
     ssm = cfg.family == "ssm" and cfg.is_ssm
-    if (not (dense or moe or ssm) or cfg.is_encdec
-            or cfg.frontend != "none"):
+    if not (dense or encdec or moe or ssm):
         item = _FAMILY_ITEM.get(cfg.family, "ROADMAP slice C")
         raise NotImplementedError(
             f"{cfg.name} (family={cfg.family}) is not ported yet; it comes "
@@ -79,7 +86,16 @@ def block_pattern(cfg: ArchConfig) -> tuple[LayerSpec, ...]:
         return tuple(LayerSpec("attn", "moe" if i % cfg.moe_every ==
                                cfg.moe_every - 1 else "dense")
                      for i in range(cfg.moe_every))
-    return (LayerSpec("attn", ffn),)
+    return (LayerSpec("attn", ffn, cross=cfg.is_encdec),)
+
+
+def enc_pattern(cfg: ArchConfig) -> tuple[LayerSpec, ...]:
+    """The encoder's super-block pattern (enc-dec only)."""
+    return (LayerSpec("attn_bidir", "dense"),)
+
+
+def n_enc_superblocks(cfg: ArchConfig) -> int:
+    return cfg.enc_layers // len(enc_pattern(cfg))
 
 
 def n_superblocks(cfg: ArchConfig) -> int:
@@ -99,6 +115,7 @@ def padded_vocab(cfg: ArchConfig) -> int:
 # ---------------------------------------------------------------------------
 
 _MAMBA_PROJ = ("in_b", "in_c", "in_dt", "in_x", "in_z", "out_proj")
+_ATTN_PROJ = ("wq", "wk", "wv", "wo")
 _FFN_PROJ = ("w_gate", "w_up", "w_down")
 
 
@@ -107,13 +124,17 @@ def _plan_weights(cfg: ArchConfig):
     JAX package's order (its ``_walk_plan_weights`` walks a template tree
     whose dict keys JAX sorts).  ``name`` is dotted below ``sub`` for an
     MoE layer's shared FFN (``shared.w_down``); its router and 4-D expert
-    banks are no plan groups."""
+    banks are no plan groups.  An enc-dec decoder layer's ``cross``
+    projections are plan groups; the encoder's are not (``blocks`` only,
+    as the reference walks)."""
     out = []
     for i, spec in enumerate(block_pattern(cfg)):
         if spec.mixer == "mamba":
             out += [(f"l{i}", "mixer", n) for n in _MAMBA_PROJ]
         else:
-            out += [(f"l{i}", "mixer", n) for n in ("wq", "wk", "wv", "wo")]
+            out += [(f"l{i}", "mixer", n) for n in _ATTN_PROJ]
+        if spec.cross:
+            out += [(f"l{i}", "cross", n) for n in _ATTN_PROJ]
         if spec.ffn == "dense":
             out += [(f"l{i}", "ffn", n) for n in _FFN_PROJ]
         elif spec.ffn == "moe" and cfg.dense_residual:
@@ -132,11 +153,11 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     """Random parameters with ``lm.init_params``' tree and shapes (not its
     numbers: ``jax.random`` and ``torch.Generator`` differ), drawn on
     ``device`` (default ``cuda``) from ``generator`` (default seed 0).
-    ``mps_on`` gives every block projection its float32 selection logits
-    ``gamma (nsb, C_out, |P_W|)`` at the paper's Eq. 13 init (the
-    reference's values); ``embed`` and ``lm_head`` carry none.  On the
-    ``meta`` device the tree has its shapes and no numbers (no
-    generator)."""
+    ``mps_on`` gives every block projection (the encoder's and the cross
+    attention's too) its float32 selection logits ``gamma (nsb, C_out,
+    |P_W|)`` at the paper's Eq. 13 init (the reference's values);
+    ``embed`` and ``lm_head`` carry none.  On the ``meta`` device the tree
+    has its shapes and no numbers (no generator)."""
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -144,17 +165,17 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         else torch.bfloat16
     nsb = n_superblocks(cfg)
     d, v = cfg.d_model, padded_vocab(cfg)
-    h, hkv, hd = cfg.h_eff, cfg.hkv_eff, cfg.head_dim
 
-    def w(shape, scale=None, stack=True, gamma=True):
+    def w(shape, scale=None, n=nsb, gamma=True):
+        """A weight stacked over ``n`` super-blocks (``n=0``: unstacked)."""
         fan_in = shape[0] if len(shape) == 2 else shape[-2]
         scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-        full = ((nsb,) if stack else ()) + shape
+        full = ((n,) if n else ()) + shape
         if len(shape) == 3 and dev.type != "meta":
             # an expert bank (nsb, E, K, N): drawn one expert at a time,
             # so no float32 copy of the whole bank is ever made
             arr = torch.empty(full, dtype=dtype, device=dev)
-            for j in range(nsb):
+            for j in range(n):
                 for e in range(shape[0]):
                     arr[j, e] = torch.randn(
                         shape[1:], generator=generator, device=dev,
@@ -163,35 +184,53 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
             arr = torch.randn(full, generator=generator, device=dev,
                               dtype=torch.float32).to(dtype) * scale
         out = {"w": arr}
-        if mps_on and stack and gamma:
+        if mps_on and n and gamma:
             out["gamma"] = sampling.init_selection_logits(
-                cfg.mps_precisions, (nsb, shape[-1]), dev)
+                cfg.mps_precisions, (n, shape[-1]), dev)
         return out
 
-    def vec(shape, init=0.0, stack=True):
-        full = ((nsb,) if stack else ()) + shape
+    def vec(shape, init=0.0, n=nsb):
+        full = ((n,) if n else ()) + shape
         return torch.full(full, init, dtype=dtype, device=dev)
 
-    params = {"embed": w((v, d), scale=0.02, stack=False)}
-    blk = {}
-    for i, spec in enumerate(block_pattern(cfg)):
-        if spec.mixer == "mamba":
-            blk[f"l{i}"] = {"norm1": vec((d,)),
-                            "mixer": _mamba_params(cfg, w, vec)}
-            continue
-        mixer = {"wq": w((d, h * hd)), "wk": w((d, hkv * hd)),
-                 "wv": w((d, hkv * hd)), "wo": w((h * hd, d))}
-        if cfg.qk_norm:
-            mixer["q_norm"] = vec((hd,))
-            mixer["k_norm"] = vec((hd,))
-        blk[f"l{i}"] = {
-            "norm1": vec((d,)), "mixer": mixer, "norm2": vec((d,)),
-            "ffn": _moe_params(cfg, w) if spec.ffn == "moe"
-            else _ffn_params(cfg, w)}
-    params["blocks"] = blk
-    params["final_norm"] = vec((d,), stack=False)
-    params["lm_head"] = w((d, v), scale=0.02, stack=False)
+    params = {"embed": w((v, d), scale=0.02, n=0)}
+    params["blocks"] = {f"l{i}": _layer_params(cfg, spec, w, vec, nsb)
+                        for i, spec in enumerate(block_pattern(cfg))}
+    params["final_norm"] = vec((d,), n=0)
+    params["lm_head"] = w((d, v), scale=0.02, n=0)
+    if cfg.is_encdec:
+        ne = n_enc_superblocks(cfg)
+        params["enc_blocks"] = {f"l{i}": _layer_params(cfg, spec, w, vec, ne)
+                                for i, spec in enumerate(enc_pattern(cfg))}
+        params["enc_norm"] = vec((d,), n=0)
     return params
+
+
+def _layer_params(cfg: ArchConfig, spec: LayerSpec, w, vec, n: int) -> dict:
+    """``lm._layer_params``: one pattern slot stacked over ``n``
+    super-blocks."""
+    w, vec = functools.partial(w, n=n), functools.partial(vec, n=n)
+    d = cfg.d_model
+    if spec.mixer == "mamba":
+        return {"norm1": vec((d,)), "mixer": _mamba_params(cfg, w, vec)}
+    p = {"norm1": vec((d,)), "mixer": _attn_params(cfg, w, vec)}
+    if spec.cross:
+        p["norm_cross"] = vec((d,))
+        p["cross"] = _attn_params(cfg, w, vec)
+    p["norm2"] = vec((d,))
+    p["ffn"] = _moe_params(cfg, w) if spec.ffn == "moe" \
+        else _ffn_params(cfg, w)
+    return p
+
+
+def _attn_params(cfg: ArchConfig, w, vec) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.h_eff, cfg.hkv_eff, cfg.head_dim
+    p = {"wq": w((d, h * hd)), "wk": w((d, hkv * hd)),
+         "wv": w((d, hkv * hd)), "wo": w((h * hd, d))}
+    if cfg.qk_norm:
+        p["q_norm"] = vec((hd,))
+        p["k_norm"] = vec((hd,))
+    return p
 
 
 def _ffn_params(cfg: ArchConfig, w) -> dict:
@@ -279,40 +318,59 @@ def _store(dst, src):
         dst.copy_(src)
 
 
-def _embed_in(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_in(cfg, params, batch) -> torch.Tensor:
+    """The decoder's input: a stub frontend's ``embeddings`` cast to bf16
+    (no scale), else the embedding rows of ``tokens`` times sqrt(d)."""
+    if "embeddings" in batch:
+        return batch["embeddings"].to(torch.bfloat16)
     # gather rows first, cast after: the same values as casting the table
-    x = params["embed"]["w"][tokens.long()].to(torch.bfloat16)
+    x = params["embed"]["w"][batch["tokens"].long()].to(torch.bfloat16)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.bfloat16,
                             device=x.device)
 
 
-def _superblock(cfg: ArchConfig, blk, x, s, *, mode, caches, j, pos, getw,
-                tables):
-    """One super-block's layers.  ``x`` is the bf16 residual stream, ``s``
-    the f32 sum it was rounded from (see :func:`forward`).  Returns (x,
-    s, the block's new caches)."""
-    kinds = {"attn": "full", "attn_local": "local",
-             "attn_chunked": "chunked"}
+_KINDS = {"attn": "full", "attn_local": "local", "attn_chunked": "chunked",
+          "attn_bidir": "bidir"}
+
+
+def _superblock(cfg: ArchConfig, pattern, blk, x, s, *, mode, caches, j,
+                pos, getw, tables, enc_out):
+    """One super-block's layers.  ``x`` is the residual stream, ``s`` the
+    f32 sum it was rounded from (see :func:`forward`).  Returns (x, s,
+    the block's new caches).
+
+    The stream is bf16, except after a float tree's cross attention: its
+    projections take the raw weights (the reference passes the cross
+    branch no weight hook), f32 masters give f32 products, and JAX
+    promotes ``x + yc`` and everything after it in the layer to f32."""
     new = {}
-    for i, spec in enumerate(block_pattern(cfg)):
+    for i, spec in enumerate(pattern):
         p = blk[f"l{i}"]
+        c = None if caches is None else caches[f"l{i}"]
+        nc = new[f"l{i}"] = {}
         hn = blocks.rmsnorm(s, p["norm1"], cfg.norm_eps).to(x.dtype)
         if spec.mixer == "mamba":
-            st = None if caches is None else \
-                _index(caches[f"l{i}"]["mamba"], j)
+            st = None if c is None else _index(c["mamba"], j)
             y, st_new = blocks.mamba2_layer(
                 p["mixer"], hn, cfg, mode=mode, state=st, effective_w=getw)
             if st is not None:
                 _store(st, st_new)
-            new[f"l{i}"] = {"mamba": st_new}
+            nc["mamba"] = st_new
         else:
-            kv = None if caches is None else _index(caches[f"l{i}"]["kv"], j)
-            y, kv_new = blocks.attention_layer(
-                p["mixer"], hn, cfg, kind=kinds[spec.mixer], mode=mode,
+            kv = None if c is None else _index(c["kv"], j)
+            y, nc["kv"] = blocks.attention_layer(
+                p["mixer"], hn, cfg, kind=_KINDS[spec.mixer], mode=mode,
                 cache=kv, pos=pos, effective_w=getw, tables=tables)
-            new[f"l{i}"] = {"kv": kv_new}
         s = x.float() + y.float()
         x = s.to(x.dtype)
+        if spec.cross and (enc_out is not None or mode == "decode"):
+            hc = blocks.rmsnorm(s, p["norm_cross"], cfg.norm_eps).to(x.dtype)
+            ckv = None if c is None else _index(c["cross_kv"], j)
+            yc, nc["cross_kv"] = blocks.attention_layer(
+                p["cross"], hc, cfg, kind="cross", mode=mode, cache=ckv,
+                kv_input=enc_out)
+            s = x.float() + yc.float()
+            x = s.to(torch.promote_types(x.dtype, yc.dtype))
         if spec.ffn is None:
             continue
         h2 = blocks.rmsnorm(s, p["norm2"], cfg.norm_eps).to(x.dtype)
@@ -325,25 +383,84 @@ def _superblock(cfg: ArchConfig, blk, x, s, *, mode, caches, j, pos, getw,
     return x, s, new
 
 
+def _run_stack(cfg: ArchConfig, pattern, per_sb, n: int, x, *, mode,
+               caches, pos, getw, tables, enc_out, remat: bool):
+    """Every super-block in order (``lm._run_stack`` / its unrolled
+    twin).  ``per_sb`` is a stacked tree of ``n`` super-blocks or a tuple
+    of per-super-block trees (plan-bound).  Returns (x, s, the per-block
+    new caches)."""
+    stacked = not isinstance(per_sb, (list, tuple))
+    if stacked:
+        per_sb = _unstack(per_sb, n)
+    s = x
+    out_caches = []
+    for j in range(n):
+        blk = per_sb[j]
+        kw = dict(mode=mode, caches=caches, j=j, pos=pos, getw=getw,
+                  tables=tables, enc_out=enc_out)
+        if remat and stacked:
+            x = checkpoint(lambda xj, blk=blk, kw=kw: _superblock(
+                cfg, pattern, blk, xj, xj, **kw)[0].to(xj.dtype), x,
+                use_reentrant=False)
+            continue
+        if stacked:
+            s = x
+        in_dtype = x.dtype
+        x, s, new = _superblock(cfg, pattern, blk, x, s, **kw)
+        if stacked:
+            # the reference carries x through a lax.scan: the super-block
+            # boundary rounds it back to the carry's dtype
+            x = x.to(in_dtype)
+        out_caches.append(new)
+    if stacked:
+        s = x
+    return x, s, out_caches
+
+
+def _encode(cfg: ArchConfig, params, batch, getw, remat: bool):
+    """The encoder (``lm._encode``): ``enc_embeddings`` cast to bf16, or
+    else :func:`_embed_in` of the batch (the decoder's ``embeddings`` when
+    the batch holds them, else its tokens), through the stacked
+    ``enc_blocks`` in train mode, then ``enc_norm``."""
+    if "enc_embeddings" in batch:
+        xe = batch["enc_embeddings"].to(torch.bfloat16)
+    else:
+        xe = _embed_in(cfg, params, batch)
+    xe, s, _ = _run_stack(cfg, enc_pattern(cfg), params["enc_blocks"],
+                          n_enc_superblocks(cfg), xe, mode="train",
+                          caches=None, pos=None, getw=getw, tables=None,
+                          enc_out=None, remat=remat)
+    return blocks.rmsnorm(s, params["enc_norm"], cfg.norm_eps).to(xe.dtype)
+
+
 def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
             caches=None, pos=None, logits_mode: str = "full",
             last_pos=None, tables=None, ctx: Optional[mps.SearchCtx] = None):
     """Returns (logits | hidden, caches).
 
-    batch: {"tokens": (B, S) int}.  mode: train | prefill | decode; train
-    takes and returns no caches and, with ``cfg.remat``, recomputes each
-    super-block in the backward (``torch.utils.checkpoint``, as the
-    reference's ``jax.checkpoint``).  ctx: a ``SearchCtx`` turns every
-    weight with a gamma into its effective weight.  logits_mode:
-    "full" | "last" (one position: S-1, or ``last_pos``, a () tensor) |
-    "hidden".  tables: (B, P) int32 block tables when ``caches`` holds
-    page pools (see :func:`init_paged_caches`); for a paged prefill
-    ``pos`` holds the (B,) real prompt lengths.  Caches passed in are
-    updated in place and returned; a dense prefill returns new stacked
-    caches: ``(nsb, B, S, Hkv, D)`` KV, and for a Mamba-2 layer its SSM
+    batch: {"tokens": (B, S) int} or a stub frontend's {"embeddings": (B,
+    S, D)}; for enc-dec optionally "enc_embeddings" (B, S_enc, D), else
+    the encoder embeds the decoder's input.  mode: train | prefill |
+    decode; train takes and returns no caches and, with ``cfg.remat``,
+    recomputes each super-block in the backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
+    ctx: a ``SearchCtx`` turns every weight with a gamma into its
+    effective weight (the cross attention's excepted, as in the
+    reference).  logits_mode: "full" | "last" (one position: S-1, or
+    ``last_pos``, a () tensor) | "hidden".  tables: (B, P) int32 block
+    tables when ``caches`` holds page pools (see
+    :func:`init_paged_caches`); for a paged prefill ``pos`` holds the (B,)
+    real prompt lengths.  Caches passed in are updated in place and
+    returned; a dense prefill returns new stacked caches: ``(nsb, B, S,
+    Hkv, D)`` KV, for a cross layer its ``cross_kv`` ``(nsb, B, S_enc,
+    Hkv, D)`` in the projections' dtype, and for a Mamba-2 layer its SSM
     state ``(nsb, B, H, P, N)`` and conv windows ``(nsb, B, K-1, C)``.
     A prefill given caches starts each Mamba-2 layer from their SSM
     state, as the JAX package does.
+
+    An enc-dec decode step reads the encoder's K/V from ``cross_kv`` and
+    does not run the encoder: the reference runs it over the step's one
+    token and uses none of its output.
     """
     pattern = block_pattern(cfg)
     if mode == "train" and any(sp.ffn == "moe" for sp in pattern):
@@ -353,39 +470,24 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
             f"width the f32 weights with Adam outgrow one 80 GB card); it "
             f"comes with ROADMAP slice E's expert-parallel layout")
     getw = _make_getw(cfg, ctx)
-    x = _embed_in(cfg, params, batch["tokens"])
+    remat = mode == "train" and cfg.remat
+    enc_out = None
+    if cfg.is_encdec and mode != "decode":
+        enc_out = _encode(cfg, params, batch, getw, remat)
     # ``s`` is the f32 residual sum ``x`` was rounded from.  An RMSNorm
     # after a residual add reads ``s``, not ``x``: XLA fuses the add into
     # the norm without rounding it, and the JAX package's tokens follow
     # that.  Only the stacked tree's super-block boundary rounds (JAX
     # carries ``x`` through a lax.scan there); a plan-bound tree is one
     # unrolled graph.  The residual stream itself stays bf16.
-    s = x
-    per_sb = params["blocks"]
-    stacked = not isinstance(per_sb, (list, tuple))
-    nsb = n_superblocks(cfg)
-    remat = mode == "train" and cfg.remat and stacked
-    out_caches = []
-    if stacked:
-        per_sb = _unstack(per_sb, nsb)
-    for j in range(nsb):
-        blk = per_sb[j]
-        kw = dict(mode=mode, caches=caches, j=j, pos=pos, getw=getw,
-                  tables=tables)
-        if remat:
-            x = checkpoint(lambda xj, blk=blk, kw=kw: _superblock(
-                cfg, blk, xj, xj, **kw)[0], x, use_reentrant=False)
-            continue
-        if stacked:
-            s = x
-        x, s, new = _superblock(cfg, blk, x, s, **kw)
-        out_caches.append(new)
+    x, s, out_caches = _run_stack(
+        cfg, pattern, params["blocks"], n_superblocks(cfg),
+        _embed_in(cfg, params, batch), mode=mode, caches=caches, pos=pos,
+        getw=getw, tables=tables, enc_out=enc_out, remat=remat)
     if mode == "train":
         caches = None
     elif caches is None:
         caches = _stack(out_caches)
-    if stacked:
-        s = x
     x = blocks.rmsnorm(s, params["final_norm"], cfg.norm_eps).to(x.dtype)
     if logits_mode == "hidden":
         return x, caches
@@ -504,23 +606,34 @@ def _mamba_state(cfg: ArchConfig, nsb: int, batch: int, dev) -> dict:
                      "c": mk(k1, cfg.ssm_state)}}
 
 
-def _cache_tree(cfg: ArchConfig, batch: int, kv_shape: tuple, dev):
+def _cache_tree(cfg: ArchConfig, batch: int, kv_shape: tuple, dev,
+                enc_len: int = 0):
     nsb = n_superblocks(cfg)
-    return {f"l{i}": {"mamba": _mamba_state(cfg, nsb, batch, dev)}
-            if spec.mixer == "mamba" else {"kv": {
-                k: torch.zeros((nsb,) + kv_shape, dtype=torch.bfloat16,
-                               device=dev) for k in ("k", "v")}}
-            for i, spec in enumerate(block_pattern(cfg))}
+
+    def kv(shape):
+        return {k: torch.zeros((nsb,) + shape, dtype=torch.bfloat16,
+                               device=dev) for k in ("k", "v")}
+
+    out = {}
+    for i, spec in enumerate(block_pattern(cfg)):
+        c = {"mamba": _mamba_state(cfg, nsb, batch, dev)} \
+            if spec.mixer == "mamba" else {"kv": kv(kv_shape)}
+        if spec.cross:
+            c["cross_kv"] = kv((batch, enc_len, cfg.hkv_eff, cfg.head_dim))
+        out[f"l{i}"] = c
+    return out
 
 
-def init_caches(cfg: ArchConfig, batch: int, seq_len: int, device=None):
+def init_caches(cfg: ArchConfig, batch: int, seq_len: int, enc_len: int = 0,
+                device=None):
     """Dense caches stacked ``(n_superblocks, batch, ...)`` per pattern
     slot: bf16 KV ``(nsb, batch, seq_len, Hkv, D)`` for an attention
-    layer, the per-slot state of :func:`_mamba_state` for a Mamba-2
-    one."""
+    layer, the per-slot state of :func:`_mamba_state` for a Mamba-2 one,
+    and for an enc-dec cross layer bf16 ``cross_kv`` ``(nsb, batch,
+    enc_len, Hkv, D)``."""
     return _cache_tree(cfg, batch,
                        (batch, seq_len, cfg.hkv_eff, cfg.head_dim),
-                       resolve_device(device))
+                       resolve_device(device), enc_len)
 
 
 def init_paged_caches(cfg: ArchConfig, batch: int, page_size: int,
@@ -528,7 +641,10 @@ def init_paged_caches(cfg: ArchConfig, batch: int, page_size: int,
     """Paged KV pools ``(nsb, n_pages + 1, page_size, Hkv, D)`` per
     attention slot, bf16 zeros; physical page 0 is the reserved null page.
     SSM state is O(1) per request and keeps the dense per-slot layout
-    ``(nsb, batch, ...)``."""
+    ``(nsb, batch, ...)``.  Decoder-only: an enc-dec stack raises, as in
+    the reference."""
+    if cfg.is_encdec:
+        raise NotImplementedError("paged caches are decoder-only")
     return _cache_tree(cfg, batch,
                        (n_pages + 1, page_size, cfg.hkv_eff, cfg.head_dim),
                        resolve_device(device))
@@ -542,7 +658,8 @@ def _n_layers(cfg: ArchConfig, mamba: bool) -> int:
 
 def kv_bytes_per_token(cfg: ArchConfig) -> int:
     """Bytes of KV cache one token position pins across all attention
-    layers (0 for pure-SSM architectures)."""
+    layers (0 for pure-SSM architectures; an enc-dec stack's self
+    attention only, as the reference counts)."""
     return 2 * _n_layers(cfg, False) * cfg.hkv_eff * cfg.head_dim * 2
 
 
@@ -555,7 +672,8 @@ def ssm_bytes_per_slot(cfg: ArchConfig) -> int:
 
 
 def dense_cache_bytes(cfg: ArchConfig, batch: int, seq_len: int) -> int:
-    """Total bytes :func:`init_caches` pins for a dense decode pool."""
+    """Total bytes :func:`init_caches` pins for a dense decode pool (with
+    ``enc_len`` 0, as the reference counts)."""
     return (kv_bytes_per_token(cfg) * seq_len + ssm_bytes_per_slot(cfg)) \
         * batch
 

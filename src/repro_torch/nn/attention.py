@@ -117,8 +117,9 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      chunked: bool = False, cap: float = 0.0
                      ) -> torch.Tensor:
     """One-token attention. q: (B, 1, H, D); cache: (B, S, Hkv, D);
-    pos: () shared index of the current token, or (B,) per-slot
-    indices."""
+    pos: () shared index of the current token, (B,) per-slot indices, or
+    None to attend over every cached position (a cross attention's
+    encoder K/V) with no mask."""
     b, s, hkv, d = cache_k.shape
     h = q.shape[2]
     k = repeat_kv(cache_k, h // hkv)
@@ -126,6 +127,9 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
                           k.float()) / math.sqrt(d)
     logits = softcap(logits, cap)
+    if pos is None:
+        p = torch.softmax(logits, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
     pos_k = torch.arange(s, device=q.device)
     posv = torch.as_tensor(pos, device=q.device)
     pos_b = posv[None] if posv.dim() == 0 else posv         # (1,) or (B,)

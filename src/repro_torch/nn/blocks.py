@@ -1,6 +1,7 @@
-"""Building blocks of the dense, MoE and pure-SSM families (a subset of
-``repro.nn.blocks``): linear (dense or plan-quantized), RMSNorm, RoPE,
-softcap, attention (dense and paged, prefill and decode), the SwiGLU FFN,
+"""Building blocks of the dense, MoE, pure-SSM and enc-dec families (a
+subset of ``repro.nn.blocks``): linear (dense or plan-quantized), RMSNorm,
+RoPE, softcap, attention (dense and paged, prefill and decode; causal,
+windowed, bidirectional and cross), the SwiGLU FFN,
 the top-k MoE with capacity-based token dropping (single device) and the
 Mamba-2 SSD mixer, whose prefill runs its inter-chunk recurrence on
 kernel K5 (``kernels/ssd_scan``).  The dtype flow mirrors the JAX
@@ -30,9 +31,14 @@ __all__ = ["linear", "rmsnorm", "rope", "softcap", "_repeat_kv",
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
     """y[..., n] = x[..., k] @ w[k, n]; ``w`` is a dense tensor or a
-    :class:`~repro_torch.nn.quantized.PackedLinear` (plan-quantized)."""
+    :class:`~repro_torch.nn.quantized.PackedLinear` (plan-quantized).
+    Operands of two dtypes are promoted first, as ``jnp.einsum`` does
+    (the cross attention's bf16 activations against f32 masters)."""
     if isinstance(w, nnq.PackedLinear):
         return w(x)
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
     return xla.matmul(x, w)
 
 
@@ -82,8 +88,9 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, lens, *,
 
 def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
                     mode: str = "prefill", cache=None, pos=None,
-                    effective_w=None, tables=None):
-    """kind: full | local | chunked.  mode: train | prefill | decode.
+                    kv_input=None, effective_w=None, tables=None):
+    """kind: full | local | chunked | bidir | cross.  mode: train |
+    prefill | decode.
 
     Returns (y, new_cache); train mode takes and returns no cache.  Dense: cache = {"k","v"} of (B, S, Hkv, D);
     prefill returns the prompt's K/V as the new cache, decode writes the
@@ -95,19 +102,43 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
     dropped), and attention reads the pool in place.  Every cache write
     is an in-place ``index_put_`` on the pool tensors -- the JAX package
     got the same effect by donating the cache tree to its jitted step.
+
+    ``bidir`` (the encoder) is full attention without the causal mask.
+    ``cross`` takes no rope: train and prefill attend over the keys and
+    values of ``kv_input`` (the encoder's output; prefill returns them as
+    the new cache), decode over the cached ones (every position).
     """
-    if kind not in ("full", "local", "chunked"):
-        raise NotImplementedError(
-            f"attention kind {kind!r} (bidir/cross attention for enc-dec "
-            f"comes with ROADMAP slice C3)")
+    if kind not in ("full", "local", "chunked", "bidir", "cross"):
+        raise ValueError(f"unknown attention kind {kind!r}")
     b, s, _ = x.shape
     h, hkv, hd = cfg.h_eff, cfg.hkv_eff, cfg.head_dim
     getw = effective_w or (lambda pp: pp["w"])
     q = linear(x, getw(p["wq"])).reshape(b, s, h, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    if kind == "cross":
+        if mode == "decode":
+            # the encoder's K/V, cached at prefill; the step's own
+            # projections of the encoder output are never read
+            new_cache = cache
+            out = decode_attention(q, cache["k"], cache["v"], None,
+                                   cap=cfg.attn_softcap)
+        elif mode in ("prefill", "train"):
+            skv = kv_input.shape[1]
+            kk = linear(kv_input, getw(p["wk"])).reshape(b, skv, hkv, hd)
+            vv = linear(kv_input, getw(p["wv"])).reshape(b, skv, hkv, hd)
+            if cfg.qk_norm:
+                kk = rmsnorm(kk, p["k_norm"], cfg.norm_eps)
+            out = flash_attention(q, kk, vv, causal=False,
+                                  cap=cfg.attn_softcap)
+            new_cache = {"k": kk, "v": vv} if mode == "prefill" else None
+        else:
+            raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
+                             f"got {mode!r}")
+        return linear(out.reshape(b, s, h * hd), getw(p["wo"])), new_cache
     kk = linear(x, getw(p["wk"])).reshape(b, s, hkv, hd)
     vv = linear(x, getw(p["wv"])).reshape(b, s, hkv, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         kk = rmsnorm(kk, p["k_norm"], cfg.norm_eps)
     window = cfg.local_window if kind in ("local", "chunked") else 0
     chunked = kind == "chunked"
@@ -168,8 +199,9 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
                 q, cache["k"], cache["v"], tables, lens_b.to(torch.int32),
                 window=window, chunked=chunked, cap=cfg.attn_softcap)
         else:
-            out = flash_attention(q, kk, vv, causal=True, window=window,
-                                  chunked=chunked, cap=cfg.attn_softcap)
+            out = flash_attention(q, kk, vv, causal=kind != "bidir",
+                                  window=window, chunked=chunked,
+                                  cap=cfg.attn_softcap)
             new_cache = {"k": kk, "v": vv} if mode == "prefill" else None
     else:
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "

@@ -113,10 +113,12 @@ class CacheBackend:
         raise NotImplementedError
 
     def bind_metrics(self, registry):
-        """No-op until the observability layer is ported (ROADMAP D1)."""
+        """No-op until the observability layer is ported (ROADMAP D12
+        (obs))."""
 
     def publish_metrics(self):
-        """No-op until the observability layer is ported (ROADMAP D1)."""
+        """No-op until the observability layer is ported (ROADMAP D12
+        (obs))."""
 
     def shrink_pool(self, n_pages: int) -> int:
         """Withhold up to ``n_pages`` free pages (page-pool pressure);
@@ -140,7 +142,7 @@ class DenseCache(CacheBackend):
 
     def __init__(self, cfg, max_batch: int, max_len: int, device):
         super().__init__(cfg, max_batch, max_len, device)
-        self.caches = lm.init_caches(cfg, max_batch, max_len, device)
+        self.caches = lm.init_caches(cfg, max_batch, max_len, device=device)
         self._bytes = lm.dense_cache_bytes(cfg, max_batch, max_len)
         self._live_tokens = 0
         self._peak_tokens = 0

@@ -155,8 +155,11 @@ class InferenceServer:
     projection to bit-packed quantized execution.  ``cache="paged"``
     serves from a page pool with block tables, memory-aware admission and
     preemption on pool exhaustion.  Runs on ``device`` (default ``cuda``;
-    raises when there is none).  ``obs`` is accepted only as None until
-    the observability layer is ported (ROADMAP D1).
+    raises when there is none).  Decoder-only token-frontend
+    architectures only, as in the reference: enc-dec and the vision /
+    audio frontends need prompt-side encoders the request schema does not
+    carry.  ``obs`` is accepted only as None until the observability
+    layer is ported (ROADMAP D12 (obs)).
     """
 
     def __init__(self, cfg, params, plan=None, *, max_len: int = 512,
@@ -166,8 +169,13 @@ class InferenceServer:
                  sample_on_device: bool = True, obs=None, device=None):
         if obs is not None:
             raise NotImplementedError(
-                "observability is not ported yet (ROADMAP D1); pass "
+                "observability is not ported yet (ROADMAP D12 (obs)); pass "
                 "obs=None")
+        if cfg.is_encdec or cfg.frontend != "none":
+            raise NotImplementedError(
+                f"InferenceServer serves decoder-only token-frontend "
+                f"architectures; got {cfg.name} (family={cfg.family}, "
+                f"frontend={cfg.frontend})")
         lm.block_pattern(cfg)            # raises for unported families
         self.device = resolve_device(device)
         self.cfg = cfg

@@ -185,7 +185,7 @@ _LM_PHASE = _LMSearchPhase()
 
 def _obs_not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP item 12, obs); run without it")
+        f"{what} is not ported yet (ROADMAP D12 (obs)); run without it")
 
 
 # ---------------------------------------------------------------------------

@@ -153,7 +153,7 @@ def test_corrupt_newest_checkpoint_falls_back_to_older(tmp_path, reference):
 
 
 def test_registry_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP D12"):
         _comp().run([tph.Warmup(steps=1)], registry=object())
 
 

@@ -534,6 +534,63 @@ def test_paged_prefill_moe_groups_vs_plain(cuda, dtype, h, hkv):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# qwen2-vl-72b: 64 query heads over 8 KV heads (G = 8), head dim 128, and
+# its projections (K, N): wq / wo, wk / wv, w_gate / w_up, w_down (29568 =
+# 231 x 128; a plan's precision groups split it raggedly, the tile tests
+# above hold ragged N)
+VLM_K1 = [(8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192)]
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("k,n", VLM_K1)
+@pytest.mark.parametrize("m", [8, 2048])
+def test_quant_matmul_vlm_shapes_bitwise(cuda, m, k, n, bits):
+    """K1 at qwen2-vl's full widths, the decode layout (M = 8) and the
+    tiles (M = 2048): bitwise against the int32-exact plain version."""
+    xq, wq, sw, sx = _k1_operands(cuda, m, k, n, bits, seed=m + k + n)
+    got = qops.quant_matmul(xq, qref.pack_weights(wq, bits), sw, sx,
+                            w_bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qref.quant_matmul_ref(xq, wq, sw, sx))
+
+
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+def test_paged_decode_vlm_group_vs_plain(cuda, dtype):
+    """K2 at G = 8, D = 128, pages of 16, slots of 1 to 1040 tokens, a
+    freed slot, a NaN null page and poisoned tails: within 2e-5 (f32) /
+    1e-2 (bf16) of its plain version, the freed slot exactly zero."""
+    dt, tol = K2_DTYPES[dtype]
+    lens = (1040, 17, 1, 0, 600, 16)
+    rng = np.random.default_rng(64)
+    case = make_case(rng, lens, h=64, hkv=8, hd=128, ps=16, n_pb=66,
+                     poison_null=True, poison_tail=7.0)
+    args = _on(cuda, case, dt)
+    got = pops.paged_attention_fwd(*args)
+    torch.cuda.synchronize()
+    want = pops.paged_attention_ref(*args)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+
+
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+def test_paged_prefill_vlm_group_vs_plain(cuda, dtype):
+    """K3 at G = 8, D = 128, prompts of 400, 257 and 33 tokens padded to
+    400 rows: within 2e-5 (f32) / 1e-2 (bf16) of its plain version on
+    every row, and finite."""
+    dt, tol = K2_DTYPES[dtype]
+    lens, s = (400, 257, 33), 400
+    rng = np.random.default_rng(65)
+    q, k, v, t, _ = make_case(rng, lens, h=64, hkv=8, hd=128, ps=16,
+                              n_pb=s // 16, poison_null=True, s=s)
+    args = _on(cuda, (q, k, v, t, np.asarray(lens, np.int32)), dt)
+    got = pops.paged_prefill_fwd(*args)
+    torch.cuda.synchronize()
+    want = pops.paged_prefill_ref(*args)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_moe_layer_card_vs_cpu(cuda):
     """``blocks.moe_layer`` on the card against the same call on the CPU
     (bf16 weights, 16 experts, top-1, a shared FFN, 2 x 24 tokens): the
@@ -663,6 +720,9 @@ K4_RAGGED_TILES = [(1, 4), (9, 8), (13, 64), (3, 256), (7, 512),
 # mamba2-780m's projections as K4 takes them (rows x K): in_z / in_x and
 # out_proj ring-sized, in_b / in_c and in_dt on the simple kernels
 K4_MAMBA = [(3072, 1536), (1536, 3072), (128, 1536), (48, 1536)]
+# seamless-m4t-medium's projections that reach K4 (rows x K): the
+# attention's 1024 x 1024, w_gate / w_up 4096 x 1024, w_down 1024 x 4096
+K4_SEAMLESS = [(1024, 1024), (4096, 1024), (1024, 4096)]
 
 
 def _k4_case(dev, m, k, pw, seed):
@@ -695,7 +755,8 @@ def _k4_check_bwd(w, probs, up, pw, dw, dprobs):
         assert bool((err <= bound).all()), (p, float((err - bound).max()))
 
 
-@pytest.mark.parametrize("m,k", K4_SHAPES + K4_RAGGED_TILES + K4_MAMBA)
+@pytest.mark.parametrize("m,k", K4_SHAPES + K4_RAGGED_TILES + K4_MAMBA
+                         + K4_SEAMLESS)
 @pytest.mark.parametrize("pw", K4_PWS)
 def test_mps_combine_kernels_precision_sets(cuda, pw, m, k):
     """The forward bit for bit and its absmax exactly; the backward
@@ -1000,7 +1061,7 @@ def test_mamba2_train_layer_card_vs_cpu(cuda):
 
 @pytest.mark.parametrize("k,n", [(64, 16), (64, 128), (128, 64),
                                  (2048, 512), (512, 2048)]
-                         + [(k, m) for m, k in K4_MAMBA])
+                         + [(k, m) for m, k in K4_MAMBA + K4_SEAMLESS])
 def test_mps_combine_channel_last_route(cuda, k, n):
     """``core.mps.effective_weight`` on a (K, C_out) weight -- the LM's
     layout -- runs K4 on its rows under the default context: the
@@ -1053,6 +1114,39 @@ def test_lm_search_step_on_the_card(cuda):
     new, _, loss = step(params, opt.init(params), batch, 0)
     torch.cuda.synchronize()
     n_proj = lm.mps_param_count(cfg) * lm.n_superblocks(cfg)
+    assert (mops.mps_combine_fwd.launches,
+            mops.mps_combine_bwd.launches) == (2 * n_proj, n_proj)
+    assert np.isfinite(float(loss)) and np.isfinite(float(step.grad_norm))
+    assert all(torch.isfinite(t).all() for t in optimizers.tree_leaves(new))
+
+
+def test_encdec_search_step_on_the_card(cuda):
+    """One search step of ``seamless-m4t-medium-smoke`` (remat on) on the
+    card from tokens and encoder frames: finite loss and gradient norm;
+    K4's forward launched twice a projection of the encoder and the
+    decoder's self attention and FFN (the recompute), its backward once;
+    the cross projections take their raw weights and never reach K4."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+    cfg = dataclasses.replace(registry.get("seamless-m4t-medium-smoke"),
+                              remat=True)
+    params = lm.init_params(cfg, device=cuda, mps_on=True)
+    opt = optimizers.make_optimizer("adam", 3e-4)
+    step = steps.make_train_step(cfg, opt, search=True)
+    batch = synthetic.lm_batch(cfg.vocab, 65, 4, 0, device=cuda)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch["enc_embeddings"] = (0.1 * torch.randn(4, 48, cfg.d_model,
+                                                 generator=g, device=cuda)
+                               ).to(torch.bfloat16)
+    mops.mps_combine_fwd.launches = mops.mps_combine_bwd.launches = 0
+    new, _, loss = step(params, opt.init(params), batch, 0)
+    torch.cuda.synchronize()
+    n_proj = 7 * (lm.n_superblocks(cfg) + lm.n_enc_superblocks(cfg))
     assert (mops.mps_combine_fwd.launches,
             mops.mps_combine_bwd.launches) == (2 * n_proj, n_proj)
     assert np.isfinite(float(loss)) and np.isfinite(float(step.grad_norm))

@@ -85,13 +85,58 @@ def test_entry_points_refuse_cpu_fallback():
 
 
 def test_unported_families_name_their_roadmap_item():
+    """Only the hybrid (jamba) is still refused; the enc-dec and VLM
+    families (ROADMAP C3) build (``test_c3_families_build_standalone``)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm
-    for arch, item in (("jamba-1.5-large-398b-smoke", "C1's jamba"),
-                       ("qwen2-vl-72b-smoke", "C3"),
-                       ("seamless-m4t-medium-smoke", "C3")):
+    for arch, item in (("jamba-1.5-large-398b-smoke", "C1's jamba"),):
         with pytest.raises(NotImplementedError, match=item):
             lm.init_params(registry.get(arch), device="cpu")
+
+
+def test_c3_families_build_standalone():
+    """Both C3 smoke arches build and run a prefill on the CPU in a fresh
+    interpreter that has loaded no JAX, no ``repro`` and no CUDA
+    library of the port's kernels."""
+    code = (
+        "import sys, torch\n"
+        "import repro_torch\n"
+        "from repro_torch.configs import registry\n"
+        "from repro_torch.kernels import build\n"
+        "from repro_torch.models import lm\n"
+        "for arch in ('seamless-m4t-medium-smoke', 'qwen2-vl-72b-smoke'):\n"
+        "    cfg = registry.get(arch)\n"
+        "    p = lm.init_params(cfg, device='cpu', mps_on=True)\n"
+        "    tok = torch.zeros((1, 8), dtype=torch.int32)\n"
+        "    logits, _ = lm.forward(cfg, p, {'tokens': tok})\n"
+        "    assert logits.shape == (1, 8, lm.padded_vocab(cfg))\n"
+        "    assert lm.mps_param_count(cfg) == (18 if cfg.is_encdec else 7)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
+        "assert not bad, bad\n"
+        "assert not build._LOADED, build._LOADED\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def test_obs_refusals_name_roadmap_d12():
+    """Every refusal of the unported observability layer names its
+    ROADMAP item, D12 (obs)."""
+    from repro_torch.api import compressor
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    from repro_torch.sweep import runner
+    cfg = registry.get("llama3.2-1b-smoke")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP D12 \(obs\)"):
+        engine.InferenceServer(cfg, lm.init_params(cfg, device="cpu"),
+                               max_len=16, max_batch=1, obs=object(),
+                               device="cpu")
+    comp = compressor.Compressor.__new__(compressor.Compressor)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP D12 \(obs\)"):
+        comp.run([], registry=object())
+    with pytest.raises(NotImplementedError, match=r"ROADMAP D12 \(obs\)"):
+        runner.SweepRunner(None, None, None, registry=object())
 
 
 def test_device_sampling_draws_deterministically():

@@ -52,7 +52,7 @@ def _torch_logits(cfg, params, tokens, cache):
     if cache == "dense":
         logits, pc = steps.make_prefill_step(cfg)(params,
                                                   {"tokens": tok[:, :S0]})
-        caches = tlm.init_caches(cfg, 1, MAX_LEN, "cpu")
+        caches = tlm.init_caches(cfg, 1, MAX_LEN, device="cpu")
         for ln, c in caches.items():
             for k, big in c["kv"].items():
                 big[:, :, :S0] = pc[ln]["kv"][k]

@@ -344,7 +344,7 @@ def test_decode_matches_own_forward(world):
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, size=(b, s)).astype(np.int32))
     full, _ = tlm.forward(cfg, tp, {"tokens": toks}, mode="prefill")
-    caches = tlm.init_caches(cfg, b, s, "cpu")
+    caches = tlm.init_caches(cfg, b, s, device="cpu")
     outs = []
     for i in range(s):
         logits, caches = tlm.decode_step(cfg, tp, {"tokens": toks[:, i:i + 1]},

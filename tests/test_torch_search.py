@@ -303,5 +303,5 @@ def test_compressor_refuses_cpu_fallback_and_checkpoint():
     comp = tcomp.Compressor(g, tsyn.GSC_LIKE, batch=8, device="cpu")
     # checkpoint= is ported (tests/test_torch_compressor_resume.py); the
     # metrics registry is what the Compressor still refuses
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP D12"):
         comp.run([tph.Warmup(steps=1)], registry=object())

@@ -464,7 +464,7 @@ def test_cnn_missing_handoff_message(tmp_path):
 
 def test_runner_obs_sinks_name_their_roadmap_item(tmp_path):
     for kw in (dict(registry=object()), dict(tracer=object())):
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="ROADMAP D12"):
             tsweep.SweepRunner(cnn_spec(), tsweep.PlanStore(str(tmp_path)),
                                str(tmp_path), device="cpu", **kw)
 
@@ -558,4 +558,4 @@ def test_launch_sweep_main_on_the_cpu(tmp_path, capsys):
     assert again["executed"] == 0 and again["loaded"] == 2
     with pytest.raises(SystemExit):
         tlaunch.main(args + ["--metrics", str(tmp_path / "m.prom")])
-    assert "item 12" in capsys.readouterr().err
+    assert "ROADMAP D12" in capsys.readouterr().err

@@ -127,7 +127,7 @@ def port_logits(cfg, params, tokens, s0, cache, max_len=MAX_LEN):
     if cache == "dense":
         logits, pc = steps.make_prefill_step(cfg)(params,
                                                   {"tokens": tok[:, :s0]})
-        caches = tlm.init_caches(cfg, b, max_len, "cpu")
+        caches = tlm.init_caches(cfg, b, max_len, device="cpu")
         for ln, c in caches.items():
             for k, big in c["kv"].items():
                 big[:, :, :s0] = pc[ln]["kv"][k]
@@ -150,3 +150,142 @@ def port_logits(cfg, params, tokens, s0, cache, max_len=MAX_LEN):
                                 tables)
         out.append(logits[:, -1].float().numpy())
     return np.stack(out)
+
+
+# ---------------------------------------------------------------------------
+# enc-dec and VLM (ROADMAP C3): flat trees, greedy streams from any batch
+# ---------------------------------------------------------------------------
+
+def flat(tree, prefix=""):
+    """``{"a/b": numpy}`` of a JAX or port tree."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+    if torch.is_tensor(tree):
+        return {prefix[:-1]: tree.detach().float().numpy()
+                if tree.dtype == torch.bfloat16 else tree.detach().numpy()}
+    return {prefix[:-1]: np.asarray(tree, np.float32)
+            if tree.dtype == jnp.bfloat16 else np.asarray(tree)}
+
+
+def to_torch(a):
+    """A numpy array (ml_dtypes' bfloat16 too) as a CPU tensor."""
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(a)
+
+
+def rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _greedy_rows(logits, vocab):
+    return np.argmax(np.asarray(logits)[:, -1, :vocab], axis=-1).astype(
+        np.int32)
+
+
+def jax_greedy(cfg, params, batch, n_new, max_len, enc_len=0):
+    """A dense prefill of ``batch`` (numpy arrays: ``tokens`` or
+    ``embeddings``, for enc-dec maybe ``enc_embeddings``) through the JAX
+    package (jitted, K1 through its plain reference), its caches copied
+    into ``init_caches(max_len, enc_len)``, then greedy decode.  Returns
+    (tokens (B, n_new), logits (n_new, B, V) f32, the prefill's caches as
+    numpy)."""
+    from repro.models import lm as jlm
+    with jax_k1_plain():
+        prefill = jax.jit(lambda p, b: jlm.forward(
+            cfg, p, b, mode="prefill", logits_mode="last"))
+        decode = jax.jit(lambda p, t, c, pos: jlm.decode_step(
+            cfg, p, {"tokens": t}, c, pos))
+        logits, pc = prefill(params, {k: jnp.asarray(v)
+                                      for k, v in batch.items()})
+        key = "tokens" if "tokens" in batch else "embeddings"
+        b, s = batch[key].shape[:2]
+        caches = jlm.init_caches(cfg, b, max_len, enc_len=enc_len)
+        caches = jax.tree.map(
+            lambda big, small: big.at[:, :, :small.shape[2]].set(
+                small.astype(big.dtype)), caches, pc)
+        out = [np.asarray(logits[:, -1].astype(jnp.float32))]
+        toks = [_greedy_rows(out[-1][:, None], cfg.vocab)]
+        for i in range(n_new - 1):
+            logits, caches = decode(params, jnp.asarray(toks[-1][:, None]),
+                                    caches, jnp.full((b,), s + i, jnp.int32))
+            out.append(np.asarray(logits[:, -1].astype(jnp.float32)))
+            toks.append(_greedy_rows(out[-1][:, None], cfg.vocab))
+    return np.stack(toks, 1), np.stack(out), jax.tree.map(
+        lambda a: np.asarray(a.astype(jnp.float32)) if a.dtype ==
+        jnp.bfloat16 else np.asarray(a), pc)
+
+
+def port_greedy(cfg, params, batch, n_new, max_len, enc_len=0,
+                cache="dense"):
+    """The same through the port on the CPU, from a dense prefill or
+    (``cache="paged"``, decoder-only) a paged one whose prompt is padded
+    to a page boundary, as the server pads it.  Returns (tokens, logits,
+    the dense prefill's caches or None)."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm as tlm
+    tb = {k: to_torch(v) for k, v in batch.items()}
+    key = "tokens" if "tokens" in tb else "embeddings"
+    b, s = tb[key].shape[:2]
+    pc = None
+    with torch.no_grad():
+        if cache == "dense":
+            logits, pc = steps.make_prefill_step(cfg)(params, tb)
+            caches = tlm.init_caches(cfg, b, max_len, enc_len=enc_len,
+                                     device="cpu")
+
+            def put(big, small):
+                if isinstance(big, dict):
+                    for k in big:
+                        put(big[k], small[k])
+                else:
+                    big[:, :, :small.shape[2]] = small.to(big.dtype)
+            put(caches, pc)
+            tables = None
+        else:
+            n = max_len // PAGE
+            caches = tlm.init_paged_caches(cfg, b, PAGE, b * n, "cpu")
+            tables = torch.arange(1, b * n + 1,
+                                  dtype=torch.int32).reshape(b, n)
+            spad = -(-s // PAGE) * PAGE
+            padded = {k: torch.cat([v, torch.zeros(
+                (b, spad - s) + v.shape[2:], dtype=v.dtype)], 1)
+                for k, v in tb.items()}
+            logits, caches = steps.make_paged_prefill_step(cfg)(
+                params, padded, caches, tables[:, :spad // PAGE],
+                torch.full((b,), s, dtype=torch.int32))
+        decode = steps.make_decode_step(cfg)
+        out = [logits[:, -1].float().numpy()]
+        toks = [_greedy_rows(out[-1][:, None], cfg.vocab)]
+        for i in range(n_new - 1):
+            logits, caches = decode(
+                params, {"tokens": torch.as_tensor(toks[-1][:, None])},
+                caches, torch.full((b,), s + i, dtype=torch.int32), tables)
+            out.append(logits[:, -1].float().numpy())
+            toks.append(_greedy_rows(out[-1][:, None], cfg.vocab))
+    return np.stack(toks, 1), np.stack(out), pc
+
+
+def quarter_plans(jcfg, jparams, pw=(0, 2, 4, 8), seed=0):
+    """The same mixed-precision plan in both packages over the JAX tree's
+    plan groups: each group's channels take every precision of ``pw`` in
+    equal shares, shuffled per group from ``seed``.  Groups of one width
+    then share their per-precision row counts, so the JAX package's
+    ``apply_plan`` packs each shape once (a seeded ``synthetic_plan``
+    gives every group its own counts, and packing them there compiles
+    for ~18 s at smoke size)."""
+    from repro.api.plan import CompressionPlan as JPlan
+    from repro.models import lm as jlm
+    from repro_torch.api.plan import CompressionPlan as TPlan
+    rng = np.random.default_rng(seed)
+    gamma = {g: rng.permutation(np.resize(np.asarray(pw), w.shape[0]))
+             .astype(np.int64)
+             for g, w in jlm.serve_weight_groups(jcfg, jparams).items()}
+    assignment = {"gamma": gamma, "delta": {}, "alpha": {}}
+    return (JPlan.from_assignment(assignment, pw, (8,)),
+            TPlan.from_assignment(assignment, pw, (8,)))
