@@ -181,9 +181,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
               4112) timed beside bf16 torch.matmul, and K2 / K3 at G = 8,
               D = 128 (lens up to 4116; 4100 rows padded to 4112) against
               their plain versions, timed beside SDPA.
-15. report -- one JSON line of kernels (with each kernel's launches on
-              paths 8 and 9), the card's name and power limit, and last
-              the JSON status line.
+15. fleet   -- path 10: ``launch.fleet.build_fleet`` serving full-width
+              llama3.2-1b (seed-0 weights, one parameter tree) from four
+              replicas on the card, tiers float / w8 / mixed / w2 (paged,
+              page 16, 8 slots, max_len 1024), behind pareto_degrade: a
+              Poisson trace of 32 requests (prompts 16-512, 16-32 greedy
+              tokens, 300 ms modelled deadlines; at least one routed below
+              the top tier), timed, then again under the profiler (its
+              device busy share: the union of device intervals over run
+              1's wall; the same records), and a burst trace; then chaos
+              with failover (nan_plan on float, crash on w8, slow on
+              mixed, pool pressure on w2, at a virtual time when run 1 had
+              float and w8 busy).  Every request at a terminal; 8 finished
+              streams of run 1 and the burst (two a tier where it finished
+              two) and one a tier of the chaos run (float, struck, left
+              out) equal to their replica's solo serve, every tier that
+              finished a stream among them; the NaN strike quarantines
+              float and counts fault_nan_detected_total; over the three
+              runs (counted around each replica's step, inside the runs
+              only), K1 launched on w8 / mixed / w2 and never on float, K2
+              and K3 on every replica that served; launches and
+              streams of one replica equal with obs attached and with
+              obs=None; the chaos run's metrics and trace pass
+              repro_torch.obs.validate against the port's schema copy.
+              Prints each run's wall seconds, decode steps and tokens,
+              each tier's real wall ms a decode step beside its modelled
+              step_ms (every fleet latency is on the modelled clock), the
+              busy share and peak memory.
+16. report -- one JSON line of kernels (with each kernel's launches on
+              paths 8, 9 and 10), the card's name and power limit, and
+              last the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -1824,11 +1851,11 @@ def _check_logits(server, seen):
     """Hold every logits row the server samples from to be finite."""
     inner = server._sample_rows
 
-    def checked(logits, rows):
+    def checked(logits, rows, *rest):
         if not torch.isfinite(logits[:, :server.cfg.vocab]).all():
             raise AssertionError("non-finite logits in serving")
         seen[0] += logits.shape[0]
-        return inner(logits, rows)
+        return inner(logits, rows, *rest)
 
     server._sample_rows = checked
 
@@ -4094,6 +4121,430 @@ def phase_vlm_attention(dev, flush):
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 10: the multi-replica fleet over plan tiers (ROADMAP D12 + D13)
+# ---------------------------------------------------------------------------
+
+FLEET_ARCH = "llama3.2-1b"
+FLEET_TIERS = ("float", "w8", "mixed", "w2")
+FLEET_KW = dict(max_len=1024, max_batch=8, cache="paged", page_size=16,
+                pages=None, base_step_ms=8.0)
+FLEET_REQUESTS = 32
+FLEET_SOLO = 8                  # finished streams held against solo serves
+
+
+def _fleet_trace(mod, cfg, seed=0):
+    """Run 1's open-loop trace: Poisson arrivals at 100 requests a
+    virtual second, prompts of 16-512 tokens, 16-32 greedy tokens each, a
+    300 ms modelled deadline (tight enough that the float tier's queue
+    pushes requests down the front)."""
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+    trace = mod.poisson_trace(FLEET_REQUESTS, rate_rps=100.0,
+                              vocab=cfg.vocab, prompt_len=16, max_tokens=16,
+                              deadline_ms=300.0, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    for fr in trace:
+        n = int(rng.integers(16, 513))
+        fr.request = Request(
+            uid=fr.uid, prompt=rng.integers(0, cfg.vocab, size=n).astype(
+                np.int32),
+            sampling=SamplingParams(max_tokens=int(rng.integers(16, 33))))
+    return trace
+
+
+class _FleetCounts:
+    """Each kernel's launches, and the engine's decode seconds and decode
+    steps (its ``_step_timing``: gather + step + sampling, which ends in
+    a host copy of the sampled ids), by replica, counted around each
+    replica's ``step`` into ``into`` while it is set.  Every launch of a
+    fleet run happens inside one replica's ``step`` (admissions, decode
+    and warm-up probes alike); ``_fleet_run`` sets ``into`` for its run
+    alone, so the oracle's solo serves and the obs check add nothing."""
+
+    def __init__(self, flt, counters):
+        self.counters = counters
+        self.into = None        # {tier: {kernel: n, "decode_s": s,
+        #                               "decode_steps": n}}
+        for rep in flt.replicas:
+            rep.server.step = self._wrap(rep.tier.name, rep.server)
+
+    def fresh(self, flt):
+        return {rep.tier.name: dict(dict.fromkeys(self.counters, 0),
+                                    decode_s=0.0, decode_steps=0)
+                for rep in flt.replicas}
+
+    def _wrap(self, name, server):
+        inner = server.step
+
+        def step():
+            if self.into is None:
+                return inner()
+            got = self.into[name]
+            before = {k: fn.launches for k, fn in self.counters.items()}
+            t = list(server._step_timing)
+            res = inner()
+            for k, fn in self.counters.items():
+                got[k] += fn.launches - before[k]
+            got["decode_s"] += (server._step_timing[0] - t[0]
+                                + server._step_timing[1] - t[1])
+            got["decode_steps"] += server._step_timing[2] - t[2]
+            return res
+        return step
+
+
+def _fleet_run(flt, trace, label, dev, counts):
+    """One timed fleet run; returns its records, SLO report, wall
+    seconds, each kernel's launches (``launches``), the same by replica
+    with each replica's decode seconds and steps (``by_tier``), decode
+    steps (every replica's, struck sessions too) and tokens."""
+    from repro_torch import fleet as fleet_mod
+    by_tier = counts.fresh(flt)
+    before = {k: fn.launches for k, fn in counts.counters.items()}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    counts.into = by_tier
+    try:
+        records = flt.run(trace)
+        torch.cuda.synchronize(dev)
+    finally:
+        counts.into = None
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches - before[k]
+                for k, fn in counts.counters.items()}
+    report = fleet_mod.slo_report(flt, records)
+    open_ = {u: r.status for u, r in records.items() if r.status in (
+        "queued", "running", "retrying")}
+    if len(records) != len(trace) or open_:
+        raise AssertionError(f"fleet {label}: {len(records)} of "
+                             f"{len(trace)} requests recorded; not at a "
+                             f"terminal: {open_}")
+    steps = sum(g["decode_steps"] for g in by_tier.values())
+    toks = sum(len(r.tokens) for r in records.values()
+               if r.tokens is not None)
+    log(f"[fleet] {label}: {len(records)} requests, {report['status']}, "
+        f"{report['degraded']} degraded, {report['retries']} retries; "
+        f"{steps} decode steps, {toks} tokens in {wall:.2f} s wall; "
+        f"modelled (virtual clock) attainment "
+        f"{report['deadline_attainment']}, ttft p50 "
+        f"{report['ttft_ms']['p50']} ms, p99 {report['ttft_ms']['p99']} ms")
+    return dict(records=records, report=report, wall=wall, steps=steps,
+                tokens=toks, launches=launches, by_tier=by_tier)
+
+
+def _stream(r):
+    return (r.status, r.replica,
+            None if r.tokens is None else r.tokens.tolist())
+
+
+def _fleet_busy(flt, trace, run1, dev, counts):
+    """Run 1's trace again under ``torch.profiler`` (CUDA activity):
+    the records must equal run 1's (status, replica, tokens), and the
+    union of the device's kernel, copy and set intervals over run 1's
+    unprofiled wall time is run 1's busy share.  The profiler's raw
+    kineto events are read directly: ``key_averages`` builds an event
+    tree of the run's ~500,000 operations, which took minutes."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = _fleet_run(flt, trace, "run 1 again, under the profiler",
+                           dev, counts)
+    t0 = time.perf_counter()
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy_ns, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_ns += b - a
+            end = b
+        elif b > end:
+            busy_ns += b - end
+            end = b
+    diff = [u for u, r in run1["records"].items()
+            if _stream(r) != _stream(again["records"][u])]
+    if diff:
+        raise AssertionError(f"fleet: run 1 under the profiler differs "
+                             f"from run 1 at uids {diff}")
+    if not spans:
+        raise AssertionError("fleet: the profiler recorded no device "
+                             "operation over run 1")
+    busy = 1e-9 * busy_ns / run1["wall"]
+    log(f"[fleet] run 1 device busy {100 * busy:.1f}%: "
+        f"{1e-9 * busy_ns:.3f} s of device time (the union of "
+        f"{len(spans)} kernel / copy / set intervals in a profiled repeat "
+        f"of run 1 with equal records) over run 1's unprofiled "
+        f"{run1['wall']:.2f} s wall; {100e-9 * busy_ns / again['wall']:.1f}"
+        f"% of the profiled repeat's {again['wall']:.2f} s (events read "
+        f"in {time.perf_counter() - t0:.1f} s)")
+    return busy
+
+
+def _fleet_oracle(flt, runs, per_tier, total=0, skip=()):
+    """Hold finished streams of ``runs`` against the same request served
+    alone on the replica that finished it (the reference's oracle): the
+    first ``per_tier`` of each tier, then more up to ``total`` in all,
+    tiers in ``skip`` left out.  Returns ``{tier: streams checked}``."""
+    fin = [r for run in runs for r in run["records"].values()
+           if r.status == "finished" and r.replica not in skip]
+    picked = {}
+    for r in fin:
+        got = picked.setdefault(r.replica, [])
+        if len(got) < per_tier:
+            got.append(r)
+    taken = {id(r) for got in picked.values() for r in got}
+    rest = [r for r in fin if id(r) not in taken]
+    picked[None] = rest[:max(0, total - sum(map(len, picked.values())))]
+    for r in picked.pop(None):
+        picked[r.replica].append(r)
+    for tier, recs in picked.items():
+        server = flt.replica_by_name(tier).server
+        for r in recs:
+            alone = server.serve([r.fr.request])[r.fr.uid]
+            if alone.tolist() != r.tokens.tolist():
+                raise AssertionError(
+                    f"fleet: uid {r.fr.uid} on {tier}: fleet stream "
+                    f"{r.tokens.tolist()} != solo {alone.tolist()}")
+    return {t: len(v) for t, v in picked.items()}
+
+
+def _chaos_window(records, tiers):
+    """A virtual time at which run 1 had work in flight on the float and
+    w8 replicas (the nan_plan and crash targets), and on as many others
+    as possible: the faults then strike replicas that step."""
+    spans = {t: [] for t in tiers}
+    for r in records.values():
+        a = r.attempts[-1]
+        if r.status == "finished":
+            spans[a.tier].append((a.t_start, r.finish_ms))
+    best = None
+    for t0, t1 in spans["float"]:
+        t = 0.5 * (t0 + t1)
+        busy = [name for name, sp in spans.items()
+                if any(a < t < b for a, b in sp)]
+        if "w8" in busy and (best is None or len(busy) > best[1]):
+            best = (t, len(busy))
+    if best is None:
+        counts = {k: len(v) for k, v in spans.items()}
+        raise AssertionError(f"fleet: run 1 never had float and w8 busy at "
+                             f"once (finished requests by tier {counts})")
+    return best[0]
+
+
+def phase_fleet(dev, counters, smi):
+    """Path 10: ``launch.fleet.build_fleet`` serving full-width
+    llama3.2-1b (random weights, seed 0) from four replicas on the one
+    card -- tiers float, w8, mixed, w2 built from one parameter tree --
+    paged (page 16), 8 slots, max_len 1024.  Run 1: pareto_degrade over
+    a Poisson trace of 32 requests (prompts 16-512, 16-32 greedy tokens,
+    300 ms modelled deadlines), timed, then again under the profiler for
+    the device busy share (the same records); a burst trace.  Run 2:
+    chaos (nan_plan on float, crash on w8, slow on mixed, pool pressure
+    on w2, all while run 1 had float and w8 busy) with failover.  Gates:
+    every request at a terminal; finished streams of every tier that
+    finished one (two a tier from run 1 and the burst, and from run 2 on
+    every tier but the struck float) equal their replica's solo serve;
+    the nan_plan strike quarantines float and counts
+    ``fault_nan_detected_total``; over the three runs, K1 on w8 / mixed
+    / w2 and never on float, K2 and K3 on every replica that served; one
+    replica's launches and streams equal with obs attached and detached;
+    the metrics and trace written pass ``repro_torch.obs.validate``.
+    Launches and decode times are counted inside the three runs only."""
+    import shutil
+    import tempfile
+    from repro_torch import fleet as fleet_mod
+    from repro_torch.chaos import ChaosInjector, parse_chaos
+    from repro_torch.configs import registry
+    from repro_torch.launch import fleet as fleet_launch
+    from repro_torch.models import lm
+    from repro_torch.obs import (Observability, validate, write_prometheus)
+
+    cfg = registry.get(FLEET_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    flt = fleet_launch.build_fleet(cfg, params, list(FLEET_TIERS),
+                                   policy="pareto_degrade", device=dev,
+                                   **FLEET_KW)
+    torch.cuda.synchronize(dev)
+    log(f"[fleet] {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab}): {len(flt.replicas)} replicas built from one "
+        f"parameter tree in {time.perf_counter() - t0:.2f} s: " + ", ".join(
+            f"{r.tier.name} {r.tier.quality:.2f} bits, modelled step "
+            f"{r.tier.step_ms:.3f} ms" for r in flt.replicas))
+    counts = _FleetCounts(flt, counters)
+
+    def per_step(runs):
+        out = {}
+        for name in FLEET_TIERS:
+            s = sum(run["by_tier"][name]["decode_s"] for run in runs)
+            k = sum(run["by_tier"][name]["decode_steps"] for run in runs)
+            out[name] = (1e3 * s / k if k else None, k,
+                         flt.replica_by_name(name).tier.step_ms)
+        return out
+
+    def per_step_log(steps):
+        return "; ".join(f"{n} {ms:.2f} ms over {k} steps vs modelled "
+                         f"{m:.3f} ms" if k else f"{n} no decode step"
+                         for n, (ms, k, m) in steps.items())
+
+    run1 = _fleet_run(flt, _fleet_trace(fleet_mod, cfg),
+                      "run 1 (poisson, pareto_degrade)", dev, counts)
+    if run1["report"]["degraded"] < 1:
+        raise AssertionError("fleet run 1: no request was routed below the "
+                             "top tier")
+    log(f"[fleet] run 1: real wall ms a decode step (the engine's gather + "
+        f"step + sampling) beside the modelled step_ms: "
+        + per_step_log(per_step([run1])))
+    busy = _fleet_busy(flt, _fleet_trace(fleet_mod, cfg), run1, dev, counts)
+
+    burst = fleet_mod.burst_trace(4, 8, burst_every_ms=250.0,
+                                  vocab=cfg.vocab, prompt_len=256,
+                                  max_tokens=24, deadline_ms=600.0, seed=2,
+                                  uid0=1000)
+    run_b = _fleet_run(flt, burst, "burst (4 x 8, pareto_degrade)", dev,
+                       counts)
+    # the oracle before any fault: two finished streams a tier, eight in
+    # all
+    checked = _fleet_oracle(flt, (run1, run_b), 2, total=FLEET_SOLO)
+
+    t_f = _chaos_window(run1["records"], FLEET_TIERS)
+    n_pages = flt.replica_by_name("w2").server.backend.n_pages
+    spec = (f"nan_plan@{t_f:.3f}-{t_f + 250:.3f}:float+"
+            f"crash@{t_f:.3f}-{t_f + 250:.3f}:w8+"
+            f"slow@{t_f:.3f}-{t_f + 400:.3f}:x4:mixed+"
+            f"pool_pressure@{t_f:.3f}-{t_f + 300:.3f}:p{n_pages - 48}:w2")
+    sched = parse_chaos(spec, targets=list(FLEET_TIERS), seed=0)
+    flt.chaos = ChaosInjector(sched)
+    flt.failover = True
+    reg = flt.registry
+    nan0 = reg.counter("fault_nan_detected_total").value()
+    strikes = []
+    strike = flt._strike
+
+    def struck(rep, now, records, kind):
+        strike(rep, now, records, kind)
+        strikes.append((rep.tier.name, kind, now,
+                        flt.health.state(rep.tier.name)))
+    flt._strike = struck
+    try:
+        run2 = _fleet_run(flt, _fleet_trace(fleet_mod, cfg),
+                          "run 2 (chaos, failover)", dev, counts)
+    finally:
+        del flt._strike
+    delivered = len(flt.chaos.delivered)
+    flt.chaos = None
+    nan = reg.counter("fault_nan_detected_total").value() - nan0
+    float_kinds = [e.kind for e in
+                   flt.replica_by_name("float").server.obs.tracer.events]
+    causes = [a.cause for r in run2["records"].values() for a in r.attempts]
+    if nan < 1 or "quarantined" not in float_kinds or not any(
+            s[:2] == ("float", "quarantined") for s in strikes):
+        raise AssertionError(f"fleet chaos: nan_plan on float counted "
+                             f"{nan} NaN detections; strikes {strikes}; "
+                             f"float's events {sorted(set(float_kinds))}")
+    if not any(c.startswith("recovered:") for c in causes):
+        raise AssertionError("fleet chaos: no request was recovered")
+    # a stream that finished on the same tier in both runs is the same
+    same = [u for u, r in run2["records"].items()
+            if r.status == "finished"
+            and run1["records"][u].status == "finished"
+            and run1["records"][u].replica == r.replica]
+    for u in same:
+        if run2["records"][u].tokens.tolist() != \
+                run1["records"][u].tokens.tolist():
+            raise AssertionError(f"fleet chaos: uid {u} on "
+                                 f"{run2['records'][u].replica} differs "
+                                 f"from run 1")
+    # the metrics and trace of run 2 through the port's validator (before
+    # the solo serves below add their own events)
+    tmp = tempfile.mkdtemp(prefix="fleet_obs_")
+    try:
+        m, t = os.path.join(tmp, "fleet.prom"), os.path.join(tmp,
+                                                             "fleet.jsonl")
+        write_prometheus(reg, m)
+        flt.write_trace(t)
+        errors = validate.validate_files(m, t, validate.SCHEMA_PATH)
+        if errors:
+            raise AssertionError(f"fleet obs artifacts: {errors[:5]}")
+        n_ev = len(flt.trace_events())
+        log(f"[fleet] run 2's metrics ({len(reg.snapshot())} families) and "
+            f"trace ({n_ev} events) pass repro_torch.obs.validate against "
+            f"the port's schema copy")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # run 2's streams against solo serves, on every tier but float (its
+    # poisoned step left NaN K/V in its pages)
+    after = _fleet_oracle(flt, (run2,), 1, skip=("float",))
+    finished = {r.replica for run in (run1, run_b, run2)
+                for r in run["records"].values() if r.status == "finished"}
+    if finished - set(checked) - set(after):
+        raise AssertionError(f"fleet: tiers {sorted(finished)} finished "
+                             f"streams; held against solo serves: before "
+                             f"the faults {checked}, after {after}")
+    log(f"[fleet] chaos: {spec}; {delivered} fault events delivered, NaN "
+        f"detections {int(nan)}; strikes (tier, kind, virtual ms, health "
+        f"right after): {strikes}; "
+        f"{sum(c.startswith('recovered:') for c in causes)} recovered "
+        f"attempts; {len(same)} streams that finished on the same tier as "
+        f"in run 1 are equal; health at the end {flt.health.states()}")
+    log(f"[fleet] finished streams equal to the same request served alone "
+        f"on its replica: {checked} from run 1 and the burst, {after} from "
+        f"run 2 (every tier that finished a stream: {sorted(finished)})")
+
+    runs = (run1, run_b, run2)
+    steps = per_step(runs)
+    log("[fleet] real wall ms a decode step over the three runs, beside "
+        "the modelled step_ms: " + per_step_log(steps))
+    by_tier = {name: {k: sum(run["by_tier"][name][k] for run in runs)
+                      for k in counters} for name in FLEET_TIERS}
+    total = {k: sum(run["launches"][k] for run in runs) for k in counters}
+    for name, got in by_tier.items():
+        served = sum(1 for run in runs for r in run["records"].values()
+                     if any(a.tier == name for a in r.attempts))
+        if name == "float" and got["quant_matmul"] != 0:
+            raise AssertionError(f"fleet: K1 launched {got['quant_matmul']} "
+                                 f"times on the float replica")
+        if name != "float" and got["quant_matmul"] == 0:
+            raise AssertionError(f"fleet: K1 never launched on {name}")
+        if served and (got["paged_attention"] == 0
+                       or got["paged_prefill"] == 0):
+            raise AssertionError(f"fleet: {name} served {served} requests "
+                                 f"with launches {got}")
+    log(f"[fleet] launches by replica over the three runs: "
+        + "; ".join(f"{n}: K1 {g['quant_matmul']}, K2 "
+                    f"{g['paged_attention']}, K3 {g['paged_prefill']}"
+                    for n, g in by_tier.items())
+        + f"; in all: K1 {total['quant_matmul']}, K2 "
+        f"{total['paged_attention']}, K3 {total['paged_prefill']}")
+
+    # obs attached vs detached: one replica, the same requests
+    rep = flt.replica_by_name("w8")
+    reqs = [r.fr.request for r in list(run1["records"].values())[:4]]
+    seen = {}
+    for label, obs in (("obs", Observability()), ("no obs", None)):
+        rep.server.attach_obs(obs)
+        torch.cuda.synchronize(dev)
+        before = {k: f.launches for k, f in counters.items()}
+        out = rep.server.serve(reqs)
+        torch.cuda.synchronize(dev)
+        seen[label] = ({k: f.launches - before[k]
+                        for k, f in counters.items()},
+                       {u: v.tolist() for u, v in out.items()})
+    if seen["obs"] != seen["no obs"]:
+        raise AssertionError(f"fleet: w8 with obs {seen['obs'][0]} vs "
+                             f"without {seen['no obs'][0]}")
+    log(f"[fleet] w8 serving 4 requests: launches {seen['obs'][0]} and "
+        f"streams equal with obs attached and with obs=None; {smi}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[fleet] wall s: run 1 {run1['wall']:.2f}, burst "
+        f"{run_b['wall']:.2f}, chaos {run2['wall']:.2f}; peak memory "
+        f"{peak:.2f} GiB (torch.cuda.max_memory_allocated)")
+    return dict(launches=total, by_tier=by_tier, busy=busy,
+                per_step=steps, walls=(run1["wall"], run_b["wall"],
+                                       run2["wall"]), peak=peak)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4186,6 +4637,7 @@ def main():
     encdec = path("path 8 (seamless train)", phase_train_encdec, dev,
                   counters, smi)
     vlm = path("path 9 (qwen2-vl serve)", phase_vlm, dev, counters, smi)
+    fleet = path("path 10 (fleet)", phase_fleet, dev, counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -4229,6 +4681,10 @@ def main():
                        launches_float=runs["float"][k], path="serve")
             if k == "paged_prefill":
                 row.update(logits_vs_dense=runs["paged_vs_dense"])
+            # path 10: the fleet's three runs, in all and by replica
+            row.update(launches_fleet=fleet["launches"][k],
+                       launches_fleet_by_tier={
+                           t: g[k] for t, g in fleet["by_tier"].items()})
             row.update(launches_train_plan=trained["served"][k],
                         launches_sweep_plan=swept["served"][k])
             for arch, r_moe in moe.items():

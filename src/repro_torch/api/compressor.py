@@ -105,16 +105,22 @@ class Compressor:
 
     def run(self, phases, hooks=(), init_folded=None, checkpoint=None,
             checkpoint_every: int = 50, registry=None) -> CompressionResult:
-        if registry is not None:
-            raise NotImplementedError(
-                "the metrics registry is not ported yet (ROADMAP D12 "
-                "(obs)); run without registry=")
+        """``registry`` (a :class:`repro_torch.obs.MetricsRegistry`)
+        routes the phases' step metrics and timings into the shared
+        observability namespace -- the same registry the serving stack
+        writes into.  Hook-logged step metrics become
+        ``compress_step_value`` / ``compress_step_points_total{phase,
+        metric}`` (idempotent under checkpoint resume when the same
+        registry is reused), and each phase's wall time lands in
+        ``compress_phase_seconds{phase}``."""
         if self.device.type == "cuda":
             layers.full_precision()
         t_start = time.time()
         state = phases_mod.CompressionState(
             graph=self.graph, spec=self.spec, pw=self.pw, px=self.px,
             batch=self.batch, seed=self.seed, device=self.device)
+        if registry is not None and registry.enabled:
+            state.registry = registry
         if init_folded is not None:
             state.folded = tree_map(
                 lambda t: torch.as_tensor(t, device=self.device),
@@ -146,6 +152,12 @@ class Compressor:
             key = f"{phase.name}_s"
             state.timings[key] = state.timings.get(key, 0.0) \
                 + time.time() - t0
+            if state.registry is not None:
+                state.registry.gauge(
+                    "compress_phase_seconds",
+                    "Cumulative wall time spent in a compression phase",
+                    labels=("phase",)).set(state.timings[key],
+                                           phase=phase.name)
             for h in phase_hooks:
                 h.on_phase_end(phase, state)
         if checkpoint is not None:

@@ -138,10 +138,17 @@ class CompressionState:
     acc_final: Optional[float] = None
     timings: dict = dataclasses.field(default_factory=dict)
     metrics: dict = dataclasses.field(default_factory=dict)
+    registry: Any = None        # optional repro_torch.obs.MetricsRegistry
 
     def log_metric(self, phase_name: str, step: int, **values):
         self.metrics.setdefault(phase_name, []).append(
             {"step": int(step), **values})
+        if self.registry is not None:
+            # the registry's per-(phase, metric) step high-water mark
+            # makes this idempotent under checkpoint resume: replayed
+            # steps re-log into self.metrics (rebuilt from scratch) but
+            # are not double-counted in the registry
+            self.registry.emit_phase_point(phase_name, int(step), values)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,10 @@ mixed-precision plan.  Temperature / top-k sampling runs on the device
 samples with the host's numpy generator instead.  ``--profile`` serves
 the same requests once more under ``torch.profiler`` and prints the
 device time by kernel and the device's busy share of that run (CUDA
-only).
+only).  ``--metrics PATH`` / ``--trace PATH`` attach the observability
+layer and write the Prometheus metrics and the per-request lifecycle
+trace (JSON lines) that ``python -m repro_torch.obs.validate`` checks --
+the JAX package's names, labels and event grammar.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.obs import Observability, write_prometheus, write_trace
 from repro_torch.serve import engine
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import Request
@@ -130,6 +134,12 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="serve the requests once more under "
                          "torch.profiler (CUDA)")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="enable observability and write the metrics "
+                         "registry in Prometheus text format to PATH")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="enable observability and write the per-request "
+                         "lifecycle trace as JSON lines to PATH")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -142,11 +152,12 @@ def main(argv=None):
     if args.plan is not None:
         plan = _load_plan(args.plan, cfg, params)
         print(f"[serve] quantized decode: {plan.summary()}")
+    obs = Observability() if (args.metrics or args.trace) else None
     server = engine.InferenceServer(
         cfg, params, plan=plan, max_len=args.max_len,
         max_batch=args.max_batch, cache=args.cache,
         page_size=args.page_size, pages=args.pages,
-        sample_on_device=not args.host_sampling, device=device)
+        sample_on_device=not args.host_sampling, obs=obs, device=device)
 
     rng = np.random.default_rng(0)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -183,8 +194,36 @@ def main(argv=None):
     for i in range(min(args.requests, 4)):
         print(f"  req{i}: prompt={[int(t) for t in reqs[i].prompt[:6]]}... "
               f"completion={[int(t) for t in out[i][:8]]}")
+    if obs is not None:
+        _write_obs(server, obs, args)
     if args.profile:
         _profile(server, reqs)
+
+
+def _write_obs(server, obs, args):
+    """Print the traced run's latency summary (host wall clock) and
+    write the requested artifacts."""
+    summary = server.metrics_snapshot().get("summary", {})
+    if summary:
+        ttft = summary["ttft_s"]
+        tok = summary["token_latency_s"]
+        fmt = lambda v: "n/a" if v is None else f"{v * 1e3:.1f}ms"
+        print(f"[obs] ttft p50={fmt(ttft['p50'])} "
+              f"p95={fmt(ttft['p95'])} p99={fmt(ttft['p99'])} | "
+              f"token p50={fmt(tok['p50'])} p95={fmt(tok['p95'])} "
+              f"p99={fmt(tok['p99'])} | "
+              f"preemptions={summary['preemptions']} "
+              f"pages_hwm={summary['pages_held_hwm']}")
+        widths = summary.get("decode_width_steps")
+        if widths:
+            print(f"[obs] decode steps per live-table width: {widths}")
+    if args.metrics:
+        write_prometheus(obs.registry, args.metrics)
+        print(f"[obs] metrics -> {args.metrics}")
+    if args.trace:
+        write_trace(obs.tracer, args.trace)
+        print(f"[obs] trace -> {args.trace} "
+              f"({len(obs.tracer.events)} events)")
 
 
 if __name__ == "__main__":

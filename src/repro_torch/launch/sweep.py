@@ -15,15 +15,17 @@ Runs on ``cuda`` unless ``--device`` names another device, and raises
 when there is no card.  Kill/resume: re-running the same command against
 the same ``--store``/``--workdir`` loads finished points from the store
 and resumes the in-flight point from its checkpoint; ``--max-points N``
-bounds how many points one invocation executes.  ``--metrics`` and
-``--trace`` (the reference's obs artifacts) exit with an error until obs
-is ported (ROADMAP D12 (obs)).
+bounds how many points one invocation executes.  ``--metrics PATH`` /
+``--trace PATH`` write the ``sweep_*`` / ``compress_*`` metrics and the
+``point_*`` lifecycle trace (the JAX package's names; check them with
+``python -m repro_torch.obs.validate``).
 """
 from __future__ import annotations
 
 import argparse
 import json
 
+from repro_torch import obs as obs_mod
 from repro_torch import sweep as sweep_mod
 
 
@@ -79,23 +81,22 @@ def main(argv=None) -> dict:
                     help="also train fixed w8/w2 references and print "
                          "the iso-accuracy report (cnn track)")
     ap.add_argument("--metrics", default=None, metavar="PATH",
-                    help="sweep metrics in Prometheus text format (not "
-                         "ported yet: ROADMAP D12 (obs))")
+                    help="write sweep metrics in Prometheus text format")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="the point lifecycle trace as JSON lines (not "
-                         "ported yet: ROADMAP D12 (obs))")
+                    help="write the point lifecycle trace as JSON lines")
     ap.add_argument("--report", default=None, metavar="PATH",
                     help="write the sweep summary as JSON")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.metrics or args.trace:
-        ap.error("--metrics and --trace need the obs layer, which is not "
-                 "ported yet (ROADMAP D12 (obs))")
 
     spec = build_spec(args)
     store = sweep_mod.PlanStore(args.store)
-    runner = sweep_mod.SweepRunner(spec, store, args.workdir,
-                                   device=args.device)
+    obs = obs_mod.Observability() if (args.metrics or args.trace) \
+        else None
+    runner = sweep_mod.SweepRunner(
+        spec, store, args.workdir,
+        registry=obs.registry if obs else None,
+        tracer=obs.tracer if obs else None, device=args.device)
     summary = runner.run(max_points=args.max_points)
 
     print(f"[sweep] {summary['executed']} executed, "
@@ -121,6 +122,12 @@ def main(argv=None) -> dict:
                   f"(baseline score={row['baseline_score']:.4f})")
         summary["iso_report"] = iso
 
+    if obs is not None and args.metrics:
+        obs_mod.write_prometheus(obs.registry, args.metrics)
+        print(f"[sweep] wrote {args.metrics}")
+    if obs is not None and args.trace:
+        obs_mod.write_trace(obs.tracer, args.trace)
+        print(f"[sweep] wrote {args.trace}")
     if args.report:
         with open(args.report, "w") as f:
             json.dump(summary, f, indent=2, sort_keys=True)

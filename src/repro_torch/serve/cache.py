@@ -75,6 +75,7 @@ class CacheBackend:
         self.max_len = int(max_len)
         self.device = device
         self.caches = None
+        self._metrics = None
 
     def can_admit(self, n_prompt: int) -> bool:
         raise NotImplementedError
@@ -113,12 +114,26 @@ class CacheBackend:
         raise NotImplementedError
 
     def bind_metrics(self, registry):
-        """No-op until the observability layer is ported (ROADMAP D12
-        (obs))."""
+        """Attach a :class:`repro_torch.obs.MetricsRegistry` (or None).
+        The engine calls this so ``publish_metrics`` and the pool
+        counters have somewhere to write; host-side bookkeeping only --
+        no cache tensor is touched."""
+        self._metrics = registry if (registry is not None
+                                     and registry.enabled) else None
 
     def publish_metrics(self):
-        """No-op until the observability layer is ported (ROADMAP D12
-        (obs))."""
+        """Mirror the numeric fields of :meth:`memory_report` into
+        ``serve_cache_<key>{backend=...}`` gauges."""
+        if self._metrics is None:
+            return
+        for key, value in self.memory_report().items():
+            if isinstance(value, bool) or not isinstance(
+                    value, (int, float)):
+                continue
+            self._metrics.gauge(
+                f"serve_cache_{key}",
+                f"Cache backend memory_report field {key!r}",
+                labels=("backend",)).set(value, backend=self.name)
 
     def shrink_pool(self, n_pages: int) -> int:
         """Withhold up to ``n_pages`` free pages (page-pool pressure);
@@ -264,9 +279,32 @@ class PagedCache(CacheBackend):
                 f"but the pool only has {self.n_pages}; it could never be "
                 f"admitted")
 
+    def bind_metrics(self, registry):
+        super().bind_metrics(registry)
+        if self._metrics is not None:
+            # pre-create so the series exists (at 0) even in runs that
+            # never exhaust the pool
+            self._metrics.counter(
+                "serve_pool_exhausted_total",
+                "Page-pool allocation failures (each triggers a "
+                "preemption in the engine)").inc(0)
+            self._gauge_pages()
+
+    def _count_exhausted(self):
+        if self._metrics is not None:
+            self._metrics.counter("serve_pool_exhausted_total").inc()
+
+    def _gauge_pages(self):
+        if self._metrics is not None:
+            self._metrics.gauge(
+                "serve_pages_in_use",
+                "Pages currently allocated out of the pool").set(
+                self.pages_in_use)
+
     def alloc(self, uid, slot, n_prompt):
         n = self._admission_pages(n_prompt)
         if len(self._free) < n:
+            self._count_exhausted()
             raise PoolExhausted(
                 f"need {n} pages for uid {uid}, {len(self._free)} free")
         h = CacheHandle(uid=uid, slot=slot, n_tokens=n_prompt,
@@ -288,6 +326,7 @@ class PagedCache(CacheBackend):
             pg = nxt // self.page_size
             if pg >= len(handle.pages):
                 if not self._free:
+                    self._count_exhausted()
                     raise PoolExhausted(
                         f"uid {handle.uid} needs page {pg}, pool empty")
                 phys = self._free.popleft()
@@ -303,9 +342,11 @@ class PagedCache(CacheBackend):
         self._table[handle.slot] = 0
         self._table_dev[handle.slot] = 0
         self._handles.pop(handle.slot, None)
+        self._gauge_pages()
 
     def _note_usage(self):
         self._peak_pages = max(self._peak_pages, self.pages_in_use)
+        self._gauge_pages()
 
     @property
     def pages_in_use(self) -> int:
@@ -318,6 +359,7 @@ class PagedCache(CacheBackend):
         while taken < int(n_pages) and self._free:
             self._withheld.append(self._free.pop())
             taken += 1
+        self._gauge_pages()
         return taken
 
     def restore_pool(self) -> int:
@@ -325,6 +367,7 @@ class PagedCache(CacheBackend):
         # restore in reverse so the free deque returns to its order
         while self._withheld:
             self._free.append(self._withheld.pop())
+        self._gauge_pages()
         return n
 
     def kv_caches(self):

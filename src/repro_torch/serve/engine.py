@@ -14,6 +14,11 @@
   kernel K5, and keeps one SSM state per slot instead of pages.  An MoE
   stack's expert capacity counts every row of a step (idle decode slots
   and a paged prompt's padding too, as in the JAX package).
+* Observability (``obs=`` / :meth:`InferenceServer.attach_obs`): the
+  JAX package's ``serve_*`` counters, ``fault_nan_detected_total`` and
+  per-request lifecycle events, written at the host boundary only --
+  with obs attached the card runs the same kernels, the same number of
+  times, with no extra synchronisation.
 
 The cache-backend contract is token-for-token invariance: dense and
 paged, solo, batched and preempted, with or without a plan, all emit the
@@ -33,6 +38,7 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.launch import steps
 from repro_torch.models import lm
 from repro_torch.nn import quantized as nnq
+from repro_torch.obs import run_summary
 from repro_torch.serve import cache as cache_mod
 from repro_torch.serve.sampling import (SamplingParams, batch_need_top_k,
                                         make_rng, sample_token,
@@ -158,8 +164,8 @@ class InferenceServer:
     raises when there is none).  Decoder-only token-frontend
     architectures only, as in the reference: enc-dec and the vision /
     audio frontends need prompt-side encoders the request schema does not
-    carry.  ``obs`` is accepted only as None until the observability
-    layer is ported (ROADMAP D12 (obs)).
+    carry.  ``obs`` is a :class:`repro_torch.obs.Observability` bundle
+    or None (see :meth:`attach_obs`).
     """
 
     def __init__(self, cfg, params, plan=None, *, max_len: int = 512,
@@ -167,10 +173,6 @@ class InferenceServer:
                  cache: str = "dense", page_size: int = 16,
                  pages: int | None = None, reserve_pages: int = 1,
                  sample_on_device: bool = True, obs=None, device=None):
-        if obs is not None:
-            raise NotImplementedError(
-                "observability is not ported yet (ROADMAP D12 (obs)); pass "
-                "obs=None")
         if cfg.is_encdec or cfg.frontend != "none":
             raise NotImplementedError(
                 f"InferenceServer serves decoder-only token-frontend "
@@ -208,14 +210,63 @@ class InferenceServer:
         self._n_admitted = 0
         self._cancelled: dict = {}
         self._nan_detected = False
+        # labels of the last admission's prefill on
+        # serve_prefill_tokens_total (set by _run_prefill)
+        self._prefill_path = "dense"
+        self._prefill_width = "dense"
+        self.obs = None
+        self._reg = None
+        self.attach_obs(obs)
+
+    # ------------------------------------------------------- observability
+    def attach_obs(self, obs):
+        """Attach (or with ``obs=None`` detach) a
+        :class:`repro_torch.obs.Observability` bundle.  Instrumentation
+        is host-side only: the kernels, their launches and the device
+        synchronisation points are the same with or without it."""
+        self.obs = obs
+        reg = None
+        if obs is not None and obs.registry.enabled:
+            reg = obs.registry
+        self._reg = reg
+        self.backend.bind_metrics(reg)
+
+    def metrics_snapshot(self) -> dict:
+        """Current metrics + (when tracing) the last serve run's summary;
+        ``{}`` when no Observability bundle is attached."""
+        if self.obs is None:
+            return {}
+        self.backend.publish_metrics()
+        out = {"metrics": (self.obs.registry.snapshot()
+                           if self.obs.registry.enabled else {})}
+        if self.obs.tracer is not None:
+            out["summary"] = run_summary(self.obs.tracer,
+                                         self.obs.registry)
+        out["load"] = self.load_report()
+        return out
+
+    def _flag_nan(self):
+        """Record a NaN detection at the sampling host boundary.  The
+        flag makes the current step's tokens untrusted: ``step()``
+        discards them and reports ``StepResult.nan``, and ``serve()``
+        raises (a solo server has no failover path)."""
+        self._nan_detected = True
+        if self._reg is not None:
+            self._reg.counter(
+                "fault_nan_detected_total",
+                "NaN logits detected at the sampling host boundary"
+            ).inc()
 
     # ------------------------------------------------------- sampling glue
-    def _sample_rows(self, logits, rows):
+    def _sample_rows(self, logits, rows, registry=None):
         """One token per row of ``logits`` (R, V_pad), as host ints.
         ``rows`` holds, per row, None (an idle slot) or the triple
         (request, host rng, index of the token in its stream).  Device
         sampling keys each row by (seed, uid, token index); the host
-        sampler draws from the rng.  Flags NaN logits."""
+        sampler draws from the rng.  Flags NaN logits.  ``registry``
+        counts a sampled (not all-greedy) batch into
+        ``serve_topk_sort_steps_total``, as the reference's decode
+        does."""
         vals = logits[:, : self.cfg.vocab].float()
         if self.sample_on_device:
             sps = [r[0].sampling for r in rows if r is not None]
@@ -229,25 +280,34 @@ class InferenceServer:
                        r[0].sampling.seed, r[0].uid, r[2]) for r in rows])]
                 ids = sample_tokens_device(
                     vals, *args,
-                    need_top_k=batch_need_top_k(sps, self.cfg.vocab))
+                    need_top_k=batch_need_top_k(sps, self.cfg.vocab,
+                                                registry))
             bad = torch.isnan(vals).any()
             ids, bad = ids.cpu().numpy(), bool(bad)
             # NaN logits make the step untrusted: step() discards its
             # tokens and reports StepResult.nan; serve() raises
-            self._nan_detected |= bad
+            if bad:
+                self._flag_nan()
             return [int(i) for i in ids]
         host = vals.cpu().numpy()
         if np.isnan(host).any():
-            self._nan_detected = True
+            self._flag_nan()
             return [0] * len(rows)
         return [sample_token(host[i], req.sampling, rng)
                 for i, (req, rng, _) in enumerate(rows)]
 
     # ------------------------------------------------------------ serving
-    def begin(self, requests=()):
-        """Open a serving session (fresh scheduler, cache reset) and
-        submit ``requests``."""
-        self._sched = Scheduler(self.max_batch, self.max_len)
+    def begin(self, requests=(), *, fresh_trace: bool = True):
+        """Open a serving session (per-run trace reset, fresh scheduler,
+        cache reset) and submit ``requests``.  ``fresh_trace=False``
+        keeps the tracer's events and time origin -- the fleet's
+        crash-restore path reopens a struck replica's session without
+        erasing its crashed/recovered history."""
+        tracer = self.obs.tracer if self.obs is not None else None
+        if tracer is not None and fresh_trace:
+            tracer.start()          # per-run trace; metrics cumulative
+        self._sched = Scheduler(self.max_batch, self.max_len,
+                                tracer=tracer)
         self.backend.reset()
         self._step_timing = [0.0, 0.0, 0]
         self._now = 0
@@ -259,13 +319,19 @@ class InferenceServer:
             self.submit(r)
         return self
 
-    def submit(self, request, *, front: bool = False):
-        """Enqueue a request into the open session."""
+    def submit(self, request, *, front: bool = False, trace_extra=None):
+        """Enqueue a request into the open session.  ``front=True``
+        enqueues at the front of the queue (the fleet's failover keeps
+        FCFS seniority so); ``trace_extra`` keys ride on the
+        ``enqueued`` trace event."""
         if self._sched is None:
             raise RuntimeError("no open session; call begin() first")
         self.backend.check_feasible(np.asarray(request.prompt).size,
                                     request.sampling.max_tokens)
-        self._sched.submit(request, front=front)
+        self._sched.submit(request, front=front, trace_extra=trace_extra)
+        if self._reg is not None:
+            self._reg.counter("serve_requests_total",
+                              "Requests submitted to serve()").inc()
 
     @property
     def has_work(self) -> bool:
@@ -275,6 +341,8 @@ class InferenceServer:
         """Admit every arrived request the backend has memory for;
         returns the admitted uids in admission order."""
         sched, backend = self._sched, self.backend
+        reg, tracer = self._reg, (self.obs.tracer
+                                  if self.obs is not None else None)
         admitted = []
         while True:
             adm = sched.pop_admissible(
@@ -284,9 +352,33 @@ class InferenceServer:
                 break
             entry, slot = adm
             req = entry.request
+            resumed = entry.resume is not None
             tokens_np = entry.tokens()
             handle = backend.alloc(req.uid, slot, tokens_np.size)
+            if tracer is not None:
+                tracer.event(req.uid, "admitted", n=tokens_np.size,
+                             pages_held=len(handle.pages), slot=slot,
+                             resumed=resumed)
+            if reg is not None:
+                reg.counter(
+                    "serve_admissions_total",
+                    "Requests admitted into a decode slot",
+                    labels=("resumed",)).inc(
+                    resumed="true" if resumed else "false")
             logits = self._run_prefill(backend, handle, tokens_np)
+            if tracer is not None:
+                tracer.event(req.uid, "prefilled", n=tokens_np.size,
+                             pages_held=len(handle.pages), slot=slot)
+            if reg is not None:
+                # one series per (path, live-table width): the labels of
+                # the reference's compiled prefill variants
+                reg.counter("serve_prefill_tokens_total",
+                            "Tokens run through prefill (resumes "
+                            "re-prefill prompt + generated) by prefill "
+                            "path and static live-table width",
+                            labels=("path", "width")).inc(
+                    int(tokens_np.size), path=self._prefill_path,
+                    width=self._prefill_width)
             self._n_admitted += 1
             if entry.resume is None:
                 rng = make_rng(req.sampling, req.uid)
@@ -307,6 +399,13 @@ class InferenceServer:
                 st.remaining -= 1
                 st.order = self._n_admitted
                 st.handle = handle
+            if tracer is not None:
+                # first residency yields the request's first token; a
+                # resume's admission token is a decode step of its stream
+                tracer.event(req.uid,
+                             "decode" if resumed else "first_token",
+                             n=len(st.out),
+                             pages_held=len(handle.pages), slot=slot)
             sched.activate(slot, st)
             admitted.append(req.uid)
             if (st.remaining <= 0 or st.pos >= self.max_len) \
@@ -321,6 +420,7 @@ class InferenceServer:
         if self._sched is None:
             raise RuntimeError("no open session; call begin() first")
         sched, backend = self._sched, self.backend
+        tracer = self.obs.tracer if self.obs is not None else None
         fin0 = len(sched.finished)
         admitted = self._admit()
         produced = {}
@@ -355,6 +455,10 @@ class InferenceServer:
                 st.last_token = tok
                 st.remaining -= 1
                 produced[st.request.uid] = len(st.out)
+                if tracer is not None:
+                    tracer.event(st.request.uid, "decode", n=len(st.out),
+                                 pages_held=len(st.handle.pages),
+                                 slot=st.slot)
                 if st.remaining <= 0:
                     backend.free(st.handle)
                     sched.complete(st.slot)
@@ -399,6 +503,11 @@ class InferenceServer:
             out = obj.out
         toks = np.asarray(out, np.int32)
         self._cancelled[uid] = (reason, toks)
+        if self._reg is not None:
+            self._reg.counter(
+                "serve_cancelled_total",
+                "Requests removed by cancel(), by reason",
+                labels=("reason",)).inc(reason=reason)
         return toks
 
     def end(self) -> dict:
@@ -421,6 +530,7 @@ class InferenceServer:
                       "step_us_per_step": round(
                           step_s / timed * 1e6, 2) if timed else 0.0,
                       "memory": self.backend.memory_report()}
+        self.backend.publish_metrics()
         out = {uid: np.asarray(s.out, np.int32)
                for uid, s in sched.finished.items()}
         self._sched = None
@@ -484,10 +594,14 @@ class InferenceServer:
                 {"tokens": torch.as_tensor(padded, device=self.device)},
                 backend.kv_caches(), tables,
                 torch.tensor([s], dtype=torch.int32, device=self.device))
+            self._prefill_path = "paged"
+            self._prefill_width = str(width)
         else:
             logits, pcaches = self._prefill(
                 self.params, {"tokens": torch.as_tensor(
                     tokens_np[None], device=self.device)})
+            self._prefill_path = "dense"
+            self._prefill_width = "dense"
         backend.insert(handle, pcaches)
         return logits[:, -1, :]
 
@@ -528,9 +642,12 @@ class InferenceServer:
             per_slot = [None] * self.max_batch
             for st in active:
                 per_slot[st.slot] = (st.request, st.rng, len(st.out))
-            ids = self._sample_rows(rows, per_slot)
+            path = "greedy" if all(st.request.sampling.greedy
+                                   for st in active) else "sample"
+            ids = self._sample_rows(rows, per_slot, self._reg)
             picked = [ids[s] for s in slots]
         else:
+            path = "host"
             picked = self._sample_rows(
                 rows[slots], [(st.request, st.rng, len(st.out))
                               for st in active])
@@ -538,6 +655,15 @@ class InferenceServer:
         self._step_timing[0] += t1 - t0
         self._step_timing[1] += t2 - t1
         self._step_timing[2] += 1
+        if self._reg is not None:
+            # one series per (sampling path, live-table width), the
+            # reference's labels
+            self._reg.counter(
+                "serve_decode_steps_total",
+                "Batched decode steps by decode path and static "
+                "live-table width",
+                labels=("path", "width")).inc(
+                path=path, width="dense" if width is None else str(width))
         return dict(zip(slots, picked))
 
     def _append_or_preempt(self, sched, backend, st):
@@ -552,6 +678,11 @@ class InferenceServer:
                 victim = max(sched.active, key=lambda s: s.order)
                 backend.free(victim.handle)
                 sched.preempt(victim.slot)
+                if self._reg is not None:
+                    self._reg.counter(
+                        "serve_preemptions_total",
+                        "Requests preempted back to the queue on pool "
+                        "exhaustion").inc()
                 if victim is st:
                     return
 

@@ -81,10 +81,19 @@ def sample_tokens_device(logits, temperature, top_k, seed, uid,
         torch.int32)
 
 
-def batch_need_top_k(samplings, vocab: int) -> bool:
+def batch_need_top_k(samplings, vocab: int, registry=None) -> bool:
     """True iff any row of a batch actually truncates
-    (``0 < top_k < vocab``)."""
-    return any(0 < sp.top_k < vocab for sp in samplings)
+    (``0 < top_k < vocab``).  With a metrics registry, counts the step
+    into ``serve_topk_sort_steps_total{skipped}`` (the top-k-skip hit
+    rate)."""
+    need = any(0 < sp.top_k < vocab for sp in samplings)
+    if registry is not None:
+        registry.counter(
+            "serve_topk_sort_steps_total",
+            "Sampled decode steps by whether the full-vocab top-k sort "
+            "was skipped", labels=("skipped",)).inc(
+            skipped="false" if need else "true")
+    return need
 
 
 def make_rng(params: SamplingParams, uid: int) -> np.random.Generator:

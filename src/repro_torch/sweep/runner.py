@@ -183,11 +183,6 @@ class _LMSearchPhase:
 _LM_PHASE = _LMSearchPhase()
 
 
-def _obs_not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP D12 (obs)); run without it")
-
-
 # ---------------------------------------------------------------------------
 # the runner
 # ---------------------------------------------------------------------------
@@ -199,21 +194,20 @@ class SweepRunner:
     directories (``<workdir>/pt<i>/{ckpt,handoff}``); keep it alongside
     the store to make a killed sweep resumable.  ``device`` is ``cuda``
     unless the caller names another (no CPU fallback).  ``registry`` /
-    ``tracer`` (the reference's obs sinks) take only None until obs is
-    ported.
+    ``tracer`` are optional ``repro_torch.obs`` sinks (``sweep_*``
+    metrics, ``point_*`` lifecycle events), the reference's names.
     """
 
     def __init__(self, spec: SweepSpec, store: PlanStore, workdir: str,
                  *, registry=None, tracer=None, verbose: bool = True,
                  device=None):
-        if registry is not None:
-            _obs_not_ported("the metrics registry (registry=)")
-        if tracer is not None:
-            _obs_not_ported("the point lifecycle tracer (tracer=)")
         self.spec = spec
         self.store = store
         self.workdir = workdir
         self.verbose = verbose
+        self.registry = (registry if registry is not None
+                         and registry.enabled else None)
+        self.tracer = tracer
         self.device = resolve_device(device)
         if spec.track == "cnn" and spec.bench not in _BENCHES:
             raise ValueError(f"unknown cnn bench {spec.bench!r}; "
@@ -225,6 +219,15 @@ class SweepRunner:
     def _say(self, msg: str):
         if self.verbose:
             print(f"[sweep] {msg}", flush=True)
+
+    def _count(self, name: str, help_: str, n=1, **labels):
+        if self.registry is not None:
+            self.registry.counter(name, help_,
+                                  labels=tuple(labels)).inc(n, **labels)
+
+    def _trace(self, uid: int, kind: str, **extra):
+        if self.tracer is not None:
+            self.tracer.event(uid, kind, **extra)
 
     def point_name(self, index: int) -> str:
         return f"{self.spec.name}.pt{index:02d}"
@@ -275,10 +278,11 @@ class SweepRunner:
                 schedule.append(lam)
             lam = schedule[index]
             name = self.point_name(index)
+            self._trace(index, "point_enqueued", lam=float(lam))
             point = None
             if self.store.has(name):
                 try:
-                    point = self._load_point(name, lam)
+                    point = self._load_point(index, name, lam)
                     loaded += 1
                 except StoreCorruptError as e:
                     # a corrupt entry must not kill the whole campaign:
@@ -295,6 +299,11 @@ class SweepRunner:
                 point = self._execute_point(index, name, lam, points, hooks)
                 executed += 1
             points.append(point)
+            if self.registry is not None:
+                self.registry.gauge(
+                    "sweep_front_size",
+                    "Points currently on the sweep's Pareto front"
+                ).set(len(self._front(points)))
             index += 1
 
         fr = self._front(points)
@@ -314,7 +323,7 @@ class SweepRunner:
         return front_mod.pareto_front(points)
 
     # -------------------------------------------------------- store hits
-    def _load_point(self, name: str, lam: float) -> dict:
+    def _load_point(self, index: int, name: str, lam: float) -> dict:
         entry = self.store.entry(name)
         lin = entry["lineage"]
         if lin.get("spec") != self.spec.spec_hash():
@@ -323,6 +332,9 @@ class SweepRunner:
                 f"SweepSpec (spec hash {lin.get('spec')} != "
                 f"{self.spec.spec_hash()}): use a fresh store or sweep "
                 f"name")
+        self._count("sweep_points_completed_total",
+                    "Sweep points completed, by origin", source="store")
+        self._trace(index, "point_loaded", plan=entry["plan"])
         self._say(f"{name}: loaded from store (lam={lam:g}, "
                   f"score={entry['metrics']['score']:.4f})")
         return self._point_record(entry, from_store=True)
@@ -347,6 +359,13 @@ class SweepRunner:
         spec = self.spec
         warm = bool(spec.warm_start and index > 0)
         parent = points[-1]["plan"] if warm else None
+        self._trace(index, "point_started", lam=float(lam), warm=warm)
+        self._count("sweep_points_completed_total",
+                    "Sweep points completed, by origin", source="run")
+        if warm:
+            self._count("sweep_warm_starts_total",
+                        "Sweep points initialized from the previous "
+                        "point's finished state")
         if spec.track == "cnn":
             plan, metrics, costs, steps, saved = self._run_cnn(
                 index, lam, warm, hooks)
@@ -362,6 +381,11 @@ class SweepRunner:
         }
         entry = self.store.put(plan, name, metrics=metrics, costs=costs,
                                lineage=lineage)
+        self._count("sweep_steps_saved_total",
+                    "Search/warmup steps avoided by warm-start "
+                    "continuation", n=saved)
+        self._trace(index, "point_finished", steps=steps,
+                    plan=entry["plan"])
         self._say(f"{name}: lam={lam:g} warm={warm} "
                   f"score={metrics['score']:.4f} "
                   f"cost={costs[spec.cost_model]:.1f} steps={steps}")
@@ -408,7 +432,8 @@ class SweepRunner:
                       phases_mod.Finetune(steps=spec.finetune_steps)]
             res = comp.run(phases, hooks=hooks,
                            init_folded=handoff["folded"], checkpoint=mgr,
-                           checkpoint_every=spec.checkpoint_every)
+                           checkpoint_every=spec.checkpoint_every,
+                           registry=self.registry)
             phase_steps = {"search": spec.warm_search(),
                            "finetune": spec.finetune_steps}
             saved = spec.warmup_steps + (spec.search_steps
@@ -420,11 +445,17 @@ class SweepRunner:
                                              **search_kw),
                       phases_mod.Finetune(steps=spec.finetune_steps)]
             res = comp.run(phases, hooks=hooks, checkpoint=mgr,
-                           checkpoint_every=spec.checkpoint_every)
+                           checkpoint_every=spec.checkpoint_every,
+                           registry=self.registry)
             phase_steps = {"warmup": spec.warmup_steps,
                            "search": spec.search_steps,
                            "finetune": spec.finetune_steps}
             saved = 0
+        for phase, n in phase_steps.items():
+            if n:
+                self._count("sweep_search_steps_total",
+                            "Training steps executed by sweep points, "
+                            "per phase", n=n, phase=phase)
         self._save_handoff(index, {"folded": res.folded,
                                    "gamma": res.mps_params["gamma"]})
         geoms = cnn.cost_geoms(g)
@@ -490,10 +521,16 @@ class SweepRunner:
             for h in hooks:
                 h.on_step(_LM_PHASE, None, step,
                           {"loss": float(loss)}, state)
+            if self.registry is not None:
+                self.registry.emit_phase_point(
+                    "lm_search", step, {"loss": float(loss)})
             if spec.checkpoint_every and (step + 1) \
                     % spec.checkpoint_every == 0 and step + 1 < steps:
                 mgr.save(step, state, blocking=True,
                          metadata={"step": step})
+        self._count("sweep_search_steps_total",
+                    "Training steps executed by sweep points, per phase",
+                    n=max(steps - start, 0), phase="lm_search")
         params = state["params"]
         del state
         self._save_handoff(index, {"params": params})

@@ -1,0 +1,13 @@
+"""The port's serving stack against the JAX package's on
+``gemma2-2b-smoke`` (local/global layers with a window of 32, the
+attention softcap (50) and the final softcap (30)); the cases are
+``torch_arch_cases.py``'s."""
+import pytest
+
+pytest.importorskip("torch")  # the port's optional dependency
+
+from torch_arch_cases import *  # noqa: F401,F403 -- the per-arch cases
+from torch_arch_cases import arch_world  # noqa: F401
+from torch_threads import _one_torch_thread  # noqa: F401
+
+world = arch_world("gemma2-2b-smoke")

@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")  # the port's optional dependency
 
 from repro.checkpoint.checkpoint import CheckpointManager as JaxManager
 from repro_torch.checkpoint.checkpoint import CheckpointManager
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _tree(v=0.0):

@@ -28,6 +28,7 @@ from repro_torch.core import mps as tmps
 from repro_torch.core import rng as trng
 from repro_torch.core import sampling as tsamp
 from repro_torch.models import cnn as tcnn
+from torch_threads import _one_torch_thread  # noqa: F401
 
 PW = (0, 2, 4, 8)
 PX = (8,)

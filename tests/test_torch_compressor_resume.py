@@ -32,18 +32,7 @@ from repro_torch.core import discretize as tdisc
 from repro_torch.core import pipeline as tpipe
 from repro_torch.data import synthetic as tsyn
 from repro_torch.models import cnn as tcnn
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run thousands of small CPU ops; beside pytest-xdist's
-    other workers, torch's intra-op threads oversubscribe the cores and
-    spin (measured 5x slower under ``-n 3``), so the module runs on one
-    thread and restores the count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 class Boom(tph.Hook):
@@ -152,9 +141,33 @@ def test_corrupt_newest_checkpoint_falls_back_to_older(tmp_path, reference):
     assert resumed.acc_final == reference.acc_final
 
 
-def test_registry_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP D12"):
-        _comp().run([tph.Warmup(steps=1)], registry=object())
+def _quiet_log():
+    return tph.MetricsLog(every=1, printer=lambda line: None)
+
+
+def test_registry_is_idempotent_under_resume(tmp_path):
+    """``run(registry=)``: a run killed in the search and resumed into
+    the same registry counts every step point once -- the uninterrupted
+    run's ``compress_step_points_total`` and ``compress_step_value``
+    exactly (the replayed steps are not re-counted), as in the
+    reference."""
+    from repro_torch.obs import MetricsRegistry
+    want = MetricsRegistry()
+    _comp().run(_recipe(), hooks=[_quiet_log()], registry=want)
+    reg = MetricsRegistry()
+    mgr = CheckpointManager(str(tmp_path), keep=3)
+    with pytest.raises(RuntimeError, match="boom"):
+        _comp().run(_recipe(), hooks=[_quiet_log(), Boom("search", 7)],
+                    checkpoint=mgr, checkpoint_every=4, registry=reg)
+    mgr.wait()
+    _comp().run(_recipe(), hooks=[_quiet_log()], checkpoint=
+                CheckpointManager(str(tmp_path), keep=3),
+                checkpoint_every=4, registry=reg)
+    got, ref = reg.snapshot(), want.snapshot()
+    for name in ("compress_step_points_total", "compress_step_value"):
+        assert got[name] == ref[name], name
+    assert {s["labels"]["phase"] for s in got["compress_phase_seconds"][
+        "series"]} == {"warmup", "search", "finetune"}
 
 
 def test_numpy_leaves_round_trip(tmp_path):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")  # the port's optional dependency
+from torch_threads import _one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -40,6 +41,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.sweep, repro_torch.sweep.front\n"
         "import repro_torch.sweep.store, repro_torch.sweep.runner\n"
         "import repro_torch.launch.sweep, repro_torch.core.pipeline\n"
+        "import repro_torch.obs, repro_torch.obs.validate\n"
+        "import repro_torch.chaos, repro_torch.fleet\n"
+        "import repro_torch.launch.fleet\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "assert not bad, bad\n")
@@ -82,6 +86,9 @@ def test_entry_points_refuse_cpu_fallback():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sweep.main(["--track", "cnn", "--bench", "gsc", "--width", "4",
                     "--store", "unused", "--workdir", "unused"])
+    from repro_torch.launch import fleet
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.main(["--arch", "llama3.2-1b-smoke", "--tiers", "float"])
 
 
 def test_unported_families_name_their_roadmap_item():
@@ -119,24 +126,109 @@ def test_c3_families_build_standalone():
                    env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
 
 
-def test_obs_refusals_name_roadmap_d12():
-    """Every refusal of the unported observability layer names its
-    ROADMAP item, D12 (obs)."""
-    from repro_torch.api import compressor
+def _obs_server(reg):
     from repro_torch.configs import registry
     from repro_torch.models import lm
+    from repro_torch.obs import Observability
     from repro_torch.serve import engine
-    from repro_torch.sweep import runner
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
     cfg = registry.get("llama3.2-1b-smoke")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP D12 \(obs\)"):
-        engine.InferenceServer(cfg, lm.init_params(cfg, device="cpu"),
-                               max_len=16, max_batch=1, obs=object(),
-                               device="cpu")
-    comp = compressor.Compressor.__new__(compressor.Compressor)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP D12 \(obs\)"):
-        comp.run([], registry=object())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP D12 \(obs\)"):
-        runner.SweepRunner(None, None, None, registry=object())
+    srv = engine.InferenceServer(
+        cfg, lm.init_params(cfg, device="cpu"), max_len=16, max_batch=1,
+        cache="paged", page_size=8, obs=Observability(registry=reg),
+        device="cpu")
+    srv.serve([Request(uid=0, prompt=[1, 2, 3],
+                       sampling=SamplingParams(max_tokens=2))])
+    return {"serve_requests_total", "serve_admissions_total",
+            "serve_prefill_tokens_total", "serve_decode_steps_total",
+            "serve_tokens_total", "serve_trace_events_total",
+            "serve_ttft_seconds", "serve_queue_depth"}
+
+
+def _obs_cache(reg):
+    from repro_torch.configs import registry
+    from repro_torch.serve import cache
+    backend = cache.make_backend("paged", registry.get("llama3.2-1b-smoke"),
+                                 1, 16, "cpu", page_size=8)
+    backend.bind_metrics(reg)
+    backend.alloc(0, 0, 3)
+    backend.publish_metrics()
+    return {"serve_pool_exhausted_total", "serve_pages_in_use",
+            "serve_cache_pages_in_use", "serve_cache_pool_bytes"}
+
+
+def _obs_compressor(reg):
+    from repro_torch.api import compressor, phases
+    from repro_torch.data import synthetic
+    from repro_torch.models import cnn
+    comp = compressor.Compressor(cnn.dscnn(width=4), synthetic.GSC_LIKE,
+                                 batch=4, device="cpu")
+    comp.run([phases.Warmup(steps=2)], registry=reg,
+             hooks=[phases.MetricsLog(every=1, printer=lambda line: None)])
+    return {"compress_step_value", "compress_step_points_total",
+            "compress_phase_seconds"}
+
+
+def _sweep_spec():
+    from repro_torch import sweep
+    return sweep.SweepSpec(name="o", track="cnn", bench="gsc",
+                           lams=(2.0,), warmup_steps=1, search_steps=1,
+                           finetune_steps=1, batch=4, width=4,
+                           eval_batches=1, checkpoint_every=1)
+
+
+def _obs_sweep_runner(reg, tmp_path):
+    from repro_torch import sweep
+    from repro_torch.obs import RequestTracer
+    tracer = RequestTracer(reg)
+    sweep.SweepRunner(_sweep_spec(), sweep.PlanStore(str(tmp_path / "s")),
+                      str(tmp_path / "w"), registry=reg, tracer=tracer,
+                      verbose=False, device="cpu").run()
+    assert [e.kind for e in tracer.events] == [
+        "point_enqueued", "point_started", "point_finished"]
+    return {"sweep_points_completed_total", "sweep_search_steps_total",
+            "sweep_steps_saved_total", "sweep_front_size",
+            "sweep_trace_events_total", "compress_phase_seconds"}
+
+
+def _obs_launch_sweep(tmp_path):
+    from repro_torch.launch import sweep
+    from repro_torch.obs import validate
+    m, t = str(tmp_path / "m.prom"), str(tmp_path / "t.jsonl")
+    sweep.main(["--device", "cpu", "--track", "cnn", "--bench", "gsc",
+                "--width", "4", "--lams", "2", "--warmup-steps", "1",
+                "--search-steps", "1", "--finetune-steps", "1",
+                "--eval-batches", "1", "--batch", "4",
+                "--store", str(tmp_path / "s"),
+                "--workdir", str(tmp_path / "w"),
+                "--metrics", m, "--trace", t])
+    assert validate.validate_files(m, t, validate.SCHEMA_PATH) == []
+    with open(m) as f:
+        return {ln.split()[2] for ln in f if ln.startswith("# TYPE")}
+
+
+@pytest.mark.parametrize("refuser", ["server", "cache", "compressor",
+                                     "sweep_runner", "launch_sweep"])
+def test_former_obs_refusers_write_reference_metrics(refuser, tmp_path):
+    """The five places that refused the observability layer until it was
+    ported (the server's ``obs=``, the cache backends' metric hooks,
+    ``Compressor.run(registry=)``, ``SweepRunner(registry=, tracer=)``
+    and ``launch/sweep.py --metrics/--trace``) now take a registry and
+    write the JAX package's metric names."""
+    from repro_torch.obs import MetricsRegistry
+    reg = MetricsRegistry()
+    if refuser == "launch_sweep":
+        names = _obs_launch_sweep(tmp_path)
+        want = {"sweep_points_completed_total", "sweep_front_size",
+                "compress_phase_seconds", "sweep_trace_events_total"}
+        assert want <= names, want - names
+        return
+    call = {"server": _obs_server, "cache": _obs_cache,
+            "compressor": _obs_compressor}.get(refuser)
+    want = call(reg) if call else _obs_sweep_runner(reg, tmp_path)
+    have = set(reg.snapshot())
+    assert want <= have, want - have
 
 
 def test_device_sampling_draws_deterministically():

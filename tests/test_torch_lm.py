@@ -17,6 +17,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.launch import steps
 from repro_torch.models import lm as tlm
 from repro_torch.serve import engine as teng
+from torch_threads import _one_torch_thread  # noqa: F401
 
 S0, N_DEC, MAX_LEN, PS = 13, 8, 32, 8
 

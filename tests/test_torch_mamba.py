@@ -30,6 +30,7 @@ from repro_torch.serve import cache as tcache
 from repro_torch.serve import engine as teng
 from repro_torch.serve.sampling import SamplingParams as TSP
 from repro_torch.serve.scheduler import Request as TReq
+from torch_threads import _one_torch_thread  # noqa: F401
 
 ARCH = "mamba2-780m-smoke"
 KW = dict(max_len=48, max_batch=2)

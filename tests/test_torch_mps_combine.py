@@ -27,6 +27,7 @@ from repro.kernels.mps_combine import ops as jops
 from repro_torch.core import mps as tmps
 from repro_torch.core import sampling as tsamp
 from repro_torch.kernels.mps_combine import ops as tops
+from torch_threads import _one_torch_thread  # noqa: F401
 
 PWS = [(0, 2, 4, 8), (2, 4, 8), (8,), (0, 8, 0, 2), (2, 3, 4, 5, 6, 7, 8, 16)]
 # K % 4 != 0 and M = 1 among them

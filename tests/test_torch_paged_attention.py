@@ -14,6 +14,7 @@ from repro.kernels.paged_attention import ops as jops
 from repro_torch.kernels.paged_attention import ops as tops
 from repro_torch.kernels.paged_attention import ref as tref
 from test_torch_gpu import make_case
+from torch_threads import _one_torch_thread  # noqa: F401
 
 VARIANTS = [(0, False, 0.0), (6, False, 0.0), (8, True, 0.0),
             (0, False, 30.0), (3, False, 50.0)]

@@ -17,6 +17,7 @@ from repro_torch.core import quantizers as tquant
 from repro_torch.kernels.quant_matmul import ops as tqops
 from repro_torch.kernels.quant_matmul import ref as tqref
 from repro_torch.nn import quantized as tq
+from torch_threads import _one_torch_thread  # noqa: F401
 
 N_IN, N_OUT = 37, 24     # ragged: 37 is no multiple of 4 (2-bit) or 2
 

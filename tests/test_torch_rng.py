@@ -25,6 +25,7 @@ from repro_torch.core import rng
 from repro_torch.serve import engine as teng
 from repro_torch.serve.sampling import SamplingParams as TSP
 from repro_torch.serve.scheduler import Request as TReq
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SEEDS = (0, 1, 7, 123456789, 2 ** 31 - 1)
 

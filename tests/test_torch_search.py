@@ -45,6 +45,7 @@ from repro_torch.core import rng as trng
 from repro_torch.core import sampling as tsamp
 from repro_torch.data import synthetic as tsyn
 from repro_torch.models import cnn as tcnn
+from torch_threads import _one_torch_thread  # noqa: F401
 
 PW = (0, 2, 4, 8)
 PX = (8,)
@@ -301,7 +302,9 @@ def test_compressor_refuses_cpu_fallback_and_checkpoint():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcomp.Compressor(g, tsyn.GSC_LIKE)
     comp = tcomp.Compressor(g, tsyn.GSC_LIKE, batch=8, device="cpu")
-    # checkpoint= is ported (tests/test_torch_compressor_resume.py); the
-    # metrics registry is what the Compressor still refuses
-    with pytest.raises(NotImplementedError, match="ROADMAP D12"):
-        comp.run([tph.Warmup(steps=1)], registry=object())
+    # checkpoint= (tests/test_torch_compressor_resume.py) and the metrics
+    # registry are both taken
+    from repro_torch.obs import MetricsRegistry
+    reg = MetricsRegistry()
+    comp.run([tph.Warmup(steps=1)], registry=reg)
+    assert "compress_phase_seconds" in reg.snapshot()

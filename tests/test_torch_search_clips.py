@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")  # the port's optional dependency
 
 from test_torch_search_e2e import run_both  # noqa: E402
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def test_search_with_trained_clips_matches_jax():

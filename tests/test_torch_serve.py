@@ -18,6 +18,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.serve import engine as teng
 from repro_torch.serve.sampling import SamplingParams as TSP
 from repro_torch.serve.scheduler import Request as TReq
+from torch_threads import _one_torch_thread  # noqa: F401
 
 LENS = (6, 14, 9, 21)
 KW = dict(max_len=48, max_batch=2)

@@ -58,6 +58,7 @@ from repro_torch.models import lm as tlm
 from repro_torch.nn import blocks as tb
 from repro_torch.optim import grad as tgrad
 from repro_torch.optim import optimizers as topt
+from torch_threads import _one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "mamba2-780m-smoke"

@@ -52,18 +52,7 @@ from repro_torch.launch import sweep as tlaunch
 from repro_torch.models import cnn as tcnn
 from repro_torch.optim.optimizers import tree_map
 from repro_torch.sweep import front as tfront
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run thousands of small CPU ops; beside pytest-xdist's
-    other workers, torch's intra-op threads oversubscribe the cores and
-    spin (measured 5x slower under ``-n 3``), so the module runs on one
-    thread and restores the count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def cnn_spec(mod=tsweep, **kw):
@@ -330,18 +319,35 @@ def test_spec_hash_matches_jax(kw):
 # the cnn track
 # ---------------------------------------------------------------------------
 
-def test_cnn_sweep_matches_jax(tmp_path):
-    """Both packages at the reference test's spec, the port's warmups
-    started from the JAX init (bridged)."""
-    jstore = jsweep.PlanStore(str(tmp_path / "j" / "store"))
+@pytest.fixture(scope="module")
+def cnn_both(tmp_path_factory):
+    """Both packages' cnn sweeps at the reference test's spec, the
+    port's warmups started from the JAX init (bridged), each runner
+    writing into its package's metrics registry and point tracer."""
+    from repro import obs as jobs
+    from repro_torch import obs as tobs
+    root = tmp_path_factory.mktemp("cnn_both")
+    jo, to = jobs.Observability(), tobs.Observability()
+    jstore = jsweep.PlanStore(str(root / "j" / "store"))
     jsum = jsweep.SweepRunner(cnn_spec(jsweep), jstore,
-                              str(tmp_path / "j" / "work"),
+                              str(root / "j" / "work"),
+                              registry=jo.registry, tracer=jo.tracer,
                               verbose=False).run()
     g = jcnn.dscnn(width=4)
     init = cnn_params_from_jax(jax.tree.map(
         np.asarray, jcnn.init_params(g, jax.random.key(0))))
-    _, tstore, tsum = run_sweep(cnn_spec(), str(tmp_path / "t"),
-                                hooks=[_SetParams(init)])
+    tstore = tsweep.PlanStore(str(root / "t" / "store"))
+    tsum = tsweep.SweepRunner(
+        cnn_spec(), tstore, str(root / "t" / "work"), registry=to.registry,
+        tracer=to.tracer, verbose=False, device="cpu").run(
+        hooks=[_SetParams(init)])
+    return (jstore, jsum, jo), (tstore, tsum, to)
+
+
+def test_cnn_sweep_matches_jax(cnn_both):
+    """Both packages at the reference test's spec, the port's warmups
+    started from the JAX init (bridged)."""
+    (jstore, jsum, _), (tstore, tsum, _) = cnn_both
     assert tsum == jsum
     assert tstore.names() == jstore.names()
     for name in jstore.names():
@@ -462,22 +468,45 @@ def test_cnn_missing_handoff_message(tmp_path):
         runner._load_handoff(0, {"x": torch.zeros(1)})
 
 
-def test_runner_obs_sinks_name_their_roadmap_item(tmp_path):
-    for kw in (dict(registry=object()), dict(tracer=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP D12"):
-            tsweep.SweepRunner(cnn_spec(), tsweep.PlanStore(str(tmp_path)),
-                               str(tmp_path), device="cpu", **kw)
+def test_runner_obs_sinks_match_jax(cnn_both):
+    """``SweepRunner(registry=, tracer=)``: the JAX package's ``sweep_*``
+    and ``compress_*`` families with the same labels and the same point
+    and step counts, and the same ``point_*`` events (wall clock left
+    out; the trained scores in the JAX package's ``point_finished``
+    plan hashes can differ, so those are compared by presence)."""
+    (_, _, jo), (_, _, to) = cnn_both
+    js, ts = jo.registry.snapshot(), to.registry.snapshot()
+    assert ts.keys() == js.keys()
+    for name in ("sweep_points_completed_total", "sweep_warm_starts_total",
+                 "sweep_steps_saved_total", "sweep_search_steps_total",
+                 "sweep_front_size", "sweep_trace_events_total"):
+        assert ts[name] == js[name], name
+    for name in js:
+        assert [s["labels"] for s in ts[name]["series"]] == \
+            [s["labels"] for s in js[name]["series"]], name
+    strip = lambda evs: [(e.uid, e.kind, sorted(e.extra))
+                         for e in evs]
+    assert strip(to.tracer.events) == strip(jo.tracer.events)
+    assert [e.extra.get("lam") for e in to.tracer.events] == \
+        [e.extra.get("lam") for e in jo.tracer.events]
 
 
 # ---------------------------------------------------------------------------
 # the lm track
 # ---------------------------------------------------------------------------
 
-def test_lm_sweep_matches_jax(tmp_path):
-    jstore = jsweep.PlanStore(str(tmp_path / "j" / "store"))
-    jsum = jsweep.SweepRunner(lm_spec(jsweep), jstore,
-                              str(tmp_path / "j" / "work"),
+@pytest.fixture(scope="module")
+def jax_lm_store(tmp_path_factory):
+    """The JAX package's lm-track sweep at the reference test's spec."""
+    root = tmp_path_factory.mktemp("jax_lm")
+    jstore = jsweep.PlanStore(str(root / "store"))
+    jsum = jsweep.SweepRunner(lm_spec(jsweep), jstore, str(root / "work"),
                               verbose=False).run()
+    return jstore, jsum
+
+
+def test_lm_sweep_matches_jax(tmp_path, jax_lm_store):
+    jstore, jsum = jax_lm_store
     name = "llama3.2-1b-smoke"
     init = lm_params_from_jax(jax.tree.map(np.asarray, jlm.init_params(
         jreg.get(name), jax.random.key(0), mps_on=True)),
@@ -506,6 +535,37 @@ def test_lm_sweep_matches_jax(tmp_path):
         assert differ <= 0.03 * total, (name, differ, total)
         assert te["costs"]["size"] == pytest.approx(je["costs"]["size"],
                                                     rel=5e-3)
+
+
+def test_jax_sweep_store_serves_as_fleet_tiers(jax_lm_store):
+    """The JAX package's sweep store serves as the port fleet's
+    ``store:<dir>`` (one tier per front entry) and
+    ``store:<dir>/<name>`` tiers."""
+    from repro_torch.fleet import poisson_trace
+    from repro_torch.launch import fleet as tfleet_launch
+    from repro_torch.models import lm as tlm
+    jstore, _ = jax_lm_store
+    cfg = treg.get("llama3.2-1b-smoke")
+    params = tlm.init_params(cfg, device="cpu")
+    front = [e["name"] for e in jstore.front(
+        jstore.query(kind="point") or None)]
+    tiers = tfleet_launch.build_tiers(f"store:{jstore.root}", cfg, params,
+                                      8.0)
+    assert [t.name for t in tiers] == front
+    one = tfleet_launch.build_tier(f"store:{jstore.root}/lt.pt00", cfg,
+                                   params, 8.0)
+    assert one.name == "lt.pt00"
+    jp = jstore.load("lt.pt00")
+    assert one.plan.equals(TPlan.from_tree(jp.to_tree(), jp.scalars()))
+    flt = tfleet_launch.build_fleet(
+        cfg, params, [f"store:{jstore.root}/lt.pt00", "float"],
+        policy="round_robin", max_len=32, max_batch=2, cache="paged",
+        page_size=8, pages=None, base_step_ms=8.0, device="cpu")
+    records = flt.run(poisson_trace(4, rate_rps=100.0, vocab=cfg.vocab,
+                                    prompt_len=5, max_tokens=3))
+    assert {r.replica for r in records.values()} == {"lt.pt00", "float"}
+    assert all(r.status == "finished" and len(r.tokens) == 3
+               for r in records.values())
 
 
 def test_lm_summary_and_plans(lm_ref):
@@ -554,8 +614,11 @@ def test_launch_sweep_main_on_the_cpu(tmp_path, capsys):
     with open(report) as f:
         assert json.load(f)["points"] == summary["points"] \
             == ["sweep.pt00", "sweep.pt01"]
-    again = tlaunch.main(args)
+    m, t = str(tmp_path / "m.prom"), str(tmp_path / "t.jsonl")
+    again = tlaunch.main(args + ["--metrics", m, "--trace", t])
     assert again["executed"] == 0 and again["loaded"] == 2
-    with pytest.raises(SystemExit):
-        tlaunch.main(args + ["--metrics", str(tmp_path / "m.prom")])
-    assert "ROADMAP D12" in capsys.readouterr().err
+    from repro_torch.obs import validate
+    assert validate.validate_files(m, t, validate.SCHEMA_PATH) == []
+    with open(t) as f:
+        kinds = [json.loads(line)["kind"] for line in f]
+    assert kinds == ["point_enqueued", "point_loaded"] * 2

@@ -61,6 +61,7 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.serve import engine as teng
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import Request
+from torch_threads import _one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LLAMA = "llama3.2-1b-smoke"

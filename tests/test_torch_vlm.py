@@ -37,20 +37,11 @@ from repro_torch.optim import optimizers as topt
 from repro_torch.serve import engine as teng
 
 import torch_parity as tp_
+from torch_threads import _one_torch_thread  # noqa: F401
 
 ARCH = "qwen2-vl-72b-smoke"
 B, S = 2, 64
 LAM = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU ops beside pytest-xdist's other workers: one intra-op
-    thread (see ``tests/test_torch_sweep.py``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -289,3 +289,60 @@ def quarter_plans(jcfg, jparams, pw=(0, 2, 4, 8), seed=0):
     assignment = {"gamma": gamma, "delta": {}, "alpha": {}}
     return (JPlan.from_assignment(assignment, pw, (8,)),
             TPlan.from_assignment(assignment, pw, (8,)))
+
+
+# ---------------------------------------------------------------------------
+# observability (ROADMAP D12): what two packages' runs share
+# ---------------------------------------------------------------------------
+
+def obs_values(registry) -> dict:
+    """A registry's counter and gauge values and its histograms' counts,
+    by (metric, labels): everything but the wall clock (latency sums and
+    buckets, ``compress_phase_seconds``)."""
+    out = {}
+    for name, m in registry.snapshot().items():
+        if name == "compress_phase_seconds":
+            continue
+        for s in m["series"]:
+            key = (name, tuple(sorted(s["labels"].items())))
+            out[key] = s["count"] if m["kind"] == "histogram" \
+                else s["value"]
+    return out
+
+
+def events_without_t(events) -> list:
+    """Trace events (``TraceEvent`` objects or their JSON dicts) as
+    dicts without the wall-clock ``t``."""
+    out = []
+    for ev in events:
+        d = dict(ev if isinstance(ev, dict) else ev.to_json())
+        d.pop("t")
+        out.append(d)
+    return out
+
+
+class CountingClock:
+    """A stand-in for a module's ``time``: ``perf_counter`` advances by
+    1/1024 s a call, so two packages making the same calls read the same
+    times (binary fractions: the differences are exact)."""
+
+    def __init__(self):
+        self.n = 0
+
+    def perf_counter(self):
+        self.n += 1
+        return self.n / 1024.0
+
+
+@contextlib.contextmanager
+def counting_clocks(*modules):
+    """Give each module its own :class:`CountingClock` as ``time`` for
+    the length of the block."""
+    saved = [m.time for m in modules]
+    try:
+        for m in modules:
+            m.time = CountingClock()
+        yield
+    finally:
+        for m, t in zip(modules, saved):
+            m.time = t
