@@ -208,9 +208,40 @@ Phases, in order; any failure ends the run with a non-zero exit:
               each tier's real wall ms a decode step beside its modelled
               step_ms (every fleet latency is on the modelled clock), the
               busy share and peak memory.
-16. report -- one JSON line of kernels (with each kernel's launches on
-              paths 8, 9 and 10), the card's name and power limit, and
-              last the JSON status line.
+16. jamba   -- path 11: the hybrid jamba-1.5-large-398b at published
+              widths (d 8192, 64 / 8 heads of 128, d_ff and moe_d_ff
+              24576, Mamba-2 d_inner 16384 in 128 heads of 128, state
+              128, top-2 MoE, vocab 65536, bf16 weights from seed 0), cut
+              to one super-block (8 of 72 layers: 7 Mamba-2 and 1
+              attention, a dense FFN on the even slots and MoE on the odd
+              ones) and 8 of 16 experts a bank, bound to
+              synthetic_plan(bits=None, seed=0) (58 groups) on a paged
+              cache (page 16, 8 slots of 4160 tokens): 8 greedy requests
+              x 32 tokens with prompts of 1-4100 tokens (SSM chunks 1 to
+              256; 257 tokens scan 257 chunks), each prefilled unpadded
+              into the pages; then 2 float requests (256 and 1000 tokens
+              x 16).  K5 launched 7 x admissions, K3 once an admission,
+              K2 once a decode step, K1 once a precision group of every
+              planned projection a forward (0 float), no other kernel;
+              finite logits; a profiled decode step split by class
+              (cuBLAS's expert banks, K1, K2, K5, the rest) and each
+              admission's device ms by class; one full-width Mamba-2
+              layer's prefill card vs CPU, float and plan-bound, within
+              1e-2; K1 bitwise on every precision group of plan-bound
+              layer 0's mixer and dense FFN; paged (K3) vs dense prefill
+              logits, and K3 vs its plain version in the paged prefill,
+              within 5e-2 at 64, 33 and 255 tokens; memory_report and
+              peak memory.  Before the paths, the kernels phase holds K5
+              bitwise at (C, 128, 128, 128) for C = 1, 20, 257 and times
+              it at C = 20, holds K1 bitwise at every (M, K, N, bits)
+              path 11 gives it (jamba_k1_cases) and times its decode
+              layout at the five new (K, N) and its tiles at M = 4100,
+              K x N 8192 x 24576, and holds K3 (bf16, G = 8, D = 128)
+              against its plain version within 1e-2 at each of path 11's
+              exact prompt lengths, timing it at 4100 tokens.
+17. report -- one JSON line of kernels (with each kernel's launches on
+              paths 8 to 11), the card's name and power limit, and last
+              the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
 """
@@ -278,8 +309,8 @@ def device_ms(fn, n, flush, kernel=None, names=True):
     flush on each side of them takes such a loss), so each attempt also
     traces one call: every kernel name it
     holds must appear exactly ``n`` times as often in the ``n`` calls'
-    trace, and no other, or both are taken again (twice at most).  The
-    names matched are left in ``device_ms.names``."""
+    trace, and no other, or both are taken again (four times at most).
+    The names matched are left in ``device_ms.names``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -302,7 +333,7 @@ def device_ms(fn, n, flush, kernel=None, names=True):
                      else not any(f in e.key for f in FLUSH_KERNELS))]
 
     what = kernel or "the library call"
-    for attempt in range(3):
+    for attempt in range(5):
         one = {e.key: e.count for e in trace(1)}
         rows = trace(n)
         seen = {e.key: e.count for e in rows}
@@ -312,7 +343,7 @@ def device_ms(fn, n, flush, kernel=None, names=True):
             f"{sorted(one.values())} launches, {n} calls "
             f"{sorted(seen.values())}")
     else:
-        raise AssertionError(f"profiler lost launches of {what} in three "
+        raise AssertionError(f"profiler lost launches of {what} in five "
                              f"traces")
     device_ms.names = sorted(seen)
     if kernel is None and names:
@@ -396,6 +427,40 @@ def k2_timing(dev, flush, pools, pos, lens, h, hkv, d, ps):
                     q, kp, vp, tb, pos), 5, flush),
                 library_ms=time_ms(lib, 50, flush),
                 library_device_ms=device_ms(lib, 50, flush),
+                bound_ms=bms, bound_by=by)
+
+
+def k3_timing(dev, flush, pools, lens3, s_real, h, hkv, d, ps,
+              q_chunk=16):
+    """K3 (bf16) timed beside its plain version and causal SDPA on the
+    gathered K/V of the prompt's pages, with its bound: each real query
+    attends the keys up to itself."""
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    q, kp, vp, tb = pools
+    npg = -(-s_real // ps)
+    qk = s_real * (s_real + 1) // 2
+    nb = 2 * q[:, :s_real].numel() * 2 + 2 * s_real * hkv * d * 2 + \
+        tb.numel() * 4
+    bms, by = bound(nb, 4 * h * d * qk, "bf16")
+    kd, vd = sdpa_kv(kp, vp, tb[:, :npg], h, hkv, d)
+    qd = q.transpose(1, 2).contiguous()
+
+    def lib():
+        # top-left causal: query i reads keys 0..i of the gathered pages
+        return torch.nn.functional.scaled_dot_product_attention(
+            qd, kd, vd, is_causal=True)
+
+    def kern():
+        return pops.paged_prefill_fwd(q, kp, vp, tb, lens3, q_chunk=q_chunk)
+
+    return dict(ms=time_ms(kern, 10, flush),
+                device_ms=device_ms(kern, 10, flush,
+                                    "paged_prefill_mma_kernel"),
+                plain_ms=time_ms(lambda: pops.paged_prefill_ref(
+                    q, kp, vp, tb, lens3, q_chunk=q_chunk), 1, flush),
+                library_ms=time_ms(lib, 10, flush),
+                library_device_ms=device_ms(lib, 10, flush, names=False),
                 bound_ms=bms, bound_by=by)
 
 
@@ -925,16 +990,16 @@ K1_DECODE = (("llama", 2048, 8192, 8), ("llama", 2048, 8192, 2),
              ("mamba", 3072, 1536, 4))
 
 
-def phase_k1_decode(dev, flush, g):
+def phase_k1_decode(dev, flush, g, shapes=K1_DECODE):
     """K1's decode layout at M = 8 beside bf16 ``torch.matmul`` on the
     dequantized weight, with its byte bound; bitwise first.  Returns one
-    dict per (shape, bits)."""
+    dict per (label, K, N, bits) of ``shapes``."""
     from repro_torch.kernels.quant_matmul import ops as qops
     from repro_torch.kernels.quant_matmul import ref as qref
 
     out = []
     m = 8
-    for label, kk, n, bits in K1_DECODE:
+    for label, kk, n, bits in shapes:
         qmax = 2 ** (bits - 1) - 1
         xq = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
                            dtype=torch.int8)
@@ -979,18 +1044,19 @@ def phase_k1_decode(dev, flush, g):
     return out
 
 
-def phase_k1_prefill(dev, flush, g):
-    """K1's tiles at both serving paths' prefill shapes, 4- and 8-bit,
-    each beside two yardsticks on the same operands: bf16 ``torch.matmul``
-    on the dequantized weight and ``torch._int_mm`` (int8 through
-    cuBLASLt) on the unpacked int8 weight.  Event and profiler device
-    times for all three.  Returns one dict per (shape, bits)."""
+def phase_k1_prefill(dev, flush, g, shapes=K1_PREFILL, widths=(4, 8)):
+    """K1's tiles at the serving paths' prefill shapes (``shapes``: label,
+    M, K, N), at each bit width of ``widths``, each beside two yardsticks
+    on the same operands: bf16 ``torch.matmul`` on the dequantized weight
+    and ``torch._int_mm`` (int8 through cuBLASLt) on the unpacked int8
+    weight.  Event and profiler device times for all three.  Returns one
+    dict per (shape, bits)."""
     from repro_torch.kernels.quant_matmul import ops as qops
     from repro_torch.kernels.quant_matmul import ref as qref
 
     out = []
-    for label, m, kk, n in K1_PREFILL:
-        for bits in (4, 8):
+    for label, m, kk, n in shapes:
+        for bits in widths:
             qmax = 2 ** (bits - 1) - 1
             xq = torch.randint(-127, 128, (m, kk), generator=g, device=dev,
                                dtype=torch.int8)
@@ -1425,11 +1491,14 @@ def phase_k4(dev, flush):
 K5_SHAPE = (48, 64, 128)      # mamba2-780m: heads, head_dim, state
 
 
-def phase_k5(dev, flush):
+def phase_k5(dev, flush, shape=K5_SHAPE, checked=(1, 2, 8, 509), c=8):
+    """K5 bitwise against its plain version at (C, H, P, N) for each C of
+    ``checked``, s0 zero and random, then timed at ``c`` chunks beside
+    the plain version and its byte bound."""
     from repro_torch.kernels.ssd_scan import ops as sops
 
     g = torch.Generator(device=dev).manual_seed(5)
-    h, p, n = K5_SHAPE
+    h, p, n = shape
 
     def case(c, zero_s0):
         dec = torch.rand(c, h, generator=g, device=dev) * 0.7 + 0.3
@@ -1439,9 +1508,9 @@ def phase_k5(dev, flush):
         return dec, s_in, s0
 
     k5_err = 0.0
-    for c in (1, 2, 8, 509):
+    for cc in checked:
         for zero_s0 in (True, False):
-            args = case(c, zero_s0)
+            args = case(cc, zero_s0)
             prefix, final = sops.ssd_scan(*args)
             torch.cuda.synchronize()
             want_p, want_f = sops.ssd_scan_ref(*args)
@@ -1450,15 +1519,13 @@ def phase_k5(dev, flush):
             if not (torch.equal(prefix, want_p) and torch.equal(final,
                                                                 want_f)):
                 raise AssertionError(
-                    f"K5 not bitwise at C={c}, s0 "
+                    f"K5 not bitwise at C={cc}, s0 "
                     f"{'zero' if zero_s0 else 'random'}: max |diff| {err}")
             k5_err = max(k5_err, err)
             del args, prefix, final, want_p, want_f
     log(f"[kernels] K5 ssd_scan: bitwise equal to the plain version at "
-        f"(C, {h}, {p}, {n}) for C in {{1, 2, 8, 509}}, s0 zero and "
-        f"random")
-    # timed at C = 8: a 2048-token prompt at chunk 256
-    c = 8
+        f"(C, {h}, {p}, {n}) for C in {set(checked)}, s0 zero and random")
+    # timed at c chunks (mamba2-780m: a 2048-token prompt at chunk 256)
     copies = [case(c, False) for _ in range(4)]
     it = iter(range(10 ** 9))
 
@@ -1867,9 +1934,11 @@ def _planned(layer):
             if isinstance(v, dict) and isinstance(v["w"], nnq.PackedLinear)}
 
 
-def phase_mamba_layer(cfg, p_dev, dev, label):
-    """One full-width mamba2-780m layer's prefill on the card (K5, and K1
-    for each plan-bound projection) against the same layer on the CPU
+def phase_mamba_layer(cfg, p_dev, dev, label, lens=(2048, 509),
+                      tag="mamba"):
+    """One full-width Mamba-2 layer's prefill (mamba2-780m's, or jamba's
+    with ``tag="jamba"``) at each length of ``lens`` on the card (K5, and
+    K1 for each plan-bound projection) against the same layer on the CPU
     (the plain versions)."""
     import copy
     from repro_torch.kernels.quant_matmul import ops as qops
@@ -1887,7 +1956,7 @@ def phase_mamba_layer(cfg, p_dev, dev, label):
     getw = lm._make_getw(cfg, None)
     g = torch.Generator(device=dev).manual_seed(6)
     errs = []
-    for s in (2048, 509):
+    for s in lens:
         x = torch.randn(1, s, cfg.d_model, generator=g,
                         device=dev).to(torch.bfloat16)
         before = sops.ssd_scan.launches, qops.quant_matmul.launches
@@ -1897,7 +1966,7 @@ def phase_mamba_layer(cfg, p_dev, dev, label):
         n5 = sops.ssd_scan.launches - before[0]
         n1 = qops.quant_matmul.launches - before[1]
         if (n5, n1) != (1, k1_per_call):
-            raise AssertionError(f"mamba {label} layer on the card: {n5} "
+            raise AssertionError(f"{tag} {label} layer on the card: {n5} "
                                  f"K5 and {n1} K1 launches, need 1 and "
                                  f"{k1_per_call}")
         y_c, st_c = blocks.mamba2_layer(p_cpu, x.cpu(), cfg, mode="prefill",
@@ -1908,11 +1977,11 @@ def phase_mamba_layer(cfg, p_dev, dev, label):
                       / st_c["ssm"].norm())
         if not (torch.isfinite(y).all() and torch.isfinite(st["ssm"]).all()
                 and rel_y <= 1e-2 and rel_s <= 1e-2):
-            raise AssertionError(f"mamba {label} layer card vs CPU at "
+            raise AssertionError(f"{tag} {label} layer card vs CPU at "
                                  f"S={s}: relative L2 error y {rel_y}, "
                                  f"state {rel_s} (bound 1e-2)")
         errs.append((s, blocks.ssm_chunk(cfg, s), rel_y, rel_s))
-    log(f"[mamba] one full-width {label} layer's prefill, card (K5"
+    log(f"[{tag}] one full-width {label} Mamba-2 layer's prefill, card (K5"
         f"{', K1 x %d' % k1_per_call if k1_per_call else ''}) vs CPU "
         f"(plain versions), relative L2 error of output / final state: "
         + "; ".join(f"S={s} (chunk {q}) {ry:.3g} / {rs:.3g}"
@@ -2074,17 +2143,17 @@ DEVICE_CLASSES = (("K1", ("qmv_kernel", "qmm_kernel")),
                                        "xmma", "Kernel2", "sm90_")))
 
 
-def _device_split(prof):
+def _device_split(prof, classes=DEVICE_CLASSES):
     """Device ms of one profiled window by class: the port's kernels,
     cuBLAS's products (the expert banks, router, lm_head, float
     projections) and everything else (elementwise, sorts, gathers)."""
-    out = {k: 0.0 for k, _ in DEVICE_CLASSES}
+    out = {k: 0.0 for k, _ in classes}
     out["other"] = 0.0
     other = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = next((k for k, keys in DEVICE_CLASSES
+        name = next((k for k, keys in classes
                      if any(x in e.key for x in keys)), "other")
         out[name] += e.self_device_time_total / 1e3
         if name == "other":
@@ -2095,9 +2164,11 @@ def _device_split(prof):
 
 def _moe_prefill_gap(cfg, params, plan, toks, dev):
     """Paged (K3, and K3's plain version as the witness) vs dense prefill
-    logits of one prompt whose length is a multiple of 16: the padded
-    paged prefill then sees the dense path's token count, so the same
-    capacity.  Returns relative L2 errors {"k3", "plain"}."""
+    logits of one prompt: on a dense stack of a length that is a multiple
+    of 16 (the padded paged prefill then sees the dense path's token
+    count, so the same MoE capacity), on a hybrid of any length (it
+    prefills unpadded).  Returns relative L2 errors {"k3", "plain"} to
+    the dense logits and "k3_vs_plain" between the two paged ones."""
     from repro_torch.kernels.paged_attention import ops as pops
     from repro_torch.models import lm
     from repro_torch.serve import engine
@@ -2109,22 +2180,103 @@ def _moe_prefill_gap(cfg, params, plan, toks, dev):
     dense, _ = lm.forward(cfg, srv.params, {"tokens": torch.as_tensor(
         toks[None], device=dev)}, mode="prefill", logits_mode="last")
     dense = dense[:, -1].float()
-    out = {}
+    out, paged = {}, {}
     for name, k3 in (("k3", kernel), ("plain", pops.paged_prefill_ref)):
         srv.begin()
         h = srv.backend.alloc(0, 0, toks.size)
         pops.paged_prefill_fwd = k3
         try:
-            paged = srv._run_prefill(srv.backend, h, toks).float()
+            paged[name] = srv._run_prefill(srv.backend, h, toks).float()
         finally:
             pops.paged_prefill_fwd = kernel
-        if paged.shape != (1, lm.padded_vocab(cfg)) or not torch.isfinite(
-                paged).all():
+        if paged[name].shape != (1, lm.padded_vocab(cfg)) or \
+                not torch.isfinite(paged[name]).all():
             raise AssertionError(f"{cfg.name} paged prefill logits: shape "
-                                 f"{tuple(paged.shape)} or non-finite")
-        out[name] = ((paged - dense).norm() / dense.norm()).item()
+                                 f"{tuple(paged[name].shape)} or non-finite")
+        out[name] = ((paged[name] - dense).norm() / dense.norm()).item()
         srv.end()
+    out["k3_vs_plain"] = ((paged["k3"] - paged["plain"]).norm()
+                          / paged["plain"].norm()).item()
     return out
+
+
+def _serve_counted(cfg, params, run_plan, prompts, new, dev, counters,
+                   smi, tag, *, max_len, slots, need, at_least=False):
+    """Serve ``prompts`` greedily for ``new`` tokens each through a paged
+    server (16-token pages) and hold its kernel launches: every counter
+    is zeroed just before the serve, and ``need(server, steps,
+    admissions)`` gives the launches required of it (any counter it does
+    not name: 0), exactly, or at least with ``at_least`` (a 0 stays
+    exact).  Also held: finite logits, full-length streams and, on a
+    hybrid, every paged prefill at the prompt's exact length.  Returns
+    (the server, the run's figures)."""
+    from repro_torch.serve import engine
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+
+    t0 = time.perf_counter()
+    server = engine.InferenceServer(
+        cfg, params, plan=run_plan, max_len=max_len, max_batch=slots,
+        cache="paged", page_size=16, device=dev)
+    seen, widths = [0], []
+    _check_logits(server, seen)
+    if server._has_ssm:
+        if not server._paged_kv:
+            raise AssertionError(f"{tag}: the paged server does not "
+                                 f"prefill into KV pages")
+        inner = server._prefill_paged
+
+        def exact(params_, batch, *rest):
+            widths.append(int(batch["tokens"].shape[1]))
+            return inner(params_, batch, *rest)
+
+        server._prefill_paged = exact
+    reqs = [Request(uid=i, prompt=p, sampling=SamplingParams(max_tokens=new))
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    t1 = time.perf_counter()
+    out = server.serve(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    got = {k: fn.launches for k, fn in counters.items()}
+    st = server.stats
+    lens = [int(p.size) for p in prompts]
+    for i in range(len(prompts)):
+        if len(out[i]) != new:
+            raise AssertionError(f"{tag}: request {i} gave {len(out[i])} "
+                                 f"of {new} tokens")
+    steps, adm = st["decode_steps"], st["admitted"]
+    want = need(server, steps, adm)
+    if at_least:
+        bad = {k: got[k] for k, lo in want.items()
+               if got[k] < lo or (lo == 0 and got[k] != 0)}
+    else:
+        bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{tag}: launches {got} after {steps} decode "
+                             f"steps and {adm} admissions; need "
+                             f"{'at least ' if at_least else ''}{want}")
+    if server._has_ssm and sorted(widths) != sorted(lens):
+        raise AssertionError(f"{tag}: paged prefills of {widths} tokens, "
+                             f"prompts of {lens}")
+    tok = sum(len(v) for v in out.values())
+    mem = st["memory"]
+    log(f"{tag}: {len(prompts)} requests (prompts {lens}) x {new} tokens, "
+        f"{steps} decode steps, {adm} admissions in {dt:.2f} s = "
+        f"{tok / dt:.1f} tok/s (set-up {setup:.1f} s); {seen[0]} logits "
+        f"rows finite; {'every prefill unpadded; ' if widths else ''}"
+        f"launches {got}; memory_report pages_in_use peak "
+        f"{mem['peak_pages_in_use']} of {mem['n_pages']} "
+        f"({mem['bytes_per_page']} B a page), ssm_slot_bytes "
+        f"{mem['ssm_slot_bytes']}, peak_cache_bytes "
+        f"{mem['peak_cache_bytes']}; {smi}")
+    run = dict(launches=got, decode_steps=steps, admitted=adm, seconds=dt,
+               tok_s=tok / dt, memory={k: v for k, v in mem.items()
+                                       if isinstance(v, (int, float))})
+    return server, run
 
 
 def phase_moe(dev, counters, smi):
@@ -2135,8 +2287,6 @@ def phase_moe(dev, counters, smi):
     from repro_torch.configs import registry
     from repro_torch.models import lm
     from repro_torch.serve import engine
-    from repro_torch.serve.sampling import SamplingParams
-    from repro_torch.serve.scheduler import Request
 
     result = {}
     for arch, n_layers, max_len, slots, lens, new, n_float in MOE_PATHS:
@@ -2165,48 +2315,19 @@ def phase_moe(dev, counters, smi):
                                        ("float", None, n_float)):
             if not n_req:
                 continue
-            t1 = time.perf_counter()
-            server = engine.InferenceServer(
-                cfg, params, plan=run_plan, max_len=max_len,
-                max_batch=slots, cache="paged", page_size=16, device=dev)
-            seen = [0]
-            _check_logits(server, seen)
-            reqs = [Request(uid=i, prompt=prompts[i],
-                            sampling=SamplingParams(max_tokens=new))
-                    for i in range(n_req)]
-            torch.cuda.synchronize()
-            setup = time.perf_counter() - t1
-            for fn in counters.values():
-                fn.launches = 0
-            t1 = time.perf_counter()
-            out = server.serve(reqs)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t1
-            got = {k: fn.launches for k, fn in counters.items()}
-            st = server.stats
-            for i in range(n_req):
-                if len(out[i]) != new:
-                    raise AssertionError(f"{arch} {label}: request {i} gave "
-                                         f"{len(out[i])} of {new} tokens")
-            steps, adm = st["decode_steps"], st["admitted"]
-            need = {"paged_attention": L * steps, "paged_prefill": L * adm,
-                    "quant_matmul": 7 * L * (steps + adm)
-                    if run_plan is not None else 0}
-            for k, lo in need.items():
-                if got[k] < lo or (lo == 0 and got[k] != 0):
-                    raise AssertionError(f"{arch} {label}: {k} launched "
-                                         f"{got[k]} times, need "
-                                         f"{'>= %d' % lo if lo else '0'}")
-            tok = sum(len(v) for v in out.values())
-            log(f"[moe] {arch} {label}: {n_req} requests (prompts "
-                f"{list(lens[:n_req])}) x {new} tokens, {steps} decode "
-                f"steps, {adm} admissions in {dt:.2f} s = {tok / dt:.1f} "
-                f"tok/s (set-up {setup:.1f} s); {seen[0]} logits rows "
-                f"finite; launches {got}; {smi}")
-            runs[label] = dict(launches=got, decode_steps=steps,
-                               admitted=adm, seconds=dt, tok_s=tok / dt)
+
+            def need(server, steps, adm, planned=run_plan is not None):
+                return {"paged_attention": L * steps,
+                        "paged_prefill": L * adm,
+                        "quant_matmul": 7 * L * (steps + adm) if planned
+                        else 0}
+
+            server, runs[label] = _serve_counted(
+                cfg, params, run_plan, prompts[:n_req], new, dev, counters,
+                smi, f"[moe] {arch} {label}", max_len=max_len, slots=slots,
+                need=need, at_least=True)
             if label == "plan" and arch.startswith("llama4"):
-                runs["decode_split"] = _moe_decode_profile(
+                runs["decode_split"] = _decode_profile(
                     server, cfg, prompts, smi)
             del server
         rel = _moe_prefill_gap(cfg, params, plan, prompts[0][:64], dev)
@@ -2233,12 +2354,14 @@ def phase_moe(dev, counters, smi):
     return result
 
 
-def _moe_decode_profile(server, cfg, prompts, smi):
+def _decode_profile(server, cfg, prompts, smi, tag="moe",
+                    classes=DEVICE_CLASSES):
     """The device time of a decode step by class: 8 requests of 64 prompt
     tokens served under torch.profiler twice, for 1 token (admissions
     only) and for 17 (the same admissions and 16 decode steps); the
     difference over the decode steps splits a step between cuBLAS's
-    products (the expert banks above all), K1, K2, K3 and the rest."""
+    products (the expert banks above all), K1, K2, K3 (K5 for jamba)
+    and the rest."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.sampling import SamplingParams
@@ -2255,20 +2378,21 @@ def _moe_decode_profile(server, cfg, prompts, smi):
             server.serve(reqs)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        windows.append((_device_split(prof), wall,
+        windows.append((_device_split(prof, classes), wall,
                         server.stats["decode_steps"]))
     (adm, wall_a, _), (full, wall_f, steps) = windows
     per_step = {k: (full[k] - adm[k]) / steps for k in full}
     wall_step = (wall_f - wall_a) / steps
     busy = sum(per_step.values())
-    log(f"[moe] {cfg.name} plan-bound decode step (8 slots, 64-token "
-        f"prompts; {steps} steps, profiled): {wall_step:.2f} ms wall, "
-        f"{busy:.2f} ms device ({100 * busy / wall_step:.1f}% busy); "
+    log(f"[{tag}] {cfg.name} plan-bound decode step (8 slots, 64-token "
+        f"prompts; {steps} steps, profiled): {wall_step:.2f} ms wall "
+        f"({8e3 / wall_step:.1f} decode tok/s), {busy:.2f} ms device "
+        f"({100 * busy / wall_step:.1f}% busy); "
         f"device ms a step by class: "
         + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items())
         + f"; 8 admissions {sum(adm.values()):.2f} ms device in "
         f"{wall_a:.1f} ms wall; {smi}")
-    log(f"[moe] largest 'other' kernels of the 17-token window (ms): "
+    log(f"[{tag}] largest 'other' kernels of the 17-token window (ms): "
         + "; ".join(f"{k} {v:.2f}" for k, v in _device_split.other))
     return dict(step_ms=per_step, step_wall_ms=wall_step, decode_steps=steps,
                 admissions_device_ms=adm, admissions_wall_ms=wall_a)
@@ -4085,38 +4209,17 @@ def phase_vlm_attention(dev, flush):
                             h, hkv, d, ps),
                   shape=f"B=8 H={h} Hkv={hkv} D={d} page {ps}, table "
                   f"{width}, lens {VLM_K2_LENS}, bf16", max_abs_err_bf16=err2)
-        # K3: each real query attends the keys up to itself
-        qk = VLM_K3_LEN * (VLM_K3_LEN + 1) // 2
-        nb = 2 * q3[:, :VLM_K3_LEN].numel() * 2 + \
-            2 * VLM_K3_LEN * hkv * d * 2 + tb3.numel() * 4
-        bms, by = bound(nb, 4 * h * d * qk, "bf16")
-        kd, vd = sdpa_kv(kp3, vp3, tb3, h, hkv, d)
-        qd = q3.transpose(1, 2).contiguous()
-
-        def lib3():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qd, kd, vd, is_causal=True)
-
-        def k3():
-            return pops.paged_prefill_fwd(q3, kp3, vp3, tb3, lens3)
-
-        r3.update(
-            shape=f"B=1 S={VLM_K3_LEN} (padded {s3}) H={h} Hkv={hkv} D={d} "
-            f"page {ps}, bf16", max_abs_err_bf16=err3,
-            ms=time_ms(k3, 10, flush),
-            device_ms=device_ms(k3, 10, flush, "paged_prefill_mma_kernel"),
-            plain_ms=time_ms(lambda: pops.paged_prefill_ref(
-                q3, kp3, vp3, tb3, lens3), 1, flush),
-            library_ms=time_ms(lib3, 10, flush),
-            library_device_ms=device_ms(lib3, 10, flush, names=False),
-            bound_ms=bms, bound_by=by)
+        r3.update(k3_timing(dev, flush, (q3, kp3, vp3, tb3), lens3,
+                            VLM_K3_LEN, h, hkv, d, ps),
+                  shape=f"B=1 S={VLM_K3_LEN} (padded {s3}) H={h} Hkv={hkv} "
+                  f"D={d} page {ps}, bf16", max_abs_err_bf16=err3)
         for name, r in (("K2", r2), ("K3", r3)):
             log(f"[kernels] {name} at {r['shape']}: {r['ms']:.4f} ms "
                 f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.2f} "
                 f"ms, SDPA {r['library_ms']:.4f} (device "
                 f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f} "
                 f"ms ({r['bound_by']})")
-        del q, kp, vp, q3, kp3, vp3, kd, vd, qd
+        del q, kp, vp, q3, kp3, vp3
     torch.cuda.empty_cache()
     return out
 
@@ -4545,6 +4648,301 @@ def phase_fleet(dev, counters, smi):
                                        run2["wall"]), peak=peak)
 
 
+# path 11, the hybrid (jamba) at published widths: one super-block of its
+# 72 layers (7 Mamba-2 layers and one attention layer, a dense FFN on the
+# even slots and top-2 MoE on the odd ones) with 8 of the 16 experts a
+# bank.  The prompts' SSM chunks (the largest divisor of the length up to
+# 256) are 1, 33, 255, 256, 1, 250, 89 and 205: a prime length's chunk
+# is 1, so 257 tokens scan C = 257 chunks.
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 8
+JAMBA_LENS = (1, 33, 255, 256, 257, 1000, 2047, 4100)
+JAMBA_NEW = 32
+JAMBA_FLOAT, JAMBA_FLOAT_NEW = (256, 1000), 16
+JAMBA_MAX_LEN, JAMBA_SLOTS, JAMBA_PS = 4160, 8, 16
+JAMBA_LAYER_LENS = (1000, 257)      # the layer held card vs CPU
+JAMBA_CLASSES = DEVICE_CLASSES + (("K5", ("ssd_scan",)),)
+
+
+def _jamba_cfg():
+    import dataclasses
+
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get(JAMBA_ARCH),
+                               n_layers=JAMBA_LAYERS,
+                               n_experts=JAMBA_EXPERTS)
+
+
+def jamba_k1_shapes(cfg):
+    """The (K, N) of jamba's planned projections: Mamba-2 ``in_z`` /
+    ``in_x``, ``out_proj``, ``in_b`` / ``in_c`` and ``in_dt`` (at full
+    width N = ssm_state = ssm_heads = 128), the dense FFN's gate / up and
+    down; the attention's are qwen2-vl's (path 9)."""
+    d, di, f = cfg.d_model, cfg.d_inner, cfg.d_ff
+    return tuple(dict.fromkeys(((d, di), (di, d), (d, cfg.ssm_state),
+                                (d, cfg.ssm_heads), (d, f), (f, d))))
+
+
+def jamba_k1_cases():
+    """(M, K, N, bits) of path 11's K1 calls: every precision group of
+    the seed-0 synthetic plan path 11 binds (drawn over the meta-device
+    tree: it depends on the shapes only) and the five full widths at
+    8/4/2 bits, at M 1 and 8 (the decode layout), 257 and 4100 (tiles;
+    the hybrid's prefill is unpadded, so M is the prompt length)."""
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+
+    cfg = _jamba_cfg()
+    meta = lm.init_params(cfg, device="meta")
+    plan = engine.synthetic_plan(cfg, meta, bits=None, seed=0)
+    widths = {(kk, n, b) for kk, n in jamba_k1_shapes(cfg)
+              for b in (8, 4, 2)}
+    for grp, w in lm.serve_weight_groups(cfg, meta).items():
+        cb = np.asarray(plan.channel_bits[grp])
+        widths.update((w.shape[1], int((cb == b).sum()), b)
+                      for b in (8, 4, 2) if (cb == b).any())
+    return sorted((m, kk, n, b) for m in (1, 8, 257, max(JAMBA_LENS))
+                  for kk, n, b in widths)
+
+
+def phase_jamba_kernels(dev, flush):
+    """Path 11's new kernel shapes: K5 bitwise at (C, 128, 128, 128) for
+    C = 1, 20 and 257 (jamba's heads, head dim and state) and timed at
+    C = 20 (a 4100-token prompt at chunk 205); K1 bitwise at
+    :func:`jamba_k1_cases`, its decode layout timed at the five new (K,
+    N), 4-bit, beside bf16 ``torch.matmul``, and its tiles at M = 4100,
+    K x N 8192 x 24576 (the dense FFN's gate / up), 4-bit, beside bf16
+    ``torch.matmul`` and ``torch._int_mm``, each with its bound."""
+    cfg = _jamba_cfg()
+    k5 = phase_k5(dev, flush, shape=(cfg.ssm_heads, cfg.ssm_head_dim,
+                                     cfg.ssm_state),
+                  checked=(1, 20, 257), c=20)
+    log(f"[kernels] K5 at jamba's {k5['shape']}: {k5['ms']:.4f} ms (device "
+        f"{k5['device_ms']:.4f}); plain {k5['plain_ms']:.4f}; bound "
+        f"{k5['bound_ms']:.4f} ms ({k5['bound_by']})")
+    cases = jamba_k1_cases()
+    err = _k1_bitwise(dev, cases, 23, "jamba")
+    log(f"[kernels] K1 quant_matmul at path 11's shapes: bitwise equal to "
+        f"the int32 plain version in {len(cases)} cases, M in "
+        f"{sorted({c[0] for c in cases})}, (K, N) {jamba_k1_shapes(cfg)} "
+        f"at 8/4/2 bits and every precision group of the plan (N from "
+        f"{min(c[2] for c in cases)} to {max(c[2] for c in cases)})")
+    g = torch.Generator(device=dev).manual_seed(23)
+    decode = phase_k1_decode(dev, flush, g, shapes=tuple(
+        ("jamba", kk, n, 4) for kk, n in jamba_k1_shapes(cfg)))
+    tiles = phase_k1_prefill(dev, flush, g, widths=(4,), shapes=(
+        ("jamba", max(JAMBA_LENS), cfg.d_model, cfg.d_ff),))
+    torch.cuda.empty_cache()
+    k3 = phase_jamba_k3(dev, flush, cfg)
+    return dict(k5=k5, k3=k3, k1=dict(jamba_cases=len(cases),
+                                      jamba_max_abs_err=err,
+                                      jamba_decode=decode,
+                                      jamba_tiles=tiles))
+
+
+def phase_jamba_k3(dev, flush, cfg):
+    """K3 (bf16) against its plain version at path 11's exact prompt
+    lengths (no padding: the last 64-row tile is partial at every odd
+    length), G = 8, D = 128, over a table of path 11's width (null pages
+    past the prompt), each at the q chunk the path gives it
+    (``prefill_q_chunk``); timed at the longest beside causal SDPA."""
+    from repro_torch.kernels.paged_attention import ops as pops
+
+    rng = np.random.default_rng(23)
+    h, hkv, d, ps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, JAMBA_PS
+    errs, tol = {}, 1e-2
+    for n in JAMBA_LENS:
+        pools = pool_case(rng, [n], h=h, hkv=hkv, d=d, ps=ps,
+                          width=JAMBA_MAX_LEN // ps, dtype=torch.bfloat16,
+                          dev=dev, s=n)
+        lens3 = torch.as_tensor([n], dtype=torch.int32, device=dev)
+        qc = pops.prefill_q_chunk(n)
+        got = pops.paged_prefill_fwd(*pools, lens3, q_chunk=qc)
+        torch.cuda.synchronize()
+        want = pops.paged_prefill_ref(*pools, lens3, q_chunk=qc)
+        errs[n] = (got.float() - want.float()).abs().max().item()
+        if not (torch.isfinite(got).all() and errs[n] <= tol):
+            raise AssertionError(f"K3 at jamba's S={n} (unpadded, G=8, "
+                                 f"D=128, bf16): max |diff| {errs[n]} > "
+                                 f"{tol} or non-finite")
+        if n == max(JAMBA_LENS):
+            r = k3_timing(dev, flush, pools, lens3, n, h, hkv, d, ps,
+                          q_chunk=qc)
+        del pools, got, want
+    r.update(shape=f"B=1 S={max(JAMBA_LENS)} (unpadded) H={h} Hkv={hkv} "
+             f"D={d} page {ps}, table {JAMBA_MAX_LEN // ps}, bf16",
+             lens=list(JAMBA_LENS), max_abs_err=max(errs.values()),
+             max_abs_err_by_len=errs)
+    log(f"[kernels] K3 at path 11's exact lengths (G=8, D=128, bf16, page "
+        f"{ps}): max |diff| against its plain version "
+        + ", ".join(f"S={n} {e:.3g}" for n, e in errs.items())
+        + f" (bound {tol}); at {r['shape']}: {r['ms']:.4f} ms (device "
+        f"{r['device_ms']:.4f}), plain {r['plain_ms']:.2f} ms, SDPA "
+        f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f}), "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return r
+
+
+def _jamba_admissions(server, prompts, smi):
+    """Device ms of each admission by class (K1, K3, K5, cuBLAS, other):
+    every prompt served alone for one token under torch.profiler (the
+    prefill, no decode step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.sampling import SamplingParams
+    from repro_torch.serve.scheduler import Request
+
+    out = []
+    for i, p in enumerate(prompts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            server.serve([Request(uid=200 + i, prompt=p,
+                                  sampling=SamplingParams(max_tokens=1))])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        split = _device_split(prof, JAMBA_CLASSES)
+        out.append(dict(tokens=int(p.size), wall_ms=wall, device_ms=split))
+        log(f"[jamba] admission of {p.size} tokens: {wall:.1f} ms wall, "
+            f"{sum(split.values()):.3f} ms device: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f"; {smi}")
+    return out
+
+
+def _jamba_need(server, steps, adm):
+    """Path 11's launches: K5 once a Mamba-2 layer an admission, K3 once
+    an attention layer an admission, K2 once an attention layer a decode
+    step, K1 once a precision group of every planned projection a
+    forward (at least one a plan group) plan-bound and never float, no
+    other kernel.  The server must prefill into KV pages unpadded."""
+    from repro_torch.models import lm
+
+    if not (server._paged_kv and server._has_ssm):
+        raise AssertionError("jamba: the paged server does not prefill "
+                             "into KV pages at exact length")
+    cfg = server.cfg
+    pat = lm.block_pattern(cfg)
+    n_mamba = lm.n_superblocks(cfg) * sum(p.mixer == "mamba" for p in pat)
+    n_attn = lm.n_superblocks(cfg) * len(pat) - n_mamba
+    per_fwd = _k1_groups(server.params["blocks"])
+    if server.plan is not None and per_fwd < len(lm._plan_weights(cfg)):
+        raise AssertionError(f"jamba: {per_fwd} K1 launches a forward, "
+                             f"fewer than the plan's groups")
+    return {"ssd_scan": n_mamba * adm, "paged_prefill": n_attn * adm,
+            "paged_attention": n_attn * steps,
+            "quant_matmul": per_fwd * (steps + adm)}
+
+
+def phase_jamba(dev, counters, smi):
+    """Path 11: the hybrid (jamba) served at published widths, bf16
+    weights from seed 0, one super-block and 8 experts a bank, on K1, K2,
+    K3 and K5."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+
+    full, cfg = registry.get(JAMBA_ARCH), _jamba_cfg()
+    bank_gb = 3 * cfg.d_model * cfg.expert_d_ff * 2 / 1e9
+    log(f"[jamba] {JAMBA_ARCH} at published widths: d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff and "
+        f"moe_d_ff {cfg.d_ff} / {cfg.expert_d_ff}, top-"
+        f"{cfg.experts_per_token} MoE on the odd slots, Mamba-2 d_inner "
+        f"{cfg.d_inner} ({cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}), vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}.  Cut: depth {full.n_layers} -> {cfg.n_layers} "
+        f"(one super-block: 7 Mamba-2 + 1 attention layer, 4 MoE FFNs) and "
+        f"experts {full.n_experts} -> {cfg.n_experts} a bank: at "
+        f"{full.n_experts} experts one super-block's 4 MoE layers hold "
+        f"{4 * full.n_experts * bank_gb:.1f} GB of bf16 banks (expert "
+        f"banks stay float under a plan), more than one 80 GB card; every "
+        f"matrix keeps its published shape and top-2 routing stays")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(v.numel() for _, v in _leaves(params))
+    plan = engine.synthetic_plan(cfg, params, bits=None, seed=0)
+    log(f"[jamba] {n_par / 1e9:.3f} B bf16 parameters "
+        f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB) drawn in "
+        f"{time.perf_counter() - t0:.1f} s; {plan.summary()}")
+    result = {"params_b": n_par / 1e9}
+    result["layer_float"] = phase_mamba_layer(
+        cfg, lm._index(params["blocks"]["l0"]["mixer"], 0), dev, "float",
+        lens=JAMBA_LAYER_LENS, tag="jamba")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in JAMBA_LENS]
+
+    server, result["plan"] = _serve_counted(
+        cfg, params, plan, prompts, JAMBA_NEW, dev, counters, smi,
+        "[jamba] plan", max_len=JAMBA_MAX_LEN, slots=JAMBA_SLOTS,
+        need=_jamba_need)
+    result["plan"]["k1_per_forward"] = _k1_groups(server.params["blocks"])
+    short = [rng.integers(0, cfg.vocab, size=64).astype(np.int32)
+             for _ in range(JAMBA_SLOTS)]
+    result["decode_split"] = _decode_profile(server, cfg, short, smi,
+                                             tag="jamba",
+                                             classes=JAMBA_CLASSES)
+    result["admissions"] = _jamba_admissions(server, prompts, smi)
+    # K1 bitwise on every precision group of the plan-bound layer 0
+    # (Mamba-2) and of its dense FFN, at decode and the longest prefill
+    blk = server.params["blocks"][0]["l0"]
+    groups = {**_planned(blk["mixer"]),
+              **{f"ffn.{k}": v for k, v in _planned(blk["ffn"]).items()}}
+    cases = sorted({(m, w.n_in, wq.shape[0], b) for w in groups.values()
+                    for b, wq, _ in w.groups
+                    for m in (JAMBA_SLOTS, max(JAMBA_LENS))})
+    result["k1_err"] = _k1_bitwise(dev, cases, 11, "jamba layer 0")
+    log(f"[jamba] K1 bitwise equal to its plain version on every precision "
+        f"group of plan-bound layer 0's Mamba-2 mixer and dense FFN "
+        f"({len(cases)} cases: {', '.join(sorted(groups))} at M "
+        f"{JAMBA_SLOTS} and {max(JAMBA_LENS)})")
+    result["layer_plan"] = phase_mamba_layer(
+        cfg, blk["mixer"], dev, "plan-bound", lens=JAMBA_LAYER_LENS,
+        tag="jamba")
+    del server, blk, groups
+    _free(dev)
+    float_prompts = [prompts[JAMBA_LENS.index(n)] for n in JAMBA_FLOAT]
+    server, result["float"] = _serve_counted(
+        cfg, params, None, float_prompts, JAMBA_FLOAT_NEW, dev, counters,
+        smi, "[jamba] float", max_len=JAMBA_MAX_LEN, slots=JAMBA_SLOTS,
+        need=_jamba_need)
+    del server
+    _free(dev)
+    # paged (K3 at the prompt's exact length) vs dense prefill logits, and
+    # paged with K3 vs paged with its plain version, at 64 tokens and at
+    # two lengths whose last 64-row tile is partial
+    result["paged_vs_dense"] = {}
+    for toks in (prompts[-1][:64], prompts[1], prompts[2]):
+        rel = _moe_prefill_gap(cfg, params, plan, toks, dev)
+        rel_f = _moe_prefill_gap(cfg, params, None, toks, dev)
+        worst = max(rel["k3"], rel_f["k3"], rel["k3_vs_plain"],
+                    rel_f["k3_vs_plain"])
+        if worst > 5e-2:
+            raise AssertionError(f"jamba paged vs dense prefill logits at "
+                                 f"{toks.size} tokens: relative L2 error "
+                                 f"{rel} (plan), {rel_f} (float) > 5e-2")
+        log(f"[jamba] paged (K3, unpadded) vs dense prefill logits on a "
+            f"{toks.size}-token prompt: relative L2 error {rel['k3']:.3g} "
+            f"plan-bound, {rel_f['k3']:.3g} float (bound 5e-2); witnesses "
+            f"with K3's plain version {rel['plain']:.3g} / "
+            f"{rel_f['plain']:.3g}; K3 vs its plain version in the paged "
+            f"prefill {rel['k3_vs_plain']:.3g} / {rel_f['k3_vs_plain']:.3g}")
+        result["paged_vs_dense"][int(toks.size)] = dict(
+            plan_k3=rel["k3"], float_k3=rel_f["k3"],
+            plan_plain=rel["plain"], float_plain=rel_f["plain"],
+            plan_k3_vs_plain=rel["k3_vs_plain"],
+            float_k3_vs_plain=rel_f["k3_vs_plain"])
+    result["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[jamba] peak memory {result['peak_gib']:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); {smi}")
+    del params, plan
+    _free(dev)
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4590,10 +4988,12 @@ def main():
         """Run one phase; free what it left and print its peak memory."""
         _free(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        t_path = time.perf_counter()
         out = fn(*args)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         log(f"[memory] {name}: peak {peak:.2f} GiB "
-            f"(torch.cuda.max_memory_allocated)")
+            f"(torch.cuda.max_memory_allocated); "
+            f"{time.perf_counter() - t_path:.1f} s")
         _free(dev)
         return out
 
@@ -4618,6 +5018,16 @@ def main():
     rows["quant_matmul"].update(vlm_k1)
     rows["quant_matmul"]["max_abs_err"] = max(
         rows["quant_matmul"]["max_abs_err"], vlm_k1["vlm_max_abs_err"])
+    jamba_k = path("kernels (jamba shapes)", phase_jamba_kernels, dev,
+                   flush)
+    rows["ssd_scan"]["jamba"] = jamba_k["k5"]
+    rows["paged_prefill"]["jamba"] = jamba_k["k3"]
+    rows["paged_prefill"]["max_abs_err"] = max(
+        rows["paged_prefill"]["max_abs_err"], jamba_k["k3"]["max_abs_err"])
+    rows["quant_matmul"].update(jamba_k["k1"])
+    rows["quant_matmul"]["max_abs_err"] = max(
+        rows["quant_matmul"]["max_abs_err"],
+        jamba_k["k1"]["jamba_max_abs_err"])
     capped = path("kernels (softcap)", phase_softcap_attention, dev)
     for k, err in capped.items():
         rows[k]["softcap_max_abs_err"] = err
@@ -4638,6 +5048,7 @@ def main():
                   counters, smi)
     vlm = path("path 9 (qwen2-vl serve)", phase_vlm, dev, counters, smi)
     fleet = path("path 10 (fleet)", phase_fleet, dev, counters, smi)
+    jamba = path("path 11 (jamba serve)", phase_jamba, dev, counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -4706,6 +5117,11 @@ def main():
                    launches_encdec_plan=encdec["served"][k],
                    launches_vlm=vlm["plan"]["launches"][k],
                    launches_vlm_float=vlm["float"]["launches"][k])
+        # path 11: jamba serving, plan-bound and float
+        row.update(launches_jamba=jamba["plan"]["launches"][k],
+                   launches_jamba_float=jamba["float"]["launches"][k])
+        if k == "quant_matmul":
+            r["max_abs_err"] = max(r["max_abs_err"], jamba["k1_err"])
         row.update({
             "max_abs_err": r["max_abs_err"], "max_abs_diff": r["max_abs_err"],
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],

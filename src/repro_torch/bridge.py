@@ -9,7 +9,10 @@ into numpy arrays (for example ``jax.tree.map(np.asarray, tree)``):
 * ``lm_params_from_jax`` checks an LM tree first: ``embed``, ``blocks``,
   ``final_norm`` and ``lm_head``; every ``blocks`` leaf stacked on one
   leading ``n_superblocks`` axis (an enc-dec tree's ``enc_blocks`` on
-  the encoder's own, beside ``enc_norm``); an MoE layer's expert banks 4-D,
+  the encoder's own, beside ``enc_norm``); given the ``cfg``, each slot
+  of the super-block as its pattern has it (a hybrid's Mamba-2 layers
+  with ``norm2`` and an ``ffn``, its banks on the odd slots only); an MoE
+  layer's expert banks 4-D,
   ``(n_superblocks, E, K, N)`` with E its router's width; and, where a
   projection carries one, ``gamma (n_superblocks, C_out, |P_W|)`` (an
   expert bank's one gamma, shared by its experts, on the bank's last
@@ -33,7 +36,11 @@ import torch
 def params_from_jax(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree), device=device)
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device)
 
 
 def _require(cond: bool, msg: str):
@@ -77,6 +84,33 @@ def _check_banks(tree, path):
         _check_banks(v, f"{path}.{k}")
 
 
+def _check_pattern(tree, pattern, key: str):
+    """Each slot ``l<i>`` holds what the super-block pattern gives it: its
+    mixer (``mixer.in_x`` for Mamba-2, ``mixer.wq`` for attention), and
+    ``norm2`` with an ``ffn`` wherever the slot has one (the hybrid's
+    Mamba-2 layers too), expert banks with a router on the MoE slots
+    only (the hybrid's odd ones)."""
+    _require(sorted(tree) == sorted(f"l{i}" for i in range(len(pattern))),
+             f"{key}: slots {sorted(tree)}, the pattern has "
+             f"{len(pattern)}")
+    for i, spec in enumerate(pattern):
+        layer, where = tree[f"l{i}"], f"{key}.l{i}"
+        mixer = "in_x" if spec.mixer == "mamba" else "wq"
+        _require(mixer in layer.get("mixer", {}),
+                 f"{where}: a {spec.mixer} slot, but its mixer holds "
+                 f"{sorted(layer.get('mixer', {}))}")
+        has_ffn = spec.ffn is not None
+        _require({"norm2", "ffn"} <= set(layer) if has_ffn
+                 else not {"norm2", "ffn"} & set(layer),
+                 f"{where}: a {spec.mixer} slot "
+                 f"{'with' if has_ffn else 'without'} an FFN (norm2 and "
+                 f"ffn), holds {sorted(layer)}")
+        if has_ffn:
+            _require(("router" in layer["ffn"]) == (spec.ffn == "moe"),
+                     f"{where}.ffn: the pattern gives this slot a "
+                     f"{spec.ffn} FFN, the tree holds {sorted(layer['ffn'])}")
+
+
 def _stack_count(tree, key: str) -> int:
     shapes = list(_leaf_shapes(tree, key))
     n = {s[0] if s else None for _, s in shapes}
@@ -110,6 +144,10 @@ def lm_params_from_jax(tree, device="cpu", cfg=None):
         for k, n in want.items():
             _require(counts[k] == n, f"{k}: {counts[k]} super-blocks, "
                                      f"{cfg.name} has {n}")
+        _check_pattern(tree["blocks"], lm.block_pattern(cfg), "blocks")
+        if cfg.is_encdec:
+            _check_pattern(tree["enc_blocks"], lm.enc_pattern(cfg),
+                           "enc_blocks")
         n_pw = len(cfg.mps_precisions)
     for k in stacks:
         _check_gammas(tree[k], counts[k], n_pw, k)

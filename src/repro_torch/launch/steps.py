@@ -57,10 +57,12 @@ def make_prefill_step(cfg: ArchConfig):
 def make_paged_prefill_step(cfg: ArchConfig):
     """Prefill straight into a page pool: ``kv_caches`` is the pool tree
     (written in place), ``tables`` the slot's block tables sliced to the
-    live width, ``lens`` the (B,) real prompt lengths.  The batch's
-    ``tokens`` (or a stub frontend's ``embeddings``) may be padded to a
-    q-chunk boundary: padded rows are never written to the pool, and the
-    logits are read at ``lens[0] - 1``."""
+    live width, ``lens`` the (B,) real prompt lengths.  An attention-only
+    stack's ``tokens`` (or a stub frontend's ``embeddings``) may be padded
+    to a q-chunk boundary: padded rows are never written to the pool, and
+    the logits are read at ``lens[0] - 1``.  A hybrid's ``kv_caches``
+    holds only its attention layers' pools; its Mamba-2 layers prefill
+    from zero and return their new state in the tree."""
     def step_fn(params, batch, kv_caches, tables, lens):
         return lm.forward(cfg, params, batch, mode="prefill",
                           logits_mode="last", last_pos=lens[0] - 1,

@@ -15,15 +15,14 @@ a ``cross`` attention set; the encoder is ``enc_blocks`` (bidirectional
 attention + dense FFN, stacked over its own ``enc_layers`` super-blocks)
 and ``enc_norm``.  A batch may carry a stub frontend's ``embeddings``
 (B, S, D) in place of ``tokens``, and for enc-dec ``enc_embeddings``.
+The hybrid (jamba) mixes the families in one super-block: Mamba-2 and
+attention mixers, each layer followed by a dense or an MoE FFN.
 A tree bound to a plan (``serve.engine.apply_plan``) holds ``blocks`` as
 a tuple of per-super-block trees instead, with
 :class:`~repro_torch.nn.quantized.PackedLinear` weights; ``enc_blocks``
 stays stacked and float.  Either way the forward is a Python loop over
 super-blocks; caches keep the stacked ``(nsb, ...)`` layout and are
 updated in place.
-
-The hybrid (jamba) raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
 """
 from __future__ import annotations
 
@@ -43,14 +42,6 @@ from repro_torch.nn import blocks
 from repro_torch.nn import quantized as nnq
 from repro_torch.nn import xla_numerics
 
-_FAMILY_ITEM = {
-    "hybrid": "ROADMAP slice C1's jamba item (its Mamba-2 and MoE layers "
-              "are ported; one 8-layer super-block holds 4 MoE layers of "
-              "19.3 GB of bf16 experts each, more than one 80 GB card, so "
-              "it waits for a four-chip layout)",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str       # attn | attn_local | attn_chunked | attn_bidir | mamba
@@ -58,22 +49,12 @@ class LayerSpec:
     cross: bool = False
 
 
-def _require_ported(cfg: ArchConfig):
-    plain = not cfg.ssm_state and not cfg.is_moe
-    dense = cfg.family in ("dense", "vlm") and plain and not cfg.is_encdec
-    encdec = cfg.family == "encdec" and plain and cfg.is_encdec
-    moe = cfg.family == "moe" and cfg.is_moe and not cfg.ssm_state
-    ssm = cfg.family == "ssm" and cfg.is_ssm
-    if not (dense or encdec or moe or ssm):
-        item = _FAMILY_ITEM.get(cfg.family, "ROADMAP slice C")
-        raise NotImplementedError(
-            f"{cfg.name} (family={cfg.family}) is not ported yet; it comes "
-            f"with {item}")
-
-
 def block_pattern(cfg: ArchConfig) -> tuple[LayerSpec, ...]:
     """Decoder super-block pattern; n_layers % len(pattern) == 0."""
-    _require_ported(cfg)
+    if cfg.is_hybrid:  # jamba: 1:7 attn:mamba, MoE every other layer
+        return tuple(LayerSpec("attn" if i == cfg.attn_every // 2
+                               else "mamba", "moe" if i % 2 else "dense")
+                     for i in range(cfg.attn_every))
     if cfg.is_ssm:
         return (LayerSpec("mamba", None),)
     if cfg.attn_pattern == "local_global":
@@ -211,15 +192,16 @@ def _layer_params(cfg: ArchConfig, spec: LayerSpec, w, vec, n: int) -> dict:
     super-blocks."""
     w, vec = functools.partial(w, n=n), functools.partial(vec, n=n)
     d = cfg.d_model
-    if spec.mixer == "mamba":
-        return {"norm1": vec((d,)), "mixer": _mamba_params(cfg, w, vec)}
-    p = {"norm1": vec((d,)), "mixer": _attn_params(cfg, w, vec)}
+    p = {"norm1": vec((d,)),
+         "mixer": _mamba_params(cfg, w, vec) if spec.mixer == "mamba"
+         else _attn_params(cfg, w, vec)}
     if spec.cross:
         p["norm_cross"] = vec((d,))
         p["cross"] = _attn_params(cfg, w, vec)
-    p["norm2"] = vec((d,))
-    p["ffn"] = _moe_params(cfg, w) if spec.ffn == "moe" \
-        else _ffn_params(cfg, w)
+    if spec.ffn is not None:
+        p["norm2"] = vec((d,))
+        p["ffn"] = _moe_params(cfg, w) if spec.ffn == "moe" \
+            else _ffn_params(cfg, w)
     return p
 
 
@@ -346,7 +328,7 @@ def _superblock(cfg: ArchConfig, pattern, blk, x, s, *, mode, caches, j,
     new = {}
     for i, spec in enumerate(pattern):
         p = blk[f"l{i}"]
-        c = None if caches is None else caches[f"l{i}"]
+        c = None if caches is None else caches.get(f"l{i}")
         nc = new[f"l{i}"] = {}
         hn = blocks.rmsnorm(s, p["norm1"], cfg.norm_eps).to(x.dtype)
         if spec.mixer == "mamba":
@@ -456,7 +438,10 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     Hkv, D)`` in the projections' dtype, and for a Mamba-2 layer its SSM
     state ``(nsb, B, H, P, N)`` and conv windows ``(nsb, B, K-1, C)``.
     A prefill given caches starts each Mamba-2 layer from their SSM
-    state, as the JAX package does.
+    state, as the JAX package does; a Mamba-2 layer the given tree lacks
+    (a hybrid's paged prefill is handed only its KV pools) starts from
+    zero, and its new state is returned in the tree.  Any other missing
+    layer raises.
 
     An enc-dec decode step reads the encoder's K/V from ``cross_kv`` and
     does not run the encoder: the reference runs it over the step's one
@@ -465,10 +450,16 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     pattern = block_pattern(cfg)
     if mode == "train" and any(sp.ffn == "moe" for sp in pattern):
         raise NotImplementedError(
-            f"{cfg.name}: training an MoE stack is not ported yet (its "
-            f"expert banks share one gamma under the search, and at full "
-            f"width the f32 weights with Adam outgrow one 80 GB card); it "
-            f"comes with ROADMAP slice E's expert-parallel layout")
+            f"{cfg.name}: training an MoE or hybrid stack is not ported yet "
+            f"(its expert banks share one gamma under the search, and at "
+            f"full width the f32 weights with Adam outgrow one 80 GB card); "
+            f"it comes with ROADMAP slice E's expert-parallel layout")
+    missing = [] if caches is None else [
+        f"l{i}" for i in range(len(pattern)) if f"l{i}" not in caches]
+    if any(pattern[int(ln[1:])].mixer != "mamba" for ln in missing):
+        raise ValueError(f"{cfg.name}: the cache tree lacks {missing}; only "
+                         f"a Mamba-2 layer may be left out (it then starts "
+                         f"from zero)")
     getw = _make_getw(cfg, ctx)
     remat = mode == "train" and cfg.remat
     enc_out = None
@@ -488,6 +479,12 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
         caches = None
     elif caches is None:
         caches = _stack(out_caches)
+    elif missing:
+        # a hybrid's paged prefill is handed the KV pools alone (the
+        # cache's ``kv_caches``): its Mamba-2 layers start from zero
+        # and their new (nsb, B, ...) states come back beside the pools
+        caches = {**caches, **_stack([{ln: blk[ln] for ln in missing}
+                                      for blk in out_caches])}
     x = blocks.rmsnorm(s, params["final_norm"], cfg.norm_eps).to(x.dtype)
     if logits_mode == "hidden":
         return x, caches

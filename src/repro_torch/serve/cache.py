@@ -371,14 +371,18 @@ class PagedCache(CacheBackend):
         return n
 
     def kv_caches(self):
-        """The KV-pool tree ``{layer: {"kv": {"k","v"}}}`` the paged
-        prefill step writes the prompt into, in place."""
-        return self.caches
+        """The KV-pool subtree ``{layer: {"kv": {"k","v"}}}`` the paged
+        prefill step writes the prompt into, in place; layers without
+        attention are absent, so a hybrid's Mamba-2 layers prefill at
+        batch 1 from a zero state."""
+        return {ln: {"kv": c["kv"]} for ln, c in self.caches.items()
+                if "kv" in c}
 
     def insert(self, handle, prefill_caches):
         """Commit one admitted request's prefill.  KV pools are this
         backend's own, already written in place, so they are a pointer
-        swap; Mamba-2 states ``(nsb, 1, ...)`` go into the slot's row."""
+        swap; Mamba-2 states ``(nsb, 1, ...)`` go into the slot's row, as
+        :meth:`DenseCache.insert` puts them."""
         for ln, c in self.caches.items():
             if "kv" in c:
                 c["kv"] = prefill_caches[ln]["kv"]

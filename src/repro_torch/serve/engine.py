@@ -10,8 +10,9 @@
   ``cancel``/``end``/``serve``.  Paged prefill writes the prompt's KV
   straight into the page pool and runs kernel K3; decode runs K2 over the
   live prefix of the block tables; every planned projection runs K1.  A
-  Mamba-2 stack prefills at exact length, its inter-chunk recurrence on
-  kernel K5, and keeps one SSM state per slot instead of pages.  An MoE
+  stack with Mamba-2 layers prefills at exact length, their inter-chunk
+  recurrence on kernel K5, and keeps one SSM state per slot (beside the
+  KV pages for the hybrid, jamba).  An MoE
   stack's expert capacity counts every row of a step (idle decode slots
   and a paged prompt's padding too, as in the JAX package).
 * Observability (``obs=`` / :meth:`InferenceServer.attach_obs`): the
@@ -23,7 +24,9 @@
 The cache-backend contract is token-for-token invariance: dense and
 paged, solo, batched and preempted, with or without a plan, all emit the
 same token streams -- except under MoE, whose capacity-based dropping
-depends on the batch by design.
+depends on the batch by design, and for a preempted hybrid request,
+whose recompute prefill runs the chunked SSD where decode ran the
+recurrence (as in the JAX package).
 """
 from __future__ import annotations
 
@@ -178,7 +181,6 @@ class InferenceServer:
                 f"InferenceServer serves decoder-only token-frontend "
                 f"architectures; got {cfg.name} (family={cfg.family}, "
                 f"frontend={cfg.frontend})")
-        lm.block_pattern(cfg)            # raises for unported families
         self.device = resolve_device(device)
         self.cfg = cfg
         self.plan = plan
@@ -196,9 +198,14 @@ class InferenceServer:
                                               self.max_len, self.device,
                                               **kwargs)
         self._paged = self.backend.name == "paged"
-        # a pure-SSM stack has no KV pages and takes the dense prefill step
-        # (exact length: its recurrent state would absorb padding) on
-        # either backend
+        # a paged prefill writes the prompt's KV straight into the pool.
+        # An attention-only prompt is padded to a q-chunk boundary; a
+        # Mamba-2 layer's recurrent state would absorb that padding, so a
+        # stack with one (the hybrid) prefills at its exact length.  A
+        # pure-SSM stack has no KV pages and takes the dense prefill step
+        # on either backend.
+        self._has_ssm = any(spec.mixer == "mamba"
+                            for spec in lm.block_pattern(cfg))
         self._paged_kv = self._paged and self.backend._has_kv
         self._prefill = steps.make_prefill_step(cfg)
         self._prefill_paged = steps.make_paged_prefill_step(cfg)
@@ -576,14 +583,16 @@ class InferenceServer:
 
     def _run_prefill(self, backend, handle, tokens_np):
         """Prefill one admitted request into the backend; returns the
-        (1, V_pad) logits of its last real token.  Paged KV: an
-        attention-only prompt is padded to a q-chunk boundary and its KV
-        written straight into the request's pages (kernel K3 on CUDA).
+        (1, V_pad) logits of its last real token.  Paged KV: the prompt's
+        KV is written straight into the request's pages (kernel K3 on
+        CUDA), an attention-only prompt padded to a q-chunk boundary, a
+        hybrid one at its exact length (its Mamba-2 layers start from
+        zero at batch 1; ``insert`` puts their state in the slot's row).
         Every Mamba-2 layer runs its inter-chunk pass on kernel K5."""
         s = int(tokens_np.size)
         if self._paged_kv:
             q = min(paged_ops.PREFILL_Q, max(8, backend.page_size))
-            spad = -(-s // q) * q
+            spad = s if self._has_ssm else -(-s // q) * q
             padded = np.zeros((1, spad), np.int32)
             padded[0, :s] = tokens_np
             width = min(-(-spad // backend.page_size), backend.table_width)

@@ -902,6 +902,39 @@ def test_ssd_scan_bitwise(cuda, c, h, p, n):
     assert torch.equal(prefix[0], s0)
 
 
+# jamba-1.5-large-398b: Mamba-2 with 128 heads of 128 and state 128 at
+# batch 1 (C from 1 to 257: a prime prompt length's chunk is 1), and its
+# planned projections (K, N): in_z / in_x, out_proj, in_b / in_c / in_dt,
+# the dense FFN's gate / up and down
+JAMBA_K1 = [(8192, 16384), (16384, 8192), (8192, 128), (8192, 24576),
+            (24576, 8192)]
+
+
+@pytest.mark.parametrize("c", [1, 20, 257])
+def test_ssd_scan_jamba_shape_bitwise(cuda, c):
+    """K5 at jamba's (C, 128, 128, 128): bitwise against its plain
+    version."""
+    dec, s_in, s0 = _ssd_case(cuda, c, 128, 128, 128, seed=c)
+    prefix, final = sops.ssd_scan(dec, s_in, s0)
+    torch.cuda.synchronize()
+    want_p, want_f = sops.ssd_scan_ref(dec, s_in, s0)
+    assert torch.equal(prefix, want_p) and torch.equal(final, want_f)
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("k,n", JAMBA_K1)
+@pytest.mark.parametrize("m", [1, 8, 257, 4100])
+def test_quant_matmul_jamba_shapes_bitwise(cuda, m, k, n, bits):
+    """K1 at jamba's five projection shapes, the decode layout (M = 1, 8)
+    and the tiles at unpadded prompt lengths (M = 257, 4100): bitwise
+    against the int32-exact plain version."""
+    xq, wq, sw, sx = _k1_operands(cuda, m, k, n, bits, seed=m + k + n)
+    got = qops.quant_matmul(xq, qref.pack_weights(wq, bits), sw, sx,
+                            w_bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qref.quant_matmul_ref(xq, wq, sw, sx))
+
+
 def test_ssd_scan_misaligned_view(cuda):
     """Views that start off a 16-byte boundary take the scalar path and
     stay bitwise."""

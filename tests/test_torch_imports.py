@@ -91,14 +91,39 @@ def test_entry_points_refuse_cpu_fallback():
         fleet.main(["--arch", "llama3.2-1b-smoke", "--tiers", "float"])
 
 
-def test_unported_families_name_their_roadmap_item():
-    """Only the hybrid (jamba) is still refused; the enc-dec and VLM
-    families (ROADMAP C3) build (``test_c3_families_build_standalone``)."""
-    from repro_torch.configs import registry
-    from repro_torch.models import lm
-    for arch, item in (("jamba-1.5-large-398b-smoke", "C1's jamba"),):
-        with pytest.raises(NotImplementedError, match=item):
-            lm.init_params(registry.get(arch), device="cpu")
+def test_jamba_builds_standalone():
+    """The hybrid (jamba) smoke arch builds and runs a prefill on the CPU
+    in a fresh interpreter that has loaded no JAX, no ``repro`` and no
+    CUDA library of the port's kernels, and no family of the port's
+    registry is refused any more (every arch's tree builds on the meta
+    device); training an MoE-bearing stack still names slice E."""
+    code = (
+        "import sys, torch\n"
+        "import repro_torch\n"
+        "from repro_torch.configs import registry\n"
+        "from repro_torch.kernels import build\n"
+        "from repro_torch.models import lm\n"
+        "cfg = registry.get('jamba-1.5-large-398b-smoke')\n"
+        "p = lm.init_params(cfg, device='cpu')\n"
+        "tok = torch.zeros((1, 8), dtype=torch.int32)\n"
+        "logits, caches = lm.forward(cfg, p, {'tokens': tok})\n"
+        "assert logits.shape == (1, 8, lm.padded_vocab(cfg))\n"
+        "assert sorted(caches['l4']) == ['kv'] and "
+        "sorted(caches['l3']) == ['mamba']\n"
+        "assert len(lm._plan_weights(cfg)) == 58\n"
+        "for name in registry.ARCHS:\n"
+        "    lm.init_params(registry.get(name), device='meta')\n"
+        "try:\n"
+        "    lm.forward(cfg, p, {'tokens': tok}, mode='train')\n"
+        "    raise SystemExit('trained an MoE stack')\n"
+        "except NotImplementedError as e:\n"
+        "    assert 'slice E' in str(e), e\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
+        "assert not bad, bad\n"
+        "assert not build._LOADED, build._LOADED\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
 
 
 def test_c3_families_build_standalone():

@@ -271,6 +271,18 @@ def port_greedy(cfg, params, batch, n_new, max_len, enc_len=0,
     return np.stack(toks, 1), np.stack(out), pc
 
 
+def numpy_lm_params(tcfg, seed=0):
+    """An LM parameter tree of numpy arrays with ``repro.models.lm``'s
+    paths and shapes, drawn by the port's ``init_params`` on the CPU from
+    ``seed``: what ``bridge.lm_params_from_jax`` takes, and as jnp arrays
+    what the JAX package computes with.  (The JAX package's eager
+    ``init_params`` compiles every draw: ~7 s for jamba-smoke.)"""
+    from repro_torch.bridge import tree_to_numpy
+    from repro_torch.models import lm as tlm
+    return tree_to_numpy(tlm.init_params(
+        tcfg, torch.Generator().manual_seed(seed), device="cpu"))
+
+
 def quarter_plans(jcfg, jparams, pw=(0, 2, 4, 8), seed=0):
     """The same mixed-precision plan in both packages over the JAX tree's
     plan groups: each group's channels take every precision of ``pw`` in
