@@ -239,8 +239,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
               K x N 8192 x 24576, and holds K3 (bf16, G = 8, D = 128)
               against its plain version within 1e-2 at each of path 11's
               exact prompt lengths, timing it at 4100 tokens.
-17. report -- one JSON line of kernels (with each kernel's launches on
-              paths 8 to 11), the card's name and power limit, and last
+17. arctic-train -- path 12: the paper's joint search on arctic-480b
+              at published widths (d 7168, 56 / 8 heads of 128, d_ff =
+              moe_d_ff 4864, top-2 + the shared FFN, vocab 32000), cut
+              to 1 of 35 layers and 32 of 128 experts a bank (4.03 B
+              parameters), bf16 masters, adam_int8 at 3e-4, 4
+              micro-batches, remat, seed-0 weights, through
+              make_train_step(search=True): 4 steps of 8 x 256 tokens;
+              K4 launched 10 gamma nodes x 4 micro-batches x 2 (remat) a
+              step forward and 10 x 4 backward (the 3 banks' C_out rows
+              of E * K on its simple kernels), nothing else, no call of
+              the plain quantizer stack; step 0's remat recomputes route
+              as their forwards; finite losses and grad norms, every
+              bank gamma moved; step ms, tokens/s, peak memory, one
+              profiled step's busy share and K4's device ms (banks
+              apart); then extract_plan (7 groups: no bank, no router),
+              served plan-bound (4 requests of 64-512 tokens x 16, page
+              16) and float (1 request) on K1-K3, paged vs dense
+              prefill within 5e-2; one arctic MoE layer at published
+              widths with 4 experts card vs CPU within 2e-2; one
+              jamba-smoke search step card vs CPU (K4 on the banks and
+              the dense projections, K5 forward and backward).  Before
+              the paths, the kernels phase holds K4 bitwise at the
+              expert banks' shapes (arctic's 32-expert and scout's
+              16-expert banks as C_out rows of E * K) and times both
+              kernels and the bank's transposing copy beside their
+              bounds.
+18. report -- one JSON line of kernels (with each kernel's launches on
+              paths 8 to 12), the card's name and power limit, and last
               the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -4943,6 +4969,566 @@ def phase_jamba(dev, counters, smi):
     return result
 
 
+# ---------------------------------------------------------------------------
+# path 12: MoE training under the search (arctic at published widths)
+# ---------------------------------------------------------------------------
+
+# K4 on expert banks: (label, E, K, C_out) of each bank a train step
+# hands K4 as C_out rows of E * K (``core.mps.kernel_combine``)
+K4_BANKS = (("arctic-480b w_gate / w_up (32 experts)", 32, 7168, 4864),
+            ("arctic-480b w_down (32 experts)", 32, 4864, 7168),
+            ("llama4-scout w_gate / w_up (16 experts)", 16, 5120, 8192),
+            ("llama4-scout w_down (16 experts)", 16, 8192, 5120))
+K4_BANK_CHUNK = 256         # rows of the plain version held at a time
+
+
+def phase_k4_banks(dev, flush):
+    """K4 at the expert banks' shapes: C_out rows of E * K (229,376 and
+    155,648 at arctic's 32-expert banks, 81,920 and 131,072 at scout's
+    16), too long for two ring stages, so the simple kernels take them.
+    Forward, absmax and dW bitwise against the plain versions and dprobs
+    within the summation bound, held K4_BANK_CHUNK rows at a time (each
+    row is its own block); device ms of both kernels, of their plain
+    versions and of the transposing copy of an (E, K, C_out) float32
+    bank into rows, each beside its byte bound."""
+    from repro_torch.kernels.mps_combine import ops as mops
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for label, e, kin, c in K4_BANKS:
+        m, k = c, e * kin
+        w = torch.randn(m, k, generator=g, device=dev) * 0.05
+        w[0, :3] = 0.0
+        up = torch.randn(m, k, generator=g, device=dev)
+        probs = torch.softmax(torch.randn(m, len(K4_PW), generator=g,
+                                          device=dev), -1)
+        absmax = torch.empty(m, device=dev)
+        got = mops.mps_combine_fwd(w, probs, K4_PW, absmax)
+        dw, dprobs = mops.mps_combine_bwd(w, probs, absmax, up, K4_PW)
+        torch.cuda.synchronize()
+        for r0 in range(0, m, K4_BANK_CHUNK):
+            r = slice(r0, r0 + K4_BANK_CHUNK)
+            where = f"{label} rows {r0}.. ({m}x{k})"
+            want = mops.mps_combine_ref(w[r], probs[r], K4_PW)
+            want_dw, _ = mops._vjp_bwd(w[r], probs[r], K4_PW, up[r])
+            if not torch.equal(got[r], want) or not torch.equal(
+                    absmax[r], torch.amax(w[r].abs(), 1)):
+                raise AssertionError(f"K4 forward not bitwise at {where}")
+            if not torch.equal(dw[r], want_dw):
+                raise AssertionError(f"K4 backward dW not bitwise at {where}")
+            _k4_dprobs_check(w[r], probs[r], up[r], dprobs[r], where)
+        del got, dw, dprobs, want, want_dw
+        n_p = len(K4_PW)
+        n_nz = sum(1 for b in K4_PW if b)
+        fwd = device_ms(lambda: mops.mps_combine_fwd(w, probs, K4_PW, absmax),
+                        5, flush, "mps_")
+        fwd_kernel = "ring" if any("mps_ring" in x for x in device_ms.names) \
+            else "simple"
+        bwd = device_ms(lambda: mops.mps_combine_bwd(w, probs, absmax, up,
+                                                     K4_PW), 5, flush, "mps_")
+        bwd_kernel = "ring" if any("mps_ring" in x for x in device_ms.names) \
+            else "simple"
+        fwd_plain = device_ms(lambda: mops.mps_combine_ref(w, probs, K4_PW),
+                              2, flush, names=False)
+        bank = up.view(e, kin, c)       # the layout the LM keeps a bank in
+        copy = device_ms(lambda: torch.movedim(bank, 2, 0).contiguous(), 5,
+                         flush, names=False)
+        del bank
+        r = dict(rows=m, k=k, fwd=fwd, fwd_kernel=fwd_kernel, bwd=bwd,
+                 bwd_kernel=bwd_kernel, fwd_plain=fwd_plain, copy=copy)
+        r["fwd_bound"], r["fwd_by"] = bound(2 * m * k * 4 + m * n_p * 4
+                                            + m * 4, 7 * m * k * n_nz, "f32")
+        r["bwd_bound"], r["bwd_by"] = bound(3 * m * k * 4 + 2 * m * n_p * 4
+                                            + m * 4, 14 * m * k * n_nz, "f32")
+        r["copy_bound"] = bound(2 * m * k * 4, 0, "f32")[0]
+        out[label] = r
+        log(f"[kernels] K4 bank {label}: {m} rows x {k} ({m * k * 4 / 1e9:.2f}"
+            f" GB f32), pw {K4_PW}: forward, absmax and dW bitwise against "
+            f"the plain versions, dprobs within the summation bound; forward "
+            f"{fwd:.3f} ms device ({fwd_kernel} kernel), bound "
+            f"{r['fwd_bound']:.3f} ({r['fwd_by']}), plain {fwd_plain:.3f}; "
+            f"backward {bwd:.3f} ms device ({bwd_kernel} kernel), bound "
+            f"{r['bwd_bound']:.3f} ({r['bwd_by']}); the transposing copy of "
+            f"the ({e}, {kin}, {c}) bank into rows {copy:.3f} ms device "
+            f"(bound {r['copy_bound']:.3f}, bytes)")
+        del w, up, probs, absmax
+        torch.cuda.empty_cache()
+    return out
+
+
+ARCTIC_TRAIN = dict(n_layers=1, n_experts=32)     # of 35 layers, 128 experts
+MOE_TRAIN_STEPS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 8, 256
+MOE_TRAIN_LENS = (64, 200, 377, 512)
+MOE_TRAIN_NEW = 16
+MOE_LAYER_TOKENS, MOE_LAYER_EXPERTS = 64, 4
+JAMBA_SMOKE = "jamba-1.5-large-398b-smoke"
+# the jamba-smoke step on the card against the CPU: bounds 1.5x this
+# comparison's readings on the H100 (largest leaf 0.0595, median 0.0158;
+# PERF.md section 6)
+JAMBA_STEP_GRAD_MAX, JAMBA_STEP_GRAD_MEDIAN = 9e-2, 2.5e-2
+
+
+def _arctic_train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(registry.get("arctic-480b"), **ARCTIC_TRAIN)
+    if not (cfg.remat and cfg.param_dtype == "bfloat16" and cfg.optimizer
+            == "adam_int8" and cfg.train_microbatches == 4 and
+            cfg.experts_per_token == 2 and cfg.dense_residual):
+        raise AssertionError(f"moe train: unexpected config {cfg}")
+    return cfg
+
+
+def _rel(a, b):
+    """Relative L2 of torch tensors (the CPU suites' ``rel`` takes numpy
+    arrays, in a module that imports the JAX package)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase_moe_train_layer(cfg, dev):
+    """One arctic MoE layer at published widths (d 7168, moe_d_ff = d_ff
+    4864, top-2, the shared FFN) with MOE_LAYER_EXPERTS experts, bf16
+    weights and a float32 router (so that no gate sits on a bf16 tie
+    between the card's and the CPU's rounding), under the search: the
+    output and every gradient (banks, bank gammas, router, shared FFN,
+    input) on the card (K4 on the banks) against the CPU (the plain
+    quantizer stack), relative L2 within 2e-2, the routing equal."""
+    import dataclasses
+
+    from repro_torch.core import mps, sampling
+    from repro_torch.models import lm
+    from repro_torch.nn import blocks
+
+    lcfg = dataclasses.replace(cfg, n_experts=MOE_LAYER_EXPERTS)
+    d, f, e = lcfg.d_model, lcfg.expert_d_ff, lcfg.n_experts
+    g = torch.Generator().manual_seed(13)
+
+    def w(*shape, gamma=True, dtype=torch.bfloat16):
+        t = (torch.randn(*shape, generator=g) / shape[-2] ** 0.5).to(dtype)
+        out = {"w": t}
+        if gamma:
+            out["gamma"] = sampling.init_selection_logits(
+                lcfg.mps_precisions, (shape[-1],), "cpu")
+        return out
+
+    p0 = {"router": w(d, e, gamma=False, dtype=torch.float32),
+          "w_gate": w(e, d, f), "w_up": w(e, d, f), "w_down": w(e, f, d),
+          "shared": {"w_gate": w(d, f), "w_up": w(d, f), "w_down": w(f, d)}}
+    x0 = torch.randn(1, MOE_LAYER_TOKENS, d, generator=g).to(torch.bfloat16)
+    up = torch.randn(1, MOE_LAYER_TOKENS, d, generator=g)
+    getw = lm._make_getw(lcfg, mps.SearchCtx(tau=1.0))
+    res, routes = {}, {}
+    inner = blocks.moe_route
+    for where in ("card", "cpu"):
+        dv = dev if where == "card" else torch.device("cpu")
+        p = {k: ({kk: {n: t.to(dv).requires_grad_() for n, t in vv.items()}
+                  for kk, vv in v.items()} if k == "shared" else
+                 {n: t.to(dv).requires_grad_() for n, t in v.items()})
+             for k, v in p0.items()}
+        x = x0.to(dv).requires_grad_()
+
+        def rec(xx, rw, **k):
+            o = inner(xx, rw, **k)
+            routes[where] = o[3].cpu()
+            return o
+
+        blocks.moe_route = rec
+        try:
+            y = blocks.moe_layer(p, x, lcfg, effective_w=getw)
+        finally:
+            blocks.moe_route = inner
+        (y.float() * up.to(dv)).sum().backward()
+        res[where] = dict(_leaves({"y": y, "x": x.grad, **{
+            k: ({kk: {n: t.grad for n, t in vv.items()}
+                 for kk, vv in v.items()} if k == "shared" else
+                {n: t.grad for n, t in v.items()}) for k, v in p.items()}}))
+    if not torch.equal(routes["card"], routes["cpu"]):
+        raise AssertionError("moe train layer: the card routes otherwise "
+                             "than the CPU")
+    rel = {}
+    for k, want in res["cpu"].items():
+        got = res["card"][k]
+        rel[k] = _rel(got, want)
+        if not (torch.isfinite(got).all() and rel[k] <= 2e-2):
+            raise AssertionError(f"moe train layer: {k} on the card vs the "
+                                 f"CPU, relative L2 {rel[k]} (bound 2e-2)")
+    worst = max(rel, key=rel.get)
+    log(f"[moe-train] one arctic MoE layer at published widths with {e} "
+        f"experts (bf16 weights, float32 router), {MOE_LAYER_TOKENS} tokens, "
+        f"under the search: the routing equal and the output and all "
+        f"{len(rel) - 1} gradients on the card (K4 on the banks) within 2e-2 "
+        f"relative L2 of the CPU's (plain quantizer stack); largest {worst} "
+        f"{rel[worst]:.3g}, output {rel['y']:.3g}, median "
+        f"{float(np.median(list(rel.values()))):.3g}")
+    return rel
+
+
+class _KeepGrads:
+    """Wraps an optimizer so its state keeps the gradients it was handed
+    (after the global-norm clip): all of them, or the leaves whose path
+    ``keep`` accepts (clones, so the rest are freed).  The CPU suites'
+    ``tests/torch_train_cases._capturing`` is the same wrapper for both
+    packages; this script cannot import it, since that module imports
+    the JAX package."""
+
+    def __init__(self, inner, keep=None):
+        self.inner, self.keep = inner, keep
+
+    def init(self, params):
+        return {"inner": self.inner.init(params), "grads": None}
+
+    def update(self, grads, state, params, step):
+        p, s = self.inner.update(grads, state["inner"], params, step)
+        if self.keep is not None:
+            grads = {k: g.clone() for k, g in _leaves(grads) if self.keep(k)}
+        return p, {"inner": s, "grads": grads}
+
+
+def phase_jamba_train_step(dev, counters):
+    """One jamba-smoke search train step (float32 masters, adam at 3e-4,
+    seed-0 weights, 2 x 64 tokens) on the card against the same step on
+    the CPU: the card runs K4 on the banks and the dense projections and
+    K5 forward and backward in one step.  Held: the loss within rtol 1e-3,
+    every gradient leaf within JAMBA_STEP_GRAD_MAX relative L2 and the
+    median leaf within JAMBA_STEP_GRAD_MEDIAN (this comparison's own
+    readings, PERF.md section 6), each parameter moved as on the CPU
+    (``_moved_alike``), launches counted: K4 once a gamma node each way,
+    K5 once a Mamba-2 layer each way."""
+    from repro_torch.configs import registry
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+
+    cfg = registry.get(JAMBA_SMOKE)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", mps_on=True)
+    batch = synthetic.lm_batch(cfg.vocab, 65, 2, 0, device="cpu")
+    lr = 3e-4
+    out = {}
+    for where in ("cpu", "card"):
+        dv = dev if where == "card" else torch.device("cpu")
+        p = {k: v for k, v in _tree_to(params, dv).items()}
+        opt = _KeepGrads(optimizers.make_optimizer(cfg.optimizer, lr))
+        step = steps_lib.make_train_step(cfg, opt, search=True)
+        b = {k: v.to(dv) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        new, st, loss = step(p, opt.init(p), b, 0)
+        torch.cuda.synchronize()
+        out[where] = dict(loss=float(loss), params=dict(_leaves(new)),
+                          grads=dict(_leaves(st["grads"])),
+                          launches={k: fn.launches
+                                    for k, fn in counters.items()})
+    n_nodes = lm.mps_param_count(cfg) * lm.n_superblocks(cfg)
+    n_mamba = sum(s.mixer == "mamba" for s in lm.block_pattern(cfg))
+    n_banks = 3 * sum(s.ffn == "moe" for s in lm.block_pattern(cfg))
+    need = {"mps_combine": n_nodes, "mps_combine_bwd": n_nodes,
+            "ssd_scan": n_mamba, "ssd_scan_bwd": n_mamba}
+    got = out["card"]["launches"]
+    if any(got[k] != v for k, v in need.items()) or any(
+            v for k, v in got.items() if k not in need) or any(
+            out["cpu"]["launches"].values()):
+        raise AssertionError(f"jamba train step: launches {got} (CPU "
+                             f"{out['cpu']['launches']}), need {need}")
+    lc, lg = out["cpu"]["loss"], out["card"]["loss"]
+    if not (np.isfinite(lg) and abs(lg - lc) <= 1e-3 * abs(lc)):
+        raise AssertionError(f"jamba train step: loss {lg} on the card, {lc} "
+                             f"on the CPU")
+    gaps = {k: _rel(out["card"]["grads"][k], v)
+            for k, v in out["cpu"]["grads"].items()}
+    med = float(np.median(list(gaps.values())))
+    worst = max(gaps, key=gaps.get)
+    if gaps[worst] > JAMBA_STEP_GRAD_MAX or med > JAMBA_STEP_GRAD_MEDIAN:
+        raise AssertionError(f"jamba train step: gradient {worst} "
+                             f"{gaps[worst]} (bound {JAMBA_STEP_GRAD_MAX}), "
+                             f"median {med} (bound {JAMBA_STEP_GRAD_MEDIAN})")
+    start = dict(_leaves(params))
+    stay = _moved_alike(out["card"]["params"], out["cpu"]["params"], start,
+                        out["cpu"]["grads"])
+    bank_grads = [k for k in gaps if "/ffn/w_" in k and "gamma" in k
+                  and int(k.split("/")[1][1:]) % 2]
+    if len(bank_grads) != n_banks or not all(
+            out["card"]["grads"][k].abs().sum() > 0 for k in bank_grads):
+        raise AssertionError(f"jamba train step: bank gamma gradients "
+                             f"{bank_grads}")
+    log(f"[jamba-train] one {cfg.name} search step (8 layers: 7 Mamba-2, 1 "
+        f"attention, 4 MoE slots of 4 experts; 2 x 64 tokens) on the card "
+        f"vs the CPU: loss {lg:.6f} vs {lc:.6f}; gradients of all "
+        f"{len(gaps)} leaves within {JAMBA_STEP_GRAD_MAX} relative L2 "
+        f"(largest {worst} "
+        f"{gaps[worst]:.3g}, median {med:.3g}); every parameter entry "
+        f"whose CPU gradient is a quarter of its leaf's largest moved as on "
+        f"the CPU, {stay} of them not at all on the card; launches {got}: "
+        f"K4 {n_nodes} "
+        f"each way ({n_banks} of them banks), K5 {n_mamba} forward and "
+        f"{n_mamba} backward")
+    return dict(launches=got, gap_max=gaps[worst], gap_median=med,
+                loss=(lg, lc))
+
+
+def _moved_alike(new, ref, start, grads):
+    """Adam's first step moves an entry by about ``lr * sign(g)``: where
+    the reference's gradient is a quarter of its leaf's largest or more
+    and its entry moved, the other entry moves the same way, never the
+    other, and stays put in at most 1% of them (an entry whose step is
+    near half its bf16 spacing may round to no move).  Returns how many
+    stayed put."""
+    stay = 0
+    for k, v in ref.items():
+        v, s0, g = v.cpu().float(), start[k].cpu().float(), grads[k].cpu()
+        rd, nd = torch.sign(v - s0), torch.sign(new[k].cpu().float() - s0)
+        big = (g.abs() >= 0.25 * g.abs().max()) & (rd != 0)
+        n0 = int((nd[big] == 0).sum())
+        if bool((nd[big] == -rd[big]).any()) or n0 > 0.01 * int(big.sum()):
+            raise AssertionError(f"{k}: moved otherwise than the reference "
+                                 f"({n0} of {int(big.sum())} stayed put)")
+        stay += n0
+    return stay
+
+
+def _tree_to(tree, dv):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dv) for k, v in tree.items()}
+    return tree.detach().to(dv).clone()
+
+
+def phase_train_moe(dev, counters, smi, banks):
+    """Path 12: the paper's joint search on arctic-480b at published
+    widths cut to ARCTIC_TRAIN (1 of 35 layers, 32 of 128 experts a
+    bank), bf16 masters, adam_int8 at 3e-4, 4 micro-batches, remat,
+    weights from seed 0, through ``make_train_step(search=True)`` for
+    MOE_TRAIN_STEPS steps of MOE_TRAIN_BATCH x MOE_TRAIN_SEQ tokens;
+    launches read around the run; the remat recompute's routing held
+    equal to the forward's; one step profiled; then the plan extracted,
+    bound and served (4 requests plan-bound, 1 float) on K1-K3, paged
+    vs dense prefill logits, one MoE layer card vs CPU and the jamba
+    smoke step card vs CPU."""
+    from repro_torch.core import mps
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.nn import blocks
+    from repro_torch.optim import optimizers
+
+    cfg = _arctic_train_cfg()
+    pw = cfg.mps_precisions
+    n_nodes = lm.mps_param_count(cfg) * lm.n_superblocks(cfg)
+    n_bank_nodes = 3 * lm.n_superblocks(cfg)
+    k = cfg.train_microbatches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev, mps_on=True)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for key, t in _leaves(params)
+                   if not key.endswith("gamma"))
+    n_bank = sum(t.numel() for key, t in _leaves(params)
+                 if "/ffn/w_" in key and key.endswith("/w"))
+    def is_bank_gamma(key):
+        return "/ffn/w_" in key and key.endswith("gamma")
+
+    opt = _KeepGrads(optimizers.make_optimizer(cfg.optimizer, 3e-4),
+                     keep=is_bank_gamma)
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    resident = torch.cuda.memory_allocated(dev)
+    step_fn = steps_lib.make_train_step(cfg, opt, search=True)
+    bank_gamma0 = {key: t.clone() for key, t in _leaves(state["params"])
+                   if is_bank_gamma(key)}
+
+    def batch_at(step):
+        return synthetic.lm_batch(cfg.vocab, MOE_TRAIN_SEQ + 1,
+                                  MOE_TRAIN_BATCH, step, device=dev)
+
+    log(f"[moe-train] {cfg.name}: {cfg.n_layers} of 35 layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, {cfg.n_experts} of 128 experts top-"
+        f"{cfg.experts_per_token} of d_ff {cfg.expert_d_ff} + the shared "
+        f"FFN of {cfg.d_ff}, vocab {cfg.vocab}; {n_params / 1e9:.3f} B bf16 "
+        f"parameters ({n_bank / 1e9:.3f} B in the 3 expert banks) + "
+        f"{n_nodes} gammas, drawn in {time.perf_counter() - t0:.1f} s; "
+        f"{cfg.optimizer} state: {resident / 2**30:.2f} GiB resident with "
+        f"the weights; search, batch {MOE_TRAIN_BATCH} x seq "
+        f"{MOE_TRAIN_SEQ} in {k} micro-batches, remat {cfg.remat}, pw {pw}")
+
+    # the remat recompute routes as the forward did: step 0's calls come
+    # in (forward, recompute) pairs, one pair a micro-batch
+    routes, inner = [], blocks.moe_route
+
+    def rec(x, rw, **kw):
+        o = inner(x, rw, **kw)
+        routes.append((o[3].clone(), o[2].clone()))
+        return o
+
+    plain, restore = _count_plain_stack()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    times, losses, norms = [], [], []
+    try:
+        for i in range(MOE_TRAIN_STEPS):
+            batch = batch_at(i)
+            torch.cuda.synchronize()
+            blocks.moe_route = rec if i == 0 else inner
+            t1 = time.perf_counter()
+            p, o, loss = step_fn(state["params"], state["opt"], batch, i)
+            state = {"params": p, "opt": o}
+            losses.append(float(loss))
+            norms.append(float(step_fn.grad_norm))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            del p, o
+    finally:
+        blocks.moe_route = inner
+        restore()
+    got = {key: fn.launches for key, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    need = {"mps_combine": n_nodes * k * 2 * MOE_TRAIN_STEPS,
+            "mps_combine_bwd": n_nodes * k * MOE_TRAIN_STEPS}
+    if any(got[key] != v for key, v in need.items()) or any(
+            v for key, v in got.items() if key not in need):
+        raise AssertionError(f"moe train: launches {got}, need {need} and no "
+                             f"other kernel")
+    if plain[0]:
+        raise AssertionError(f"moe train: {plain[0]} weights took the plain "
+                             f"quantizer stack")
+    if len(routes) != 2 * k or any(
+            not (torch.equal(routes[2 * j][0], routes[2 * j + 1][0]) and
+                 torch.equal(routes[2 * j][1], routes[2 * j + 1][1]))
+            for j in range(k)):
+        raise AssertionError(f"moe train: {len(routes)} routing calls in "
+                             f"step 0, or a remat recompute routed otherwise "
+                             f"than its forward")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"moe train: losses {losses}, grad norms {norms}")
+    moved = [key for key, t in _leaves(state["params"])
+             if key in bank_gamma0 and not torch.equal(t, bank_gamma0[key])]
+    grads = state["opt"]["grads"]       # the last step's, clipped
+    nonzero = {key: float(g.abs().sum()) for key, g in grads.items()}
+    if not bank_gamma0 or len(moved) != len(bank_gamma0) or sorted(
+            nonzero) != sorted(bank_gamma0) or not all(
+            np.isfinite(v) and v > 0 for v in nonzero.values()):
+        raise AssertionError(f"moe train: bank gammas moved {moved} of "
+                             f"{sorted(bank_gamma0)}; gradients {nonzero}")
+    del bank_gamma0
+    with torch.no_grad():
+        cost = float(lm.mps_size_cost(cfg, state["params"],
+                                      mps.SearchCtx(tau=1.0)))
+    if not np.isfinite(cost):
+        raise AssertionError(f"moe train: mps_size_cost {cost}")
+    ms = 1e3 * float(np.median(times[1:]))
+    tok_s = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (ms / 1e3)
+    sums = ", ".join(f"{key.split('/')[-2]} {v:.3g}"
+                     for key, v in nonzero.items())
+    log(f"[moe-train] {MOE_TRAIN_STEPS} search steps on "
+        f"{torch.cuda.get_device_name(dev)} ({smi}): losses "
+        f"{[round(v, 4) for v in losses]}, grad norms "
+        f"{[round(v, 4) for v in norms]}; step ms "
+        f"{[round(1e3 * t, 1) for t in times]}, median of steps "
+        f"2-{MOE_TRAIN_STEPS} {ms:.1f} ms = {tok_s:.0f} training tokens/s; "
+        f"peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)"
+        f"; mps_size_cost {cost:.6g} bytes; K4 launches {got['mps_combine']} "
+        f"forward = {n_nodes} gamma nodes x {k} micro-batches x 2 (remat "
+        f"recompute) x {MOE_TRAIN_STEPS} steps ({n_bank_nodes * k * 2} a step "
+        f"on the banks), {got['mps_combine_bwd']} backward = {n_nodes} x {k} "
+        f"x {MOE_TRAIN_STEPS} ({n_bank_nodes * k} a step on the banks); "
+        f"plain quantizer stack: 0 calls; step 0's {k} remat recomputes "
+        f"routed as their forwards (top_i, top_g equal); all "
+        f"{len(moved)} bank gammas moved, their gradients nonzero (step "
+        f"{MOE_TRAIN_STEPS - 1}'s sum |g|: {sums})")
+
+    state, prof = train.profile_steps(step_fn, state, batch_at,
+                                      MOE_TRAIN_STEPS, 1, dev)
+    busy = prof["device_s"] / prof["wall_s"]
+    kern = prof["kernels"]
+    k4_bank = {d: sum(v for n, v in kern.items() if "mps_" in n
+                      and "simple" in n and ("bwd" in n) == (d == "bwd"))
+               for d in ("fwd", "bwd")}
+    k4_all = sum(v for n, v in kern.items() if "mps_" in n)
+    n_copy, copy_s = prof["copies"].get(mps.COPY_RANGES[True], (0, 0.0))
+    copy_ms = 1e3 * copy_s
+    if n_copy != 3 * n_bank_nodes * k or not copy_ms > 0:
+        raise AssertionError(f"moe train: {n_copy} bank transposing copies "
+                             f"({copy_ms} ms) in the profiled step, need "
+                             f"{3 * n_bank_nodes * k} with device time")
+    # cross-check: the kernels phase's copy times at the bank shapes, x 3
+    # a bank a micro-batch
+    copies = {label: b["copy"] for label, b in banks.items()
+              if label.startswith("arctic")}
+    copy_est = sum(3 * k * v * (2 if "w_up" in label else 1)
+                   for label, v in copies.items())
+    log(f"[moe-train] one profiled step: wall {1e3 * prof['wall_s']:.1f} ms, "
+        f"device {1e3 * prof['device_s']:.1f} ms = {100 * busy:.1f}% busy, "
+        f"{prof['launches']} device operations; K4 {1e3 * k4_all:.2f} ms "
+        f"device: on the banks (simple kernels, {n_bank_nodes * k * 2} "
+        f"forward + {n_bank_nodes * k} backward launches) forward "
+        f"{1e3 * k4_bank['fwd']:.2f} + backward {1e3 * k4_bank['bwd']:.2f} "
+        f"ms, the other {n_nodes - n_bank_nodes} projections (ring kernels) "
+        f"{1e3 * (k4_all - k4_bank['fwd'] - k4_bank['bwd']):.2f} ms; the "
+        f"banks' transposing copies into rows {copy_ms:.2f} ms device over "
+        f"{n_copy} copies (profiler range '{mps.COPY_RANGES[True]}': W "
+        f"twice a bank a micro-batch with remat, the gradient once; the "
+        f"kernels phase's copy times x 3 a bank a micro-batch give "
+        f"{copy_est:.2f} ms)")
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
+    log("[moe-train] top kernels of the profiled step (device ms): "
+        + "; ".join(f"{n[:70]} {1e3 * v:.2f}" for n, v in top))
+
+    del state["opt"]
+    params = state["params"]
+    plan = lm.extract_plan(cfg, params)
+    bits = {int(b) for v in plan.channel_bits.values() for b in v}
+    want_groups = len(lm._plan_weights(cfg)) * lm.n_superblocks(cfg)
+    if len(plan.groups) != want_groups or not bits <= set(pw) or any(
+            ".ffn.w_" in grp or "router" in grp for grp in plan.groups):
+        raise AssertionError(f"moe train: plan {plan.summary()} groups "
+                             f"{list(plan.groups)}, bits {sorted(bits)}")
+    log(f"[moe-train] searched plan: {plan.summary()}, bits {sorted(bits)}; "
+        f"the banks and the router stay float (cuBLAS)")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in MOE_TRAIN_LENS]
+    L = cfg.n_layers
+    runs = {}
+    for label, run_plan, reqs in (("plan", plan, prompts),
+                                  ("float", None, prompts[1:2])):
+        def need_serve(server, steps, adm, planned=run_plan is not None):
+            return {"paged_attention": L * steps, "paged_prefill": L * adm,
+                    "quant_matmul": 7 * L * (steps + adm) if planned else 0}
+
+        server, runs[label] = _serve_counted(
+            cfg, params, run_plan, reqs, MOE_TRAIN_NEW, dev, counters, smi,
+            f"[moe-train] serve {label}", max_len=1024, slots=4,
+            need=need_serve, at_least=True)
+        del server
+    gap = _moe_prefill_gap(cfg, params, plan, prompts[0][:64], dev)
+    gap_f = _moe_prefill_gap(cfg, params, None, prompts[0][:64], dev)
+    if max(gap["k3"], gap_f["k3"]) > 5e-2:
+        raise AssertionError(f"moe train: paged vs dense prefill logits "
+                             f"{gap} (plan), {gap_f} (float) > 5e-2")
+    log(f"[moe-train] paged (K3) vs dense prefill logits on a 64-token "
+        f"prompt: relative L2 {gap['k3']:.3g} plan-bound, {gap_f['k3']:.3g} "
+        f"float (bound 5e-2)")
+    del params, state, plan
+    _free(dev)
+    layer_rel = phase_moe_train_layer(cfg, dev)
+    _free(dev)
+    jamba = phase_jamba_train_step(dev, counters)
+    return dict(launches=got, served=runs["plan"]["launches"],
+                served_float=runs["float"]["launches"], ms=ms, tok_s=tok_s,
+                peak_bytes=peak, resident_bytes=resident, busy=busy,
+                k4_bank_ms=k4_bank, k4_ms=k4_all, copy_ms=copy_ms,
+                copy_est_ms=copy_est,
+                layer_rel=layer_rel, jamba=jamba,
+                paged_vs_dense=dict(plan=gap["k3"], float=gap_f["k3"]))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5028,6 +5614,16 @@ def main():
     rows["quant_matmul"]["max_abs_err"] = max(
         rows["quant_matmul"]["max_abs_err"],
         jamba_k["k1"]["jamba_max_abs_err"])
+    banks = path("kernels (K4 on expert banks)", phase_k4_banks, dev, flush)
+    for key, d in (("mps_combine", "fwd"), ("mps_combine_bwd", "bwd")):
+        rows[key]["banks"] = {
+            label: dict(rows_x_k=f"{b['rows']}x{b['k']}",
+                        device_ms=b[d], kernel=b[f"{d}_kernel"],
+                        bound_ms=b[f"{d}_bound"], bound_by=b[f"{d}_by"],
+                        copy_ms=b["copy"], copy_bound_ms=b["copy_bound"],
+                        **({"plain_ms": b["fwd_plain"]} if d == "fwd"
+                           else {}))
+            for label, b in banks.items()}
     capped = path("kernels (softcap)", phase_softcap_attention, dev)
     for k, err in capped.items():
         rows[k]["softcap_max_abs_err"] = err
@@ -5049,6 +5645,8 @@ def main():
     vlm = path("path 9 (qwen2-vl serve)", phase_vlm, dev, counters, smi)
     fleet = path("path 10 (fleet)", phase_fleet, dev, counters, smi)
     jamba = path("path 11 (jamba serve)", phase_jamba, dev, counters, smi)
+    moe_trained = path("path 12 (arctic train)", phase_train_moe, dev,
+                       counters, smi, banks)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -5120,6 +5718,13 @@ def main():
         # path 11: jamba serving, plan-bound and float
         row.update(launches_jamba=jamba["plan"]["launches"][k],
                    launches_jamba_float=jamba["float"]["launches"][k])
+        # path 12: arctic trained under the search, its plan served
+        # (plan-bound and float), and the jamba smoke step
+        row.update(launches_train_moe=moe_trained["launches"][k],
+                   launches_train_moe_plan=moe_trained["served"][k],
+                   launches_train_moe_float=moe_trained["served_float"][k],
+                   launches_jamba_train_step=moe_trained["jamba"][
+                       "launches"][k])
         if k == "quant_matmul":
             r["max_abs_err"] = max(r["max_abs_err"], jamba["k1_err"])
         row.update({

@@ -22,7 +22,13 @@ into numpy arrays (for example ``jax.tree.map(np.asarray, tree)``):
   folding, ``bn`` with ``scale``/``bias``/``mean``/``var``.
 * ``mps_params_from_jax`` checks a search-state tree: ``gamma`` per
   group (C, |P_W|), ``delta`` (|P_X|,) and a scalar ``alpha`` per node.
-* ``tree_to_numpy`` turns a port tree back into numpy arrays.
+* ``opt_state_from_jax`` checks an optimizer state of a parameter tree
+  against that tree: ``adam``'s ``{"m", "v"}`` (each the tree's shapes)
+  or ``adam_int8``'s ``{"mq", "ms", "vq", "vs"}`` per leaf (int8 codes
+  of the leaf's shape, float32 scales of its shape less the last axis)
+  -- an MoE or hybrid search tree's bank gammas and banks among them.
+* ``tree_to_numpy`` turns a port tree back into numpy arrays (a bf16
+  leaf as ml_dtypes' bfloat16, as the JAX package holds it).
 
 Tests use these so both packages compute with the same numbers; the port
 itself never imports JAX.
@@ -183,8 +189,52 @@ def mps_params_from_jax(tree, device="cpu"):
     return params_from_jax(tree, device)
 
 
+_INT8_STATE = ("mq", "ms", "vq", "vs")
+
+
+def _check_int8_state(state, params, path):
+    if isinstance(params, dict):
+        _require(isinstance(state, dict) and sorted(state) == sorted(params),
+                 f"{path}: the state holds {sorted(state)}, the parameters "
+                 f"{sorted(params)}")
+        for k in params:
+            _check_int8_state(state[k], params[k], f"{path}.{k}")
+        return
+    shape = tuple(np.shape(params))
+    _require(isinstance(state, dict) and sorted(state) == sorted(
+        _INT8_STATE), f"{path}: an adam_int8 leaf holds {_INT8_STATE}")
+    for q, sc in (("mq", "ms"), ("vq", "vs")):
+        _require(np.shape(state[q]) == shape and np.asarray(
+            state[q]).dtype == np.int8 and np.shape(state[sc]) == shape[:-1],
+            f"{path}.{q}/{sc}: shapes {np.shape(state[q])} / "
+            f"{np.shape(state[sc])} for a parameter of {shape}, want int8 "
+            f"{shape} and {shape[:-1]}")
+
+
+def opt_state_from_jax(state, params, device="cpu"):
+    """A ``repro.optim.optimizers`` state for the parameter tree
+    ``params`` (either package's tree, any leaves with a shape):
+    ``adam``'s ``{"m", "v"}`` or ``adam_int8``'s per-leaf codes and
+    scales, checked against ``params``, then carried as
+    :func:`params_from_jax` carries a tree."""
+    if isinstance(state, dict) and sorted(state) == ["m", "v"]:
+        want = dict(_leaf_shapes(params))
+        for k in ("m", "v"):
+            got = dict(_leaf_shapes(state[k]))
+            odd = sorted(set(got.items()) ^ set(want.items()))
+            _require(not odd, f"adam state {k}: shapes differ from the "
+                              f"parameters' at {odd[:4]}")
+    else:
+        _check_int8_state(state, params, "state")
+    return params_from_jax(state, device)
+
+
 def tree_to_numpy(tree):
     """The numpy arrays of a port tree (any device)."""
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:      # numpy has no bfloat16: ml_dtypes'
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

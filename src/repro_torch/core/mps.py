@@ -98,16 +98,46 @@ def kernel_combine(w: torch.Tensor, probs: torch.Tensor,
     unless ``channel_axis`` is 0), combined by ``mps_combine``, and
     handed back as a view with the weight's layout.  The backward's
     upstream gradient takes the same transposing copy into rows, and dW
-    comes back through the view.  Raises for a weight K4 cannot take."""
+    comes back through the view.  Both copies run inside the profiler
+    range ``COPY_RANGES[w.ndim == 3]`` (whose device-side row repeats
+    their kernels' time).  Raises for a weight K4 cannot take."""
     from repro_torch.kernels.mps_combine import ops as mps_ops
     if w.dtype != torch.float32 or probs.dtype != torch.float32:
         raise TypeError(f"kernel K4 takes float32 weights and "
                         f"probabilities, got {w.dtype} and {probs.dtype}")
     axis = channel_axis % w.ndim
+    if axis == 0:
+        flat = w.reshape(w.shape[0], -1).contiguous()
+        out = mps_ops.mps_combine(flat, probs.contiguous(), precisions)
+        return out.reshape(w.shape)
     rows = torch.movedim(w, axis, 0)
-    flat = rows.reshape(rows.shape[0], -1).contiguous()
+    label = COPY_RANGES[w.ndim == 3]
+    with torch.profiler.record_function(label):
+        flat = rows.reshape(rows.shape[0], -1).contiguous()
     out = mps_ops.mps_combine(flat, probs.contiguous(), precisions)
-    return torch.movedim(out.reshape(rows.shape), 0, axis)
+    return _FromRows.apply(out, tuple(rows.shape), axis, label)
+
+
+# profiler ranges around kernel_combine's transposing copies into rows, of
+# a 2-D weight and of an expert bank
+COPY_RANGES = {False: "K4 transposing copy", True: "K4 bank transposing copy"}
+
+
+class _FromRows(torch.autograd.Function):
+    """K4's rows ``(C_out, -1)`` seen in the weight's layout (a view);
+    the backward takes the upstream gradient's transposing copy into rows
+    inside the profiler range ``label``."""
+
+    @staticmethod
+    def forward(ctx, out, shape, axis, label):
+        ctx.shape, ctx.axis, ctx.label = shape, axis, label
+        return torch.movedim(out.reshape(shape), 0, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.profiler.record_function(ctx.label):
+            g = torch.movedim(g, ctx.axis, 0).reshape(ctx.shape[0], -1)
+            return g.contiguous(), None, None, None
 
 
 def effective_activation(x: torch.Tensor, delta: torch.Tensor,

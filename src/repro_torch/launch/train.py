@@ -26,11 +26,17 @@ the batch its encoder embeds them.  Batches that carry a stub
 frontend's ``embeddings`` or ``enc_embeddings`` pass through
 ``launch.steps`` unchanged.
 
-A Mamba-2 stack (``--arch mamba2-780m``) trains on sequences that its
-chunk (``ssm_chunk``, or ``--seq`` itself when shorter) tiles; another
+A Mamba-2 stack (``--arch mamba2-780m``) or a hybrid (``--arch
+jamba-1.5-large-398b``) trains on sequences that its chunk
+(``ssm_chunk``, or ``--seq`` itself when shorter) tiles; another
 ``--seq`` exits with an error.
 
-The multi-device mesh flags stay with ROADMAP slice E.
+MoE stacks (llama4-scout, arctic) and the hybrid train on one device as
+the reference's single-device branch does: every expert local, each
+bank's one gamma searched over all its experts.  Their published widths
+do not fit one card (``chip_smoke.py`` trains arctic cut in depth and
+experts); the expert-parallel layout and the multi-device mesh flags
+stay with ROADMAP slice E.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import registry
+from repro_torch.core import mps
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_lib
@@ -59,9 +66,11 @@ def _sync(dev):
 def profile_steps(step_fn, state, batch_at, first: int, n: int, dev):
     """Run steps ``first .. first + n - 1`` from ``state`` under
     ``torch.profiler``.  Returns the new state and ``{"wall_s",
-    "device_s", "launches", "kernels"}``: the window's wall time, the
-    device time summed over its kernel rows, their count (kernels and
-    copies) and device seconds by kernel name."""
+    "device_s", "launches", "kernels", "copies"}``: the window's wall
+    time, the device time summed over its kernel rows, their count
+    (kernels and copies), device seconds by kernel name, and K4's
+    transposing copies into rows (``core.mps.COPY_RANGES``) as
+    ``{range: (count, device seconds)}``."""
     from torch.profiler import ProfilerActivity, profile
     _sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -73,13 +82,23 @@ def profile_steps(step_fn, state, batch_at, first: int, n: int, dev):
             state = {"params": p, "opt": o}
         _sync(dev)
         wall = time.perf_counter() - t0
-    # the kernel rows only: an operator's row repeats its kernels' time
+    # the kernel rows only: an operator's row repeats its kernels' time,
+    # and so does a profiler range's device-side row
+    ranges = set(mps.COPY_RANGES.values())
     rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in ranges]
     kernels = {e.key: e.self_device_time_total / 1e6 for e in rows}
+    copies = {}
+    for e in prof.key_averages():
+        if e.key in ranges:
+            got = (e.count, e.device_time_total / 1e6)
+            copies[e.key] = max(copies.get(e.key, got), got,
+                                key=lambda c: c[1])
     return state, {"wall_s": wall, "device_s": sum(kernels.values()),
                    "launches": sum(e.count for e in rows),
-                   "kernels": kernels, "table": prof.key_averages().table(
+                   "kernels": kernels, "copies": copies,
+                   "table": prof.key_averages().table(
                        sort_by="self_device_time_total", row_limit=20)}
 
 
@@ -107,7 +126,7 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = registry.get(args.arch)
-    if cfg.is_ssm:
+    if cfg.is_ssm or cfg.is_hybrid:
         try:
             blocks.ssm_chunk(cfg, args.seq, "train")
         except ValueError as e:

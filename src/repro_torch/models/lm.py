@@ -425,7 +425,11 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     the encoder embeds the decoder's input.  mode: train | prefill |
     decode; train takes and returns no caches and, with ``cfg.remat``,
     recomputes each super-block in the backward
-    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``),
+    every family's stack, MoE and hybrid ones included: an expert bank
+    ``(E, K, C_out)`` under a ``SearchCtx`` is one Eq. 5 weight against
+    its one gamma, each channel's absmax taken over all ``E * K`` of its
+    values (on the card K4 over ``C_out`` rows of ``E * K``).
     ctx: a ``SearchCtx`` turns every weight with a gamma into its
     effective weight (the cross attention's excepted, as in the
     reference).  logits_mode: "full" | "last" (one position: S-1, or
@@ -448,12 +452,6 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     token and uses none of its output.
     """
     pattern = block_pattern(cfg)
-    if mode == "train" and any(sp.ffn == "moe" for sp in pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training an MoE or hybrid stack is not ported yet "
-            f"(its expert banks share one gamma under the search, and at "
-            f"full width the f32 weights with Adam outgrow one 80 GB card); "
-            f"it comes with ROADMAP slice E's expert-parallel layout")
     missing = [] if caches is None else [
         f"l{i}" for i in range(len(pattern)) if f"l{i}" not in caches]
     if any(pattern[int(ln[1:])].mixer != "mamba" for ln in missing):
@@ -554,7 +552,9 @@ def mps_size_cost(cfg: ArchConfig, params, ctx: mps.SearchCtx
                   ) -> torch.Tensor:
     """Differentiable expected size in bytes over every gamma-carrying
     weight (paper Eq. 9 with C_in fixed per super-block: the residual
-    stream keeps d_model; pruning shows through the 0-bit channels)."""
+    stream keeps d_model; pruning shows through the 0-bit channels).  An
+    expert bank's C_in is ``E * K``: its one gamma prices every expert's
+    copy of a channel."""
     total = None
     for node in _gamma_nodes(params):
         w, gm = node["w"], node["gamma"]

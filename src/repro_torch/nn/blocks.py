@@ -211,11 +211,37 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
     return y, new_cache
 
 
+class _Silu(torch.autograd.Function):
+    """silu with the JAX package's value and gradient.  The value: the
+    logistic written out as ``1 / (1 + exp(-x))``, each op rounded to
+    ``x``'s dtype (``jax.nn.silu`` as XLA expands it, which
+    ``torch.sigmoid``'s single rounding is not); with ``f32_out`` the
+    final product taken in float32 (XLA does not round an elementwise op
+    whose result is only converted to float32).  The gradient: JAX's
+    product rule and logistic JVP, ``g * s + (g * x) * (s * (1 - s))``
+    with each op rounded to ``x``'s dtype and a float32 ``g`` first
+    rounded to it (the convert's transpose).  Autograd through the
+    written-out logistic rounds other ops: 3.3e-3 relative L2 off JAX's
+    gradient in a bf16 SwiGLU FFN's input, every layer of a deep stack
+    adding to it."""
+
+    @staticmethod
+    def forward(ctx, x, f32_out):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x.float() * s.float() if f32_out else x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g * s + (g * x) * (s * (1 - s)), None
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """The logistic written out as ``1 / (1 + exp(-x))``, each op rounded
-    to ``x``'s dtype: the JAX package's ``jax.nn.silu`` as XLA expands
-    it, which ``torch.sigmoid``'s single rounding is not."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """``jax.nn.silu`` in ``x``'s dtype, value and gradient
+    (:class:`_Silu`)."""
+    return _Silu.apply(x, False)
 
 
 def silu_f32(x: torch.Tensor) -> torch.Tensor:
@@ -223,7 +249,34 @@ def silu_f32(x: torch.Tensor) -> torch.Tensor:
     ``jax.jit``: XLA does not round an elementwise op whose result is only
     converted to float32, so the final product is taken in float32 from
     the rounded logistic."""
-    return x.float() * (1 / (1 + torch.exp(-x))).float()
+    return _Silu.apply(x, True)
+
+
+class _Gate(torch.autograd.Function):
+    """A Mamba-2 layer's gate ``y.astype(g.dtype) * g`` (``g = silu(z)``)
+    as the JAX package computes it under ``jax.jit``: the product taken
+    in float32 (it only feeds the norm's float32 convert, as in
+    :func:`silu_f32`), and JAX's gradient: the float32 cotangent rounded
+    to ``g``'s dtype (the convert's transpose), ``y``'s gradient the
+    float32 product (it only feeds ``y``'s float32 convert), ``g``'s one
+    product in ``g``'s dtype.  Autograd through a float32 product would
+    round neither: 3.5e-3 relative L2 off JAX's input gradient of a bf16
+    layer."""
+
+    @staticmethod
+    def forward(ctx, y, g):
+        yr = y.to(g.dtype)
+        ctx.save_for_backward(yr, g)
+        return yr.float() * g.float()
+
+    @staticmethod
+    def backward(ctx, dout):
+        yr, g = ctx.saved_tensors
+        dout = dout.to(g.dtype)
+        return dout.float() * g.float(), dout * yr
+
+
+_gate = _Gate.apply
 
 
 def ffn_swiglu(p: dict, x: torch.Tensor, effective_w=None) -> torch.Tensor:
@@ -246,16 +299,23 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
     """The router of ``blocks._moe_local``.  x: (T, D); router_w: (D, E).
 
     ``x @ router_w`` in the promoted dtype of the two (bf16 activations
-    and a float32 router give float32, as JAX promotes), softmax in
-    float32, then ``top_k`` experts a token.  Each expert then keeps its
+    and a float32 router give float32, as JAX promotes; a bf16 router of
+    bf16 master weights gives bf16), softmax in that dtype, then
+    ``top_k`` experts a token.  Each expert then keeps its
     ``min(capacity, T)`` tokens of largest gate: a token routed
     elsewhere has gate 0 there, so a short expert is filled with
     zero-gate tokens, the lowest indices first (Switch-style dropping).
     Returns ``gates``, ``ids`` (T, top_k) and ``top_g``, ``top_i`` (E,
-    C), gates in the logits' dtype."""
+    C), gates in the logits' dtype.
+
+    Differentiable in the gates, as the reference's ``gate_e = sum(gates
+    * (ids == e))`` and ``top_k`` are: ``scatter_`` hands each expert's
+    column the gradient of the gates it took, the sorts hand each kept
+    value's gradient back to its index, and the router and ``x`` get
+    the softmax's."""
     dt = torch.promote_types(x.dtype, router_w.dtype)
     logits = xla.dot_f32(x.to(dt), router_w.to(dt))            # (T, E)
-    probs = xla.softmax_f32(logits).to(dt)
+    probs = xla.softmax(logits)
     gates, ids = _top_k(probs, top_k)                           # (T, k)
     gate_e = torch.zeros_like(probs).scatter_(1, ids, gates)    # (T, E)
     top_g, top_i = _top_k(gate_e.T, min(capacity, x.shape[0]))  # (E, C)
@@ -270,7 +330,11 @@ def _moe_local(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     experts), its output in float32 is scaled by the gates and added into
     a float32 (T, D) sum, then rounded to x's dtype.  A token reaches at
     most ``top_k`` experts; with ``top_k`` <= 2 the sum of its terms does
-    not depend on their order."""
+    not depend on their order, so ``index_add_``'s atomic adds on the card
+    give one result whatever their order, and a remat recompute routes
+    the next MoE layer's tokens as the first forward did.  The gradient
+    reaches the banks through the routed tokens' products, the gates
+    through ``upd`` and ``x`` through both the gather and the router."""
     _, _, top_g, top_i = moe_route(x, router_w, top_k=top_k,
                                    capacity=capacity)
     xe = x[top_i]                                               # (E, C, D)
@@ -322,9 +386,9 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, mode: str,
     pad = torch.zeros((x.shape[0], kk - 1, x.shape[2]), dtype=x.dtype,
                       device=x.device)
     xp = torch.cat([pad, x], dim=1)
-    y = xp[:, :s] * w[0]
+    y = xp[:, :s] * xla.broadcast(w[0], xp[:, :s].shape)
     for i in range(1, kk):
-        y = y + xp[:, i:i + s] * w[i]
+        y = y + xp[:, i:i + s] * xla.broadcast(w[i], xp[:, :s].shape)
     return y, xp[:, s:, :]
 
 
@@ -412,11 +476,15 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
                                  None if cst is None else cst["c"])
     new_conv = {"x": ncx, "b": ncb, "c": ncc}
     # the JAX package reshapes xs between silu and the convert, and then
-    # XLA keeps the product's rounding (measured, bitwise)
+    # XLA keeps the product's rounding (measured, bitwise).  B and C keep
+    # it only where the layer is differentiated, where XLA saves them for
+    # the backward in their dtype; a forward alone takes their products
+    # unrounded (both measured bitwise, bf16)
     xs_f = silu(xs_pre).float().reshape(b, s, nh, hd)       # (B, S, H, P)
-    bb_f = silu_f32(bb_pre)                                 # (B, S, N)
-    cc_f = silu_f32(cc_pre)                                 # (B, S, N)
-    dt = _softplus(dt + p["dt_bias"]).float()               # (B, S, H)
+    diff = torch.is_grad_enabled() and bb_pre.requires_grad
+    bb_f = silu(bb_pre).float() if diff else silu_f32(bb_pre)   # (B, S, N)
+    cc_f = silu(cc_pre).float() if diff else silu_f32(cc_pre)   # (B, S, N)
+    dt = _softplus(dt + xla.broadcast(p["dt_bias"], dt.shape)).float()
     a = -torch.exp(p["a_log"].float())                      # (H,)
     dta = dt * a                                            # (B, S, H) <= 0
     d_skip = p["d_skip"].float()[:, None]                   # (H, 1)
@@ -469,8 +537,7 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
         y = (y_intra + y_inter).reshape(b, s, nh, hd)
         y = (y + d_skip * xs_f).reshape(b, s, di)
 
-    # the gate's product feeds the norm unrounded, as in silu_f32
-    y = y.to(x.dtype).float() * silu(z).float()
+    y = _gate(y, silu(z))
     y = rmsnorm(y, p["ssm_norm"], cfg.norm_eps).to(x.dtype)
     out = linear(y, getw(p["out_proj"]))
     if mode == "train":

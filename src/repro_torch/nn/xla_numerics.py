@@ -9,20 +9,30 @@ gate, and capacity-based dropping turns that into other tokens.
   computed in float64, where the product of two float32 values is exact.
 * :func:`matmul`, :func:`matmul_f32`, :func:`dot_f32`: products as XLA
   forms them: bf16 ones rounded once, bf16 ones kept in float32 when only
-  converted to float32, and a narrow float32 one summed in XLA's order.
-* :func:`softmax_f32`: ``jax.nn.softmax``' op sequence.
+  converted to float32 (and differentiated as JAX does: the cotangent
+  rounded to bf16 first), and a narrow float32 one summed in XLA's order.
+* :func:`softmax`: ``jax.nn.softmax``' op sequence, in float32 or (a
+  bf16 router) in bf16, and its gradient as XLA computes it in bf16.
+* :func:`broadcast`: a parameter broadcast over leading axes, whose
+  gradient is summed as XLA's CPU sums bf16 (:func:`sum_bf16`).
 
 One rule for all of them: the copy of XLA's arithmetic is taken for CPU
 tensors only, where the port is held to the JAX package's bits.  On the
 card each function is torch's own op (``torch.tanh``, ``torch.exp``,
-``torch.softmax``, ``torch.matmul`` or ``torch.bmm``): nothing there is compared with
-XLA's CPU bits, and the card's products round otherwise anyway.
+``torch.softmax``, ``torch.matmul`` or ``torch.bmm``): nothing there is
+compared with XLA's CPU bits, and the card's products round otherwise
+anyway.  The gradient of ``matmul_f32`` is JAX's on either device.
+Autograd through the CPU copies gives ``jax.grad``'s values (held in
+``tests/test_torch_moe_train.py``): the exp polynomial's derivative is
+within 2.3e-7 of ``exp``.
 
 Each was held bitwise against its ``jax.numpy`` counterpart under
 ``jax.jit`` on the CPU (``tests/test_torch_archs.py``,
 ``tests/test_torch_moe.py``).
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -113,16 +123,39 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``matmul_f32`` of bf16 operands, with JAX's gradient: the float32
+    cotangent rounded to bf16 first (the transpose of
+    ``astype(float32)``), then each operand's gradient one bf16 product
+    (:func:`matmul`).  Autograd through the CPU's float32 product would
+    round only its result: 2.7e-3 relative L2 off JAX's gradient of an
+    expert bank's ``w_down``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cpu":
+            return torch.matmul(a.float(), b.float())
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return matmul(g, b.transpose(-1, -2)), matmul(a.transpose(-1, -2), g)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``(a @ b).astype(float32)`` of batched bf16 operands as XLA
+    """``(a @ b).astype(float32)`` of batched (3-D) bf16 operands as XLA
     computes it under ``jax.jit``: the product is not rounded to bf16 on
     its way to float32.  On the card one bf16 product with a float32
     result (``torch.bmm``'s ``out_dtype``; no float32 copy of a bank); on
     the CPU the float32 product of the operands (exact products of bf16
-    values, float32 sums)."""
-    if a.device.type == "cpu":
-        return torch.matmul(a.float(), b.float())
-    return torch.bmm(a, b, out_dtype=torch.float32)
+    values, float32 sums).  Either way differentiated as JAX does
+    (:class:`_MatmulF32`)."""
+    if a.dtype == b.dtype == torch.bfloat16:
+        return _MatmulF32.apply(a, b)
+    return torch.matmul(a.float(), b.float())
 
 
 # the shapes at which dot_f32's order was held bitwise against XLA's CPU
@@ -137,10 +170,11 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     K <= ``_DOT_MAX_K`` and N <= ``_DOT_MAX_N`` is summed in the order of
     XLA's CPU dot there: one row in k order, more rows in four partial
     sums over k mod 4 combined as ``(s0 + s1) + (s2 + s3)``, each step
-    ``s + x * w`` one rounding.  Elsewhere ``torch.matmul``."""
+    ``s + x * w`` one rounding.  Elsewhere :func:`matmul` (a bf16 router
+    of bf16 master weights: the float32 product rounded once)."""
     if x.dtype != torch.float32 or x.device.type != "cpu" or \
             x.shape[1] > _DOT_MAX_K or w.shape[1] > _DOT_MAX_N:
-        return torch.matmul(x, w)
+        return matmul(x, w)
     t, k = x.shape
     lanes = 1 if t == 1 else 4
     kp = -(-k // lanes) * lanes            # zero products change no sum
@@ -157,15 +191,127 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (acc[0] + acc[1]) + (acc[2] + acc[3])
 
 
-def softmax_f32(logits: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softmax``' op sequence over the last axis, in float32:
-    ``exp(x - max) / sum``, with XLA's exp, the sum in index order and a
-    true division.  ``torch.softmax`` off the CPU."""
-    x = logits.float()
-    if x.device.type != "cpu":
-        return torch.softmax(x, dim=-1)
-    e = xla_exp(x - x.amax(-1, keepdim=True))
+def softmax(logits: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis, in the logits' dtype, with
+    XLA's op sequence on the CPU: ``d = x - max`` (the max held constant
+    for the gradient, JAX's ``stop_gradient``), XLA's float32 exp of
+    ``d``, the float32 sum of the exps in index order.  float32: a true
+    division.  bf16 (a bf16 router of bf16 master weights): ``d``
+    rounded to bf16, the sum of the unrounded exps rounded to bf16 and
+    the exps rounded to bf16 divided by it (bitwise against
+    ``jax.jit(jax.nn.softmax)`` at 4 to 128 experts).  Off the CPU
+    ``torch.softmax`` in float32, rounded to the logits' dtype."""
+    if logits.device.type != "cpu":
+        return torch.softmax(logits.float(), dim=-1).to(logits.dtype)
+    if logits.dtype == torch.bfloat16:
+        return _SoftmaxBf16.apply(logits)
+    d = logits - logits.amax(-1, keepdim=True).detach()
+    e, tot = _exp_and_sum(d)
+    return e / tot[..., None]
+
+
+def _exp_and_sum(d: torch.Tensor):
+    e = xla_exp(d.float())
     tot = e[..., 0]
     for i in range(1, e.shape[-1]):
         tot = tot + e[..., i]
-    return e / tot[..., None]
+    return e, tot
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and carried in float32 (a convert pair)."""
+    return t.to(torch.bfloat16).float()
+
+
+class _SoftmaxBf16(torch.autograd.Function):
+    """:func:`softmax` of bf16 logits on the CPU, with JAX's gradient of
+    ``e / sum(e)`` as XLA computes it there: the max held constant,
+    ``e``'s cotangent ``g / tot - sum_j (g_j / tot^2) e_j`` and ``d``'s
+    that times ``e``, each op rounded to bf16 but ``1 / tot^2`` (read off
+    the compiled backward; bitwise against ``jax.vjp`` of an MoE layer's
+    router and input).  Autograd through the float32 division rounds
+    other points: 3.0e-3 relative L2 off JAX's input gradient of a bf16
+    MoE layer, 6.9e-3 off its router's."""
+
+    @staticmethod
+    def forward(ctx, logits):
+        e, tot = _exp_and_sum(logits - logits.amax(-1, keepdim=True))
+        eb, tb = _bf16(e), _bf16(tot)[..., None]
+        ctx.save_for_backward(eb, tb)
+        return (eb / tb).to(torch.bfloat16)
+
+    @staticmethod
+    def backward(ctx, g):
+        eb, tb = ctx.saved_tensors
+        g = _bf16(g)
+        terms = _bf16(_bf16(g * _bf16(1 / _bf16(tb * tb))) * eb)
+        s = terms[..., :1]
+        for i in range(1, terms.shape[-1]):
+            s = s + terms[..., i:i + 1]
+        ge = _bf16(_bf16(g / tb) + _bf16(-_bf16(s)))
+        return (ge * eb).to(torch.bfloat16)
+
+
+# XLA's CPU reduction of a reduced axis longer than this: windows of it,
+# then the windows' sums
+_REDUCE_WINDOW = 32
+
+
+def sum_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., C) in bf16 summed over every leading axis as XLA's CPU
+    backend sums bf16 under ``jax.jit``: each add rounded to bf16, in
+    row-major order; where a reduced axis is longer than 32, in windows of
+    32 along it (the windows centred, zero padding split low / high), the
+    windows' sums then added in row-major order (bitwise against
+    ``lax.reduce`` at the shapes of ``tests/test_torch_hybrid_train.py``,
+    odd lengths included)."""
+    lead, c = t.shape[:-1], t.shape[-1]
+    t = t.float()
+
+    def seq(ranges):
+        acc = torch.zeros(c, dtype=torch.float32, device=t.device)
+        for idx in itertools.product(*ranges):
+            acc = _bf16(acc + t[idx])
+        return acc
+
+    if all(d <= _REDUCE_WINDOW for d in lead):
+        return seq([range(d) for d in lead]).to(torch.bfloat16)
+    wins = []
+    for d in lead:
+        if d <= _REDUCE_WINDOW:
+            wins.append([range(d)])
+            continue
+        n = -(-d // _REDUCE_WINDOW)
+        low = (n * _REDUCE_WINDOW - d) // 2
+        wins.append([range(max(0, k * _REDUCE_WINDOW - low),
+                           min(d, (k + 1) * _REDUCE_WINDOW - low))
+                     for k in range(n)])
+    acc = torch.zeros(c, dtype=torch.float32, device=t.device)
+    for ranges in itertools.product(*wins):
+        acc = _bf16(acc + seq(ranges))
+    return acc.to(torch.bfloat16)
+
+
+class _Broadcast(torch.autograd.Function):
+    """``w`` (C,) broadcast to ``shape`` (..., C); the gradient summed by
+    :func:`sum_bf16` for a bf16 CPU ``w``, by ``sum`` elsewhere."""
+
+    @staticmethod
+    def forward(ctx, w, shape):
+        ctx.cpu_bf16 = w.device.type == "cpu" and w.dtype == torch.bfloat16
+        return w.expand(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.cpu_bf16:
+            return sum_bf16(g), None
+        return g.reshape(-1, g.shape[-1]).sum(0), None
+
+
+def broadcast(w: torch.Tensor, shape) -> torch.Tensor:
+    """``w`` (C,) broadcast to ``shape`` (..., C), as ``w[None, ...]``
+    is in the JAX package: the gradient of a bf16 ``w`` on the CPU is
+    XLA's bf16 sum (:func:`sum_bf16`), not torch's float32 one (1.3e-2
+    relative L2 off JAX's gradient of a bf16 Mamba-2 layer's
+    ``dt_bias``, 9e-3 off its conv weights')."""
+    return _Broadcast.apply(w, tuple(shape))

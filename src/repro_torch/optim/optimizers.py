@@ -130,10 +130,20 @@ def _dq8_row(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale[..., None]
 
 
+# a leaf larger than this is updated in blocks of whole last-axis rows:
+# each row has its own int8 scales and every other step is elementwise,
+# so the blocks give the whole leaf's bits, while the update's float32
+# temporaries stay at a block's size (an arctic expert bank is 1.1 B
+# values: ~4.5 GB for each float32 temporary of the whole leaf)
+UPDATE_BLOCK = 1 << 26
+
+
 def adam_int8(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
               eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
     """Adam with int8 row-quantized first/second moments (2 bytes+/param);
-    each leaf's state is ``{"mq", "ms", "vq", "vs"}``."""
+    each leaf's state is ``{"mq", "ms", "vq", "vs"}``.  A leaf of more
+    than ``UPDATE_BLOCK`` values is updated a block of rows at a time
+    (the same bits)."""
     lr_fn = lr if callable(lr) else (lambda _: lr)
 
     def init(params):
@@ -166,9 +176,30 @@ def adam_int8(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
             vq, vs = _q8_row(torch.sqrt(v))
             return new_p, {"mq": mq, "ms": ms, "vq": vq, "vs": vs}
 
+        def blocked(p, g, s):
+            if p.dim() < 2 or p.numel() <= UPDATE_BLOCK:
+                return leaf(p, g, s)
+            n = p.shape[-1]
+            rows = max(1, UPDATE_BLOCK // n)
+            flat = [t.reshape(-1, n) for t in (p, g, s["mq"], s["vq"])]
+            scales = [s["ms"].reshape(-1), s["vs"].reshape(-1)]
+            out = [torch.empty_like(t) for t in (flat[0], flat[2], flat[3])]
+            out_s = [torch.empty_like(t) for t in scales]
+            for i in range(0, flat[0].shape[0], rows):
+                r = slice(i, i + rows)
+                new_p, st = leaf(flat[0][r], flat[1][r], {
+                    "mq": flat[2][r], "ms": scales[0][r],
+                    "vq": flat[3][r], "vs": scales[1][r]})
+                out[0][r], out[1][r], out[2][r] = new_p, st["mq"], st["vq"]
+                out_s[0][r], out_s[1][r] = st["ms"], st["vs"]
+            return out[0].reshape(p.shape), {
+                "mq": out[1].reshape(p.shape), "ms": out_s[0].reshape(
+                    s["ms"].shape), "vq": out[2].reshape(p.shape),
+                "vs": out_s[1].reshape(s["vs"].shape)}
+
         def walk(p, g, s):     # the state holds a dict per parameter leaf
             if not isinstance(p, dict):
-                return leaf(p, g, s)
+                return blocked(p, g, s)
             outs = {k: walk(p[k], g[k], s[k]) for k in p}
             return ({k: o[0] for k, o in outs.items()},
                     {k: o[1] for k, o in outs.items()})

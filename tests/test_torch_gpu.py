@@ -1127,6 +1127,38 @@ def test_mps_combine_channel_last_route(cuda, k, n):
                              mps.SearchCtx(use_kernel=False), channel_axis=1)
 
 
+@pytest.mark.parametrize("e,k,n", [(4, 64, 128), (3, 200, 96),
+                                   (8, 512, 384), (2, 64, 2052)])
+def test_mps_combine_on_an_expert_bank(cuda, e, k, n):
+    """``core.mps.kernel_combine`` on a 3-D expert bank ``(E, K, C_out)``
+    with ``channel_axis=2`` (an MoE layer's ``w_gate`` / ``w_up`` /
+    ``w_down`` against its one gamma): the bank's C_out rows of ``E * K``
+    go through K4, the effective bank and dW bit for bit against the
+    plain versions on those rows, dprobs within the summation bound, one
+    launch each way; each channel's scale is taken over all of E and K
+    (``quantize_weights_multi`` on the bank agrees)."""
+    from repro_torch.core import mps, quantizers
+    pw = (0, 2, 4, 8)
+    rows, probs, up = _k4_case(cuda, n, e * k, pw, seed=e * k + n)
+    bank = rows.reshape(n, e, k).permute(1, 2, 0).contiguous()
+    bank.requires_grad_()
+    p = probs.clone().requires_grad_()
+    mops.mps_combine_fwd.launches = mops.mps_combine_bwd.launches = 0
+    out = mps.kernel_combine(bank, p, pw, channel_axis=2)
+    assert out.shape == (e, k, n)
+    out.backward(up.reshape(n, e, k).permute(1, 2, 0).contiguous())
+    torch.cuda.synchronize()
+    assert (mops.mps_combine_fwd.launches,
+            mops.mps_combine_bwd.launches) == (1, 1)
+    flat = out.detach().permute(2, 0, 1).reshape(n, e * k)
+    assert torch.equal(flat, mops.mps_combine_ref(rows, probs, pw))
+    _k4_check_bwd(rows, probs, up, pw,
+                  bank.grad.permute(2, 0, 1).reshape(n, e * k), p.grad)
+    qs = quantizers.quantize_weights_multi(bank.detach(), pw, 2)
+    want = torch.sum(torch.movedim(probs, -1, 0)[:, None, None, :] * qs, 0)
+    torch.testing.assert_close(out.detach(), want, rtol=1e-5, atol=1e-6)
+
+
 def test_lm_search_step_on_the_card(cuda):
     """One search step of ``llama3.2-1b-smoke`` (remat on) on the card:
     finite loss and gradient norm, every projection's K4 forward launched

@@ -96,7 +96,7 @@ def test_jamba_builds_standalone():
     in a fresh interpreter that has loaded no JAX, no ``repro`` and no
     CUDA library of the port's kernels, and no family of the port's
     registry is refused any more (every arch's tree builds on the meta
-    device); training an MoE-bearing stack still names slice E."""
+    device); the MoE-bearing stack takes a search train step."""
     code = (
         "import sys, torch\n"
         "import repro_torch\n"
@@ -113,11 +113,18 @@ def test_jamba_builds_standalone():
         "assert len(lm._plan_weights(cfg)) == 58\n"
         "for name in registry.ARCHS:\n"
         "    lm.init_params(registry.get(name), device='meta')\n"
-        "try:\n"
-        "    lm.forward(cfg, p, {'tokens': tok}, mode='train')\n"
-        "    raise SystemExit('trained an MoE stack')\n"
-        "except NotImplementedError as e:\n"
-        "    assert 'slice E' in str(e), e\n"
+        "from repro_torch.data import synthetic\n"
+        "from repro_torch.launch import steps\n"
+        "from repro_torch.optim import optimizers\n"
+        "p = lm.init_params(cfg, device='cpu', mps_on=True)\n"
+        "opt = optimizers.make_optimizer(cfg.optimizer, 3e-4)\n"
+        "step = steps.make_train_step(cfg, opt, search=True)\n"
+        "batch = synthetic.lm_batch(cfg.vocab, 33, 2, 0, device='cpu')\n"
+        "p2, _, loss = step(p, opt.init(p), batch, 0)\n"
+        "assert torch.isfinite(loss), loss\n"
+        "g = p['blocks']['l1']['ffn']['w_up']['gamma']\n"
+        "assert not torch.equal(p2['blocks']['l1']['ffn']['w_up']['gamma'],"
+        " g)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "assert not bad, bad\n"

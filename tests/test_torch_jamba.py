@@ -247,15 +247,34 @@ def test_bf16_mamba_layer_matches_jax(world):
         close(yt, yj, f"decode y after S={s}")
 
 
-def test_train_mode_refused_naming_slice_e(world):
-    """Training an MoE-bearing stack (the hybrid's odd slots) stays slice
-    E's; the serving forward builds and runs."""
+def test_train_mode_runs_the_hybrid(world):
+    """The hybrid trains (the refusal that named slice E is gone): the
+    train-mode forward of a sequence the SSD chunk tiles gives finite
+    logits, and the loss's gradient reaches a Mamba-2 layer, the
+    attention layer and every MoE slot's router and banks (parity with
+    the JAX package: ``test_torch_hybrid_train.py``)."""
     _, tcfg, _, tp = world
-    tok = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tlm.forward(tcfg, tp, {"tokens": tok}, mode="train")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tlm.loss_fn(tcfg, tp, {"tokens": tok, "targets": tok})
+    tok = torch.zeros((1, 32), dtype=torch.int32)
+    logits, caches = tlm.forward(tcfg, tp, {"tokens": tok}, mode="train")
+    assert caches is None and torch.isfinite(logits).all()
+    blk = tp["blocks"]
+    leaves = [blk["l0"]["mixer"]["in_x"]["w"], blk["l4"]["mixer"]["wq"]["w"]]
+    for i in (1, 3, 5, 7):
+        leaves += [blk[f"l{i}"]["ffn"]["router"]["w"],
+                   blk[f"l{i}"]["ffn"]["w_up"]["w"]]
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    params = {**tp, "blocks": {k: dict(v) for k, v in blk.items()}}
+    params["blocks"]["l0"]["mixer"] = {**blk["l0"]["mixer"],
+                                       "in_x": {"w": leaves[0]}}
+    params["blocks"]["l4"]["mixer"] = {**blk["l4"]["mixer"],
+                                       "wq": {"w": leaves[1]}}
+    for n, i in enumerate((1, 3, 5, 7)):
+        params["blocks"][f"l{i}"]["ffn"] = {
+            **blk[f"l{i}"]["ffn"], "router": {"w": leaves[2 + 2 * n]},
+            "w_up": {"w": leaves[3 + 2 * n]}}
+    loss = tlm.loss_fn(tcfg, params, {"tokens": tok, "targets": tok})
+    for g in torch.autograd.grad(loss, leaves):
+        assert torch.isfinite(g).all() and g.abs().sum() > 0
 
 
 # ---------------------------------------------------------------------------
