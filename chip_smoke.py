@@ -265,8 +265,43 @@ Phases, in order; any failure ends the run with a non-zero exit:
               16-expert banks as C_out rows of E * K) and times both
               kernels and the bank's transposing copy beside their
               bounds.
-18. report -- one JSON line of kernels (with each kernel's launches on
-              paths 8 to 12), the card's name and power limit, and last
+18. expert-parallel -- path 13: the mesh layer and the expert-parallel
+              layout (``distributed.sharding``, ``launch.mesh``,
+              ``nn/blocks.moe_layer``'s mesh branch) on four processes
+              sharing the card (a gloo group with a file rendezvous under
+              a temporary directory; NCCL takes one rank a device); the
+              parent builds every kernel first, the ranks only load them,
+              and each rank draws only its own experts (every expert from
+              a generator seeded by its bank and index).  (a) arctic-480b
+              at published widths, 1 of 35 layers, all 128 experts on
+              mesh (1, 4), 32 a rank, bf16, plan-bound through
+              synthetic_plan(bits=None, seed=0) (K1; the banks on cuBLAS)
+              and float: 4 prompts of 64-512 tokens prefilled into a
+              PagedCache (page 16) through make_paged_prefill_step (K3)
+              and 16 greedy decode steps through make_decode_step (K2);
+              every rank's logits bitwise equal to the same layer served
+              by one process after the ranks exit, tokens identical, each
+              rank's K1 / K2 / K3 launches the single run's.  (b) arctic
+              cut to 8 experts on mesh (2, 2), 4 a model rank, under the
+              search (bf16 masters, adam_int8 at 3e-4, 4 micro-batches,
+              remat), 3 steps of 8 x 256 tokens: step 0's data-shard
+              losses bitwise against one process run on each shard alone
+              (same t_loc), its clipped gradients within EP_TRAIN_GRAD
+              relative L2 a leaf, each bank's absmax on every rank
+              bitwise the whole bank's, replicated leaves identical on
+              all ranks after every step, bank gammas moved, one plan on
+              every rank, K4 80 forward (24 given the absmax) and 40
+              backward launches a step a rank; one more step profiled on
+              rank 0 (device ms by class, the all-reduces' wall ms).  (c)
+              ``python -m torch.distributed.run --standalone
+              --nproc-per-node 4 -m repro_torch.launch.train --arch
+              arctic-480b-smoke --search --mesh 2,2 --dist-backend gloo
+              --steps 3`` exits 0 and its checkpoint restores under (1,
+              1).  Before the paths, the kernels phase holds K4's forward
+              given an absmax bitwise at path 13's bank-shard shapes
+              (4864 x 28672 and 7168 x 19456) and times it.
+19. report -- one JSON line of kernels (with each kernel's launches on
+              paths 8 to 13), the card's name and power limit, and last
               the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -1163,15 +1198,17 @@ def _k4_inputs(g, dev, m, k, view=False):
     return w, probs, up
 
 
-def _k4_dprobs_check(w, probs, up, dprobs, where):
+def _k4_dprobs_check(w, probs, up, dprobs, where, absmax=None):
     """dprobs within the summation bound 2 K 2^-24 sum_k |g q| of a
-    float64 row sum of the plain version's products."""
+    float64 row sum of the plain version's products (each row's scale
+    from ``absmax`` when given)."""
     from repro_torch.kernels.mps_combine import ops as mops
     k = w.shape[1]
     for p in range(len(K4_PW)):
         onehot = torch.zeros_like(probs)
         onehot[:, p] = 1.0
-        prod = (up * mops.mps_combine_ref(w, onehot, K4_PW)).double()
+        prod = (up * mops.mps_combine_ref(w, onehot, K4_PW,
+                                          absmax)).double()
         err = (dprobs[:, p].double() - prod.sum(1)).abs()
         bound = 2 * k * 2.0 ** -24 * prod.abs().sum(1)
         if not bool((err <= bound).all()):
@@ -5529,6 +5566,751 @@ def phase_train_moe(dev, counters, smi, banks):
                 paged_vs_dense=dict(plan=gap["k3"], float=gap_f["k3"]))
 
 
+# ---------------------------------------------------------------------------
+# path 13: the expert-parallel layout on four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "arctic-480b"
+EP_SERVE_MESH, EP_TRAIN_MESH = (1, 4), (2, 2)
+EP_SERVE = dict(n_layers=1, param_dtype="bfloat16")     # all 128 experts
+EP_TRAIN = dict(n_layers=1, n_experts=8)               # of 35 layers, 128
+EP_LENS = (64, 200, 377, 512)
+EP_NEW, EP_PS, EP_MAX_LEN = 16, 16, 544
+EP_STEPS, EP_BATCH, EP_SEQ = 3, 8, 256
+EP_CLI = "arctic-480b-smoke"
+# the (2, 2) step's clipped gradients against the single-process
+# reference on the same data shards, relative L2 per leaf: 1.5x this
+# comparison's largest reading on the H100 (the router's 4.70e-3;
+# median leaf 1.8e-6; PERF.md section 6)
+EP_TRAIN_GRAD = 7e-3
+K4_GIVEN = (("w_gate / w_up", 4864, 4 * 7168), ("w_down", 7168, 4 * 4864))
+
+
+def _ep_cfg(kw):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get(EP_ARCH), **kw)
+
+
+def _ep_draw(cfg, dev, experts, mps_on=False):
+    """Parameters of ``cfg`` with ``lm.init_params``' tree whose expert
+    banks hold only ``experts`` (a range of expert indices): every bank
+    expert is drawn from a generator seeded by its bank and its index,
+    every other leaf from one seeded by its path, so a rank draws its own
+    experts alone and the single-process reference (all experts)
+    concatenates the same draws.  Weights in ``cfg.param_dtype``, norms
+    0, gammas at the Eq. 13 init."""
+    import zlib
+
+    from repro_torch.core import sampling
+    from repro_torch.models import lm
+    meta = lm.init_params(cfg, device="meta", mps_on=mps_on)
+    axes = lm.logical_axes(cfg, mps_on=mps_on)
+    dtype = torch.bfloat16 if cfg.param_dtype == "bfloat16" else \
+        torch.float32
+
+    def draw(path, leaf, ax):
+        if isinstance(leaf, dict):
+            return {k: draw(f"{path}/{k}", leaf[k], ax[k]) for k in leaf}
+        if path.endswith("gamma"):
+            return sampling.init_selection_logits(
+                cfg.mps_precisions, tuple(leaf.shape[:-1]), dev)
+        if not path.endswith("/w"):
+            return torch.zeros(leaf.shape, dtype=dtype, device=dev)
+        seed = zlib.crc32(path.encode())
+        scale = 0.02 if path in ("/embed/w", "/lm_head/w") else \
+            1.0 / leaf.shape[-2] ** 0.5
+        if "experts" not in ax:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return (torch.randn(leaf.shape, generator=g, device=dev)
+                    * scale).to(dtype)
+        shape = list(leaf.shape)
+        shape[1] = len(experts)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        for j in range(shape[0]):
+            for i, e in enumerate(experts):
+                g = torch.Generator(device=dev).manual_seed(
+                    seed * 1009 + 131 * j + e)
+                out[j, i] = (torch.randn(shape[2:], generator=g, device=dev)
+                             * scale).to(dtype)
+        return out
+
+    return draw("", meta, axes)
+
+
+def _ep_prompts(cfg):
+    rng = np.random.default_rng(25)
+    return [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+            for n in EP_LENS]
+
+
+def _ep_serve_run(cfg, params, dev, counters):
+    """The prompts prefilled into a ``serve.cache.PagedCache`` (page
+    EP_PS, padded to a q chunk) through ``make_paged_prefill_step`` (K3),
+    then EP_NEW greedy decode steps of the batch through
+    ``make_decode_step(tables=...)`` (K2); K1 on a plan-bound tree.
+    Launches read around the run.  Returns (the last position's logits of
+    every prefill and the decode steps' logits (float32, host), the
+    tokens (B, EP_NEW + 1), the launches, wall seconds)."""
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.serve import cache as cache_mod
+
+    prompts = _ep_prompts(cfg)
+    backend = cache_mod.PagedCache(cfg, len(prompts), EP_MAX_LEN, dev,
+                                   page_size=EP_PS)
+    prefill = steps_lib.make_paged_prefill_step(cfg)
+    decode = steps_lib.make_decode_step(cfg)
+    q = min(pops.PREFILL_Q, max(8, EP_PS))
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rows, first, handles = [], [], []
+    with torch.no_grad():
+        for slot, p in enumerate(prompts):
+            n = p.size
+            h = backend.alloc(slot, slot, n)
+            spad = -(-n // q) * q
+            toks = torch.zeros((1, spad), dtype=torch.int32, device=dev)
+            toks[0, :n] = torch.as_tensor(p, device=dev)
+            width = min(-(-spad // EP_PS), backend.table_width)
+            tables = backend.device_tables()[slot:slot + 1, :width]
+            logits, pc = prefill(params, {"tokens": toks},
+                                 backend.kv_caches(), tables,
+                                 torch.tensor([n], dtype=torch.int32,
+                                              device=dev))
+            backend.insert(h, pc)
+            rows.append(logits[0, -1].float().cpu())
+            first.append(int(torch.argmax(logits[0, -1, :cfg.vocab])))
+            handles.append(h)
+        out, pos = [first], [p.size for p in prompts]
+        for _ in range(EP_NEW):
+            tables = backend.device_tables()[:, :max(pos) // EP_PS + 1]
+            logits, caches = decode(
+                params, {"tokens": torch.as_tensor(out[-1], device=dev)[
+                    :, None]}, backend.gather(),
+                torch.as_tensor(pos, dtype=torch.int32, device=dev), tables)
+            backend.commit(caches)
+            rows.append(logits[:, -1].float().cpu())
+            out.append(torch.argmax(logits[:, -1, :cfg.vocab], -1).tolist())
+            for i, h in enumerate(handles):
+                pos[i] += 1
+                backend.append(h)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in counters.items()}
+    return rows, np.asarray(out).T, got, wall
+
+
+class _CollectiveTimer:
+    """Wall ms of every all-reduce of ``distributed.sharding`` on this
+    rank (the card synchronised before and after each), by op."""
+
+    def __init__(self):
+        from repro_torch.distributed import sharding
+        self.mod, self.inner = sharding, sharding._all_reduce
+        self.ms = {}
+
+        def timed(t, op, group):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.inner(t, op, group)
+            torch.cuda.synchronize()
+            key = f"{str(op).split('.')[-1]} {tuple(t.shape)}"
+            self.ms.setdefault(key, []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+
+        sharding._all_reduce = timed
+
+    def close(self):
+        self.mod._all_reduce = self.inner
+        return self.ms
+
+
+def _ep_rank(rank, world, tmp):
+    """One of the four ranks: the serve half on EP_SERVE_MESH, then the
+    train half on EP_TRAIN_MESH; its results to ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+    # four processes share the card: segments that grow in place keep a
+    # rank's cache from holding gigabytes it cannot reuse
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                            rank=rank, world_size=world)
+    try:
+        res = {"serve": _ep_rank_serve(rank)}
+        _free(torch.device("cuda"))
+        res["train"] = _ep_rank_train(rank, tmp)
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _counters():
+    """Every kernel wrapper, whose ``launches`` the paths read."""
+    from repro_torch.kernels.mps_combine import ops as mops
+    from repro_torch.kernels.paged_attention import ops as pops
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    return {"quant_matmul": qops.quant_matmul,
+            "paged_attention": pops.paged_attention_fwd,
+            "paged_prefill": pops.paged_prefill_fwd,
+            "mps_combine": mops.mps_combine_fwd,
+            "mps_combine_bwd": mops.mps_combine_bwd,
+            "ssd_scan": sops.ssd_scan, "ssd_scan_bwd": sops.ssd_scan_bwd}
+
+
+def _ep_rank_serve(rank):
+    """Serve half on one rank: its 32 experts of each bank, plan-bound
+    then float, under the (1, 4) mesh."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.serve import engine
+
+    dev = torch.device("cuda")
+    cfg = _ep_cfg(EP_SERVE)
+    mesh = meshlib.make_debug_mesh(*EP_SERVE_MESH, device=dev)
+    e_loc = cfg.n_experts // EP_SERVE_MESH[1]
+    m = mesh.coords["model"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _ep_draw(cfg, dev, range(m * e_loc, (m + 1) * e_loc))
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    plan = engine.synthetic_plan(cfg, params, bits=None, seed=0)
+    out = {"drawn_s": drawn, "coords": mesh.coords,
+           "bank_shape": tuple(params["blocks"]["l0"]["ffn"]["w_gate"][
+               "w"].shape)}
+    counters = _counters()
+    with sharding.use_mesh(mesh):
+        for label, tree in (("plan", engine.apply_plan(cfg, params, plan)),
+                            ("float", params)):
+            timer = _CollectiveTimer()
+            rows, toks, got, wall = _ep_serve_run(cfg, tree, dev, counters)
+            out[label] = dict(rows=rows, tokens=toks, launches=got,
+                              wall=wall, collectives=timer.close())
+            del tree
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["plan_groups"] = len(plan.groups)
+    return out
+
+
+def _ep_rank_train(rank, tmp):
+    """Train half on one rank: EP_STEPS search steps of arctic cut to
+    EP_TRAIN (8 experts, 4 a model rank) on the (2, 2) mesh, bf16
+    masters, adam_int8 at 3e-4, 4 micro-batches, remat.  Records the
+    losses (global and this data shard's), step 0's absmax of each bank
+    and clipped gradients, the replicated leaves' digests after each
+    step, the bank gammas' moves, the plan's digest, the launches, the
+    collectives' wall ms and one profiled step's device split."""
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import grad as gradlib
+    from repro_torch.optim import optimizers
+
+    dev = torch.device("cuda")
+    cfg = _ep_cfg(EP_TRAIN)
+    mesh = meshlib.make_debug_mesh(*EP_TRAIN_MESH, device=dev)
+    e_loc = cfg.n_experts // EP_TRAIN_MESH[1]
+    m = mesh.coords["model"]
+    torch.cuda.reset_peak_memory_stats()
+    params = _ep_draw(cfg, dev, range(m * e_loc, (m + 1) * e_loc),
+                      mps_on=True)
+    logical = lm.logical_axes(cfg, mps_on=True)
+    opt = _KeepGrads(optimizers.make_optimizer(cfg.optimizer, 3e-4))
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    step_fn = steps_lib.make_train_step(cfg, opt, search=True)
+    gamma0 = {k: t.clone() for k, t in _leaves(state["params"])
+              if "/ffn/w_" in k and k.endswith("gamma")}
+    counters = _counters()
+    local, absmax = [], []
+    inner_acc, inner_max = gradlib.accumulate_grads, sharding.all_reduce_max
+
+    def acc(*a, **k):
+        g, loss = inner_acc(*a, **k)
+        local.append(float(loss))
+        return g, loss
+
+    def amax(v, group):
+        got = inner_max(v, group)
+        absmax.append(got.cpu())
+        return got
+
+    res = {"coords": mesh.coords, "losses": [], "norms": [], "digests": [],
+           "ms": []}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    counters["mps_combine"].given_launches = 0
+    gradlib.accumulate_grads = acc
+    timer = _CollectiveTimer()
+    try:
+        with sharding.use_mesh(mesh):
+            for i in range(EP_STEPS):
+                sharding.all_reduce_max = amax if i == 0 else inner_max
+                batch = synthetic.lm_batch(cfg.vocab, EP_SEQ + 1, EP_BATCH, i,
+                                           device=dev)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                p, o, loss = step_fn(state["params"], state["opt"], batch, i)
+                torch.cuda.synchronize()
+                res["ms"].append(1e3 * (time.perf_counter() - t1))
+                if i == 0:
+                    res["grads"] = {k: g.cpu() for k, g in
+                                    _leaves(o["grads"])}
+                o["grads"] = None
+                state = {"params": p, "opt": o}
+                del p, o
+                res["losses"].append(float(loss))
+                res["norms"].append(float(step_fn.grad_norm))
+                res["digests"].append(_ep_digests(state["params"], logical))
+            res["launches"] = {k: fn.launches for k, fn in counters.items()}
+            res["given_launches"] = counters["mps_combine"].given_launches
+            res["collectives"] = timer.close()
+            res["profile"] = _ep_profile(step_fn, state, cfg, dev,
+                                         traced=rank == 0)
+            plan = lm.extract_plan(cfg, state["params"])
+    finally:
+        gradlib.accumulate_grads = inner_acc
+        sharding.all_reduce_max = inner_max
+    res["local_losses"] = local[:1]
+    res["absmax"] = absmax[:3]
+    res["gammas_moved"] = {k: not torch.equal(t, gamma0[k]) for k, t in
+                           _leaves(state["params"]) if k in gamma0}
+    res["plan"] = {g: plan.channel_bits[g].tolist() for g in plan.groups}
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if mesh.coords["data"] != 0:      # the data ranks hold one average
+        res.pop("grads")
+    elif m:                           # and the model ranks one copy of the
+        res["grads"] = {k: v for k, v in res["grads"].items()   # rest
+                        if "/ffn/w_" in k and k.endswith("/w")
+                        and "shared" not in k}
+    return res
+
+
+def _ep_digests(tree, logical):
+    """Per leaf: two int64 sums of its bit patterns (plain and weighted
+    by position), to tell whether ranks hold the same leaf."""
+    from repro_torch.launch import steps as steps_lib
+    out = {}
+
+    def dig(axes, t):
+        bits = t.detach().contiguous().view(
+            {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+                t.element_size()]).reshape(-1)
+        plain = weighted = 0
+        for i in range(0, bits.numel(), 1 << 24):     # 16M values at a time
+            c = bits[i:i + (1 << 24)].to(torch.int64)
+            w = (torch.arange(i, i + c.numel(), device=c.device) % 8191) + 1
+            plain += int(c.sum())
+            weighted += int((c * w).sum())
+        return (plain, weighted, "experts" in axes)
+
+    flat = steps_lib.tree_map_axes(dig, logical, tree)
+    for k, v in _leaves(flat):
+        out[k] = v
+    return out
+
+
+def _ep_profile(step_fn, state, cfg, dev, traced):
+    """One more step (its batch step EP_STEPS) on every rank, under
+    torch.profiler where ``traced`` (rank 0): device ms by class (K4,
+    cuBLAS products, copies and casts, the rest) and the collectives'
+    wall ms; None on the other ranks."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import synthetic
+    batch = synthetic.lm_batch(cfg.vocab, EP_SEQ + 1, EP_BATCH, EP_STEPS,
+                               device=dev)
+    timer = _CollectiveTimer()
+    torch.cuda.synchronize()
+    with (profile(activities=[ProfilerActivity.CUDA]) if traced
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        step_fn(state["params"], state["opt"], batch, EP_STEPS)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    coll = timer.close()
+    if not traced:
+        return None
+    split = {"K4": 0.0, "cuBLAS": 0.0, "copies/casts": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        n = e.key
+        if "mps_" in n:
+            split["K4"] += ms
+        elif any(x in n.lower() for x in ("gemm", "cutlass", "nvjet",
+                                          "sm90_xmma")):
+            split["cuBLAS"] += ms
+        elif "copy" in n.lower() or "Memcpy" in n:
+            split["copies/casts"] += ms
+        else:
+            split["other"] += ms
+    return dict(wall_ms=wall, device_ms=sum(split.values()), split=split,
+                collective_ms=sum(sum(v) for v in coll.values()),
+                collectives=len([x for v in coll.values() for x in v]))
+
+
+def phase_k4_given(dev, flush):
+    """K4's forward given an absmax, at path 13's bank-shard shapes (4
+    experts of arctic's banks as C_out rows of E_loc * K): forward and,
+    with the same absmax, dW bitwise against the plain versions, dprobs
+    within the summation bound; the given absmax a maximum over more
+    rows than the shard's (the whole bank's); device ms beside the
+    bound and the plain version."""
+    from repro_torch.kernels.mps_combine import ops as mops
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    out = {}
+    for label, m, k in K4_GIVEN:
+        w = torch.randn(m, k, generator=g, device=dev) * 0.05
+        up = torch.randn(m, k, generator=g, device=dev)
+        probs = torch.softmax(torch.randn(m, len(K4_PW), generator=g,
+                                          device=dev), -1)
+        # the other ranks' rows raise some channels' maximum
+        absmax = torch.amax(w.abs(), 1) * torch.where(
+            torch.rand(m, generator=g, device=dev) < 0.5, 1.0, 1.25)
+        got = mops.mps_combine_fwd(w, probs, K4_PW, absmax_in=absmax)
+        dw, dprobs = mops.mps_combine_bwd(w, probs, absmax, up, K4_PW)
+        torch.cuda.synchronize()
+        err = 0.0
+        for r0 in range(0, m, K4_BANK_CHUNK):
+            r = slice(r0, r0 + K4_BANK_CHUNK)
+            where = f"given absmax {label} rows {r0}.. ({m}x{k})"
+            want = mops.mps_combine_ref(w[r], probs[r], K4_PW, absmax[r])
+            want_dw, _ = mops._vjp_bwd(w[r], probs[r], K4_PW, up[r],
+                                       absmax[r])
+            if not torch.equal(got[r], want):
+                raise AssertionError(f"K4 forward not bitwise at {where}")
+            if not torch.equal(dw[r], want_dw):
+                raise AssertionError(f"K4 backward dW not bitwise at {where}")
+            _k4_dprobs_check(w[r], probs[r], up[r], dprobs[r], where,
+                             absmax[r])
+            err = max(err, float((got[r] - want).abs().max()))
+        del got, dw, dprobs
+        def given():
+            return mops.mps_combine_fwd(w, probs, K4_PW, absmax_in=absmax)
+
+        fwd = device_ms(given, 5, flush, "mps_")
+        kernel = "ring" if any("mps_ring" in x for x in device_ms.names) \
+            else "simple"
+        ev = time_ms(given, 5, flush)
+        plain = device_ms(lambda: mops.mps_combine_ref(w, probs, K4_PW,
+                                                       absmax),
+                          2, flush, names=False)
+        n_nz = sum(1 for b in K4_PW if b)
+        b, by = bound(2 * m * k * 4 + m * len(K4_PW) * 4 + m * 4,
+                      7 * m * k * n_nz, "f32")
+        out[label] = dict(rows=m, k=k, ms=ev, device_ms=fwd, kernel=kernel,
+                          plain_ms=plain, bound_ms=b, bound_by=by,
+                          max_abs_err=err)
+        log(f"[kernels] K4 given absmax {label}: {m} rows x {k} (path 13's "
+            f"bank shard), pw {K4_PW}: forward and dW bitwise against the "
+            f"plain versions given the same absmax, dprobs within the "
+            f"summation bound; forward {ev:.3f} ms (CUDA events), "
+            f"{fwd:.3f} ms device ({kernel} kernel), bound {b:.3f} ({by}), "
+            f"plain {plain:.3f}")
+        del w, up, probs, absmax
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ep(dev, counters, smi):
+    """Path 13: the expert-parallel layout on four ranks sharing the
+    card (gloo; NCCL takes one rank a device).  The parent has built
+    every kernel; the ranks only load them.  (a) arctic-480b at published
+    widths, 1 of 35 layers, all 128 experts on the (1, 4) mesh (32 a
+    rank), plan-bound then float, through the paged prefill and
+    EP_NEW greedy decode steps; (b) arctic cut to 8 experts trained
+    under the search on the (2, 2) mesh; then the single-process
+    references (after the ranks exit) and (c) ``launch.train --mesh 2,2``
+    under ``torch.distributed.run``, its checkpoint restored under (1,
+    1)."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    try:
+        socket.gethostbyname(socket.gethostname())
+    except OSError:
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    tmp = tempfile.mkdtemp(prefix="ep_")
+    t0 = time.perf_counter()
+    mp.spawn(_ep_rank, args=(4, tmp), nprocs=4, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(4)]
+    out = {"spawn_s": spawn_s}
+    out["serve"] = _ep_check_serve(ranks, dev, counters, smi)
+    _free(dev)
+    out["train"] = _ep_check_train(ranks, dev, smi)
+    _free(dev)
+    out["cli"] = _ep_cli(dev, tmp)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _ep_check_serve(ranks, dev, counters, smi):
+    """The serve half against the same layer in one process (every
+    expert): logits bitwise and tokens identical on every rank, each
+    rank's K1 / K2 / K3 launches the single run's."""
+    from repro_torch.serve import engine
+
+    cfg = _ep_cfg(EP_SERVE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = _ep_draw(cfg, dev, range(cfg.n_experts))
+    plan = engine.synthetic_plan(cfg, params, bits=None, seed=0)
+    res = {}
+    for label, tree in (("plan", engine.apply_plan(cfg, params, plan)),
+                        ("float", params)):
+        rows, toks, got, wall = _ep_serve_run(cfg, tree, dev, counters)
+        del tree
+        for r in ranks:
+            s = r["serve"][label]
+            same = len(s["rows"]) == len(rows) and all(
+                torch.equal(a, b) for a, b in zip(s["rows"], rows))
+            if not same or not np.array_equal(s["tokens"], toks):
+                raise AssertionError(f"ep serve {label}: rank "
+                                     f"{r['serve']['coords']} logits or "
+                                     f"tokens differ from the single run")
+            if s["launches"] != got:
+                raise AssertionError(f"ep serve {label}: rank launches "
+                                     f"{s['launches']}, single {got}")
+        if label == "plan" and not got["quant_matmul"] or not all(
+                got[k] for k in ("paged_attention", "paged_prefill")):
+            raise AssertionError(f"ep serve {label}: launches {got}")
+        coll = ranks[0]["serve"][label]["collectives"]
+        n_coll = sum(len(v) for v in coll.values())
+        coll_ms = sum(sum(v) for v in coll.values())
+        res[label] = dict(launches=got, rank_wall_s=[
+            r["serve"][label]["wall"] for r in ranks], single_wall_s=wall,
+            collectives=n_coll, collective_ms=coll_ms)
+        log(f"[ep] serve {label}: {cfg.name} 1 of 35 layers, "
+            f"{cfg.n_experts} experts on mesh {EP_SERVE_MESH} (bank shards "
+            f"{ranks[0]['serve']['bank_shape']} a rank), prompts {EP_LENS} x "
+            f"{EP_NEW} greedy tokens through the paged prefill and decode "
+            f"steps: every rank's {len(rows)} logits rows bitwise equal to "
+            f"the single process's (all {cfg.n_experts} experts), tokens "
+            f"identical; launches a rank = single {got}; wall s a rank "
+            f"{[round(v, 2) for v in res[label]['rank_wall_s']]}, single "
+            f"{wall:.2f}; rank 0's {n_coll} all-reduces {coll_ms:.1f} ms "
+            f"wall (gloo, CUDA tensors)")
+    del params, plan
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    res["single_peak_gib"] = peak
+    res["rank_peak_gib"] = [r["serve"]["peak_gib"] for r in ranks]
+    res["drawn_s"] = [r["serve"]["drawn_s"] for r in ranks]
+    log(f"[ep] serve: peak memory a rank "
+        f"{[round(v, 2) for v in res['rank_peak_gib']]} GiB, the single "
+        f"process {peak:.2f} GiB; {ranks[0]['serve']['plan_groups']} plan "
+        f"groups; {smi}")
+    return res
+
+
+def _ep_check_train(ranks, dev, smi):
+    """The train half against one process at 8 experts run on each data
+    shard alone (same ``t_loc``): step 0's shard losses bitwise, the
+    clipped gradients per leaf within EP_TRAIN_GRAD, each bank's absmax
+    the whole bank's bitwise, replicated leaves identical on all ranks
+    after every step, every bank gamma moved, one plan on every rank,
+    K4's launches counted."""
+    from repro_torch.core import mps
+    from repro_torch.data import synthetic
+    from repro_torch.models import lm
+    from repro_torch.optim import grad as gradlib
+
+    cfg = _ep_cfg(EP_TRAIN)
+    k = cfg.train_microbatches
+    dp, tp = EP_TRAIN_MESH
+    tr = {tuple(r["train"]["coords"].values()): r["train"] for r in ranks}
+    # replicated leaves identical on every rank after every step; a bank
+    # shard identical across the data ranks that share it
+    for step in range(EP_STEPS):
+        for key, d0 in tr[0, 0]["digests"][step].items():
+            for (d, m), r in tr.items():
+                v = r["digests"][step][key]
+                ref = tr[0, m]["digests"][step][key] if d0[2] else d0
+                if v != ref:
+                    raise AssertionError(f"ep train: {key} differs on rank "
+                                         f"{(d, m)} after step {step}")
+    losses = tr[0, 0]["losses"]
+    if any(r["losses"] != losses for r in tr.values()) or not all(
+            np.isfinite(losses + tr[0, 0]["norms"])):
+        raise AssertionError(f"ep train: losses {[r['losses'] for r in tr.values()]}")
+    plans = [r["plan"] for r in tr.values()]
+    if any(p != plans[0] for p in plans):
+        raise AssertionError("ep train: the ranks extracted other plans")
+    moved = [all(r["gammas_moved"].values()) and len(r["gammas_moved"]) == 3
+             for r in tr.values()]
+    if not all(moved):
+        raise AssertionError(f"ep train: bank gammas moved {moved}")
+    n_nodes = lm.mps_param_count(cfg) * lm.n_superblocks(cfg)
+    need = {"mps_combine": n_nodes * k * 2 * EP_STEPS,
+            "mps_combine_bwd": n_nodes * k * EP_STEPS}
+    given = 3 * k * 2 * EP_STEPS
+    for c, r in tr.items():
+        got = r["launches"]
+        if any(got[x] != v for x, v in need.items()) or any(
+                v for x, v in got.items() if x not in need) or \
+                r["given_launches"] != given:
+            raise AssertionError(f"ep train: rank {c} launches {got}, given "
+                                 f"{r['given_launches']}; need {need}, "
+                                 f"given {given}")
+    # the single-process reference, each data shard alone
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = _ep_draw(cfg, dev, range(cfg.n_experts), mps_on=True)
+    ctx = mps.SearchCtx(tau=1.0)
+    banks = {n: params["blocks"]["l0"]["ffn"][n]["w"] for n in
+             ("w_gate", "w_up", "w_down")}
+    for (d, m), r in tr.items():
+        for got, (n, w) in zip(r["absmax"], banks.items()):
+            want = torch.amax(w[0].float().abs(), dim=(0, 1)).cpu()
+            if not torch.equal(got.reshape(-1), want):
+                raise AssertionError(f"ep train: rank {(d, m)}'s absmax of "
+                                     f"{n} is not the whole bank's")
+
+    def loss_of(p, b):
+        return lm.loss_fn(cfg, p, b, ctx=ctx, lam=1e-9)
+
+    batch = synthetic.lm_batch(cfg.vocab, EP_SEQ + 1, EP_BATCH, 0, device=dev)
+    micro = {x: v.reshape((k, EP_BATCH // k) + v.shape[1:])
+             for x, v in batch.items()}
+    n = EP_BATCH // k // dp
+    shard_grads, shard_loss = [], []
+    for d in range(dp):
+        g, loss = gradlib.accumulate_grads(
+            loss_of, params, {x: v[:, d * n:(d + 1) * n]
+                              for x, v in micro.items()})
+        shard_grads.append(g)
+        shard_loss.append(float(loss))
+        for m in range(tp):
+            if tr[d, m]["local_losses"][0] != shard_loss[d]:
+                raise AssertionError(
+                    f"ep train: data shard {d}'s step-0 loss "
+                    f"{tr[d, m]['local_losses'][0]} on rank {(d, m)}, "
+                    f"{shard_loss[d]} alone")
+    from repro_torch.optim.optimizers import tree_map
+    mean = tree_map(lambda *gs: (sum(x.float() for x in gs) / dp).to(
+        gs[0].dtype), *shard_grads)
+    clipped, ref_norm = gradlib.clip_by_global_norm(mean, 1.0)
+    ref = dict(_leaves(clipped))
+    gaps = {}
+    e_loc = cfg.n_experts // tp
+    for m in range(tp):
+        for key, g in tr[0, m]["grads"].items():
+            want = ref[key]
+            if "/ffn/w_" in key and key.endswith("/w") and "shared" not in key:
+                want = want[:, m * e_loc:(m + 1) * e_loc]
+            elif m:
+                continue
+            gaps[key if not m else f"{key}@{m}"] = _rel(g, want)
+    worst = max(gaps, key=gaps.get)
+    med = float(np.median(list(gaps.values())))
+    if gaps[worst] > EP_TRAIN_GRAD:
+        raise AssertionError(f"ep train: gradient {worst} {gaps[worst]} "
+                             f"(bound {EP_TRAIN_GRAD})")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del params, shard_grads, mean, clipped, ref
+    r0 = tr[0, 0]
+    prof = r0["profile"]
+    coll = r0["collectives"]
+    mx = [x for key, v in coll.items() if key.startswith("MAX") for x in v]
+    n_coll = sum(len(v) for v in coll.values())
+    log(f"[ep] train: {cfg.name} 1 of 35 layers, {cfg.n_experts} of 128 "
+        f"experts on mesh {EP_TRAIN_MESH} ({e_loc} a model rank), bf16 "
+        f"masters, {cfg.optimizer}, {k} micro-batches, remat {cfg.remat}, "
+        f"{EP_STEPS} steps of {EP_BATCH} x {EP_SEQ} tokens: losses "
+        f"{[round(v, 5) for v in losses]} (every rank), grad norms "
+        f"{[round(v, 4) for v in r0['norms']]}; step 0's data-shard losses "
+        f"{shard_loss} bitwise equal to one process run on each shard "
+        f"alone; each bank's absmax on every rank bitwise the whole bank's; "
+        f"step 0's clipped gradients of {len(gaps)} leaves within "
+        f"{EP_TRAIN_GRAD} relative L2 of that process's (largest {worst} "
+        f"{gaps[worst]:.3g}, median {med:.3g}; reference norm "
+        f"{float(ref_norm):.4f}, ranks {r0['norms'][0]:.4f}); replicated "
+        f"leaves identical on all 4 ranks after every step; all 3 bank "
+        f"gammas moved; one plan on every rank; K4 launches a rank "
+        f"{r0['launches']['mps_combine']} forward ({r0['given_launches']} "
+        f"given the absmax) and {r0['launches']['mps_combine_bwd']} "
+        f"backward")
+    log(f"[ep] train: step ms a rank {[[round(x, 1) for x in r['ms']] for r in tr.values()]}; "
+        f"rank 0: {n_coll} all-reduces over {EP_STEPS} steps "
+        f"{sum(sum(v) for v in coll.values()):.1f} ms wall, the absmax MAX "
+        f"({len(mx)} calls) median {float(np.median(mx)) if mx else 0:.3f} "
+        f"ms; one profiled step on rank 0: wall {prof['wall_ms']:.1f} ms, "
+        f"device {prof['device_ms']:.1f} ms by class "
+        f"{ {x: round(v, 2) for x, v in prof['split'].items()} }, its "
+        f"{prof['collectives']} all-reduces {prof['collective_ms']:.1f} ms "
+        f"wall; peak a rank {[round(r['peak_gib'], 2) for r in tr.values()]} "
+        f"GiB, the reference {peak:.2f} GiB; {smi}")
+    return dict(launches=r0["launches"], given=r0["given_launches"],
+                losses=losses, gap_max=gaps[worst], gap_worst=worst,
+                gap_median=med, ms=[r["ms"] for r in tr.values()],
+                profile=prof, max_allreduce_ms=(float(np.median(mx))
+                                                if mx else None),
+                collective_ms=sum(sum(v) for v in coll.values()),
+                rank_peak_gib=[r["peak_gib"] for r in tr.values()],
+                ref_peak_gib=peak)
+
+
+def _ep_cli(dev, tmp):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 4
+    -m repro_torch.launch.train --arch arctic-480b-smoke --search --mesh
+    2,2 --dist-backend gloo --steps 3 --ckpt-dir <tmp>`` on cuda: exit 0,
+    then its checkpoint (the gathered tree) restored under (1, 1): every
+    leaf of the whole tree's shape, finite, step 2."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+
+    ckpt = os.path.join(tmp, "ckpt")
+    root = pathlib.Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+           "--arch", EP_CLI, "--search", "--mesh", "2,2", "--dist-backend",
+           "gloo", "--steps", "3", "--ckpt-dir", ckpt]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0 or "[train] done" not in run.stdout:
+        raise AssertionError(f"ep cli: exit {run.returncode}\n"
+                             f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    cfg = registry.get(EP_CLI)
+    params = lm.init_params(cfg, device="cpu", mps_on=True)
+    opt = optimizers.make_optimizer(cfg.optimizer, 3e-4)
+    state, meta = CheckpointManager(ckpt).restore_latest(
+        {"params": params, "opt": opt.init(params)})
+    if state is None or meta["step"] != 2 or not all(
+            torch.isfinite(t.float()).all() for _, t in _leaves(
+                state["params"])):
+        raise AssertionError(f"ep cli: checkpoint {meta}")
+    bank = state["params"]["blocks"]["l0"]["ffn"]["w_gate"]["w"]
+    if bank.shape[1] != cfg.n_experts:
+        raise AssertionError(f"ep cli: restored bank {tuple(bank.shape)}")
+    done = [ln for ln in run.stdout.splitlines() if "[train] done" in ln]
+    log(f"[ep] cli: {' '.join(cmd[2:])} on {torch.cuda.get_device_name(dev)}"
+        f" exit 0 in {wall:.1f} s ({done[-1].strip()}); its checkpoint "
+        f"(step {meta['step']}, the gathered tree: banks of "
+        f"{tuple(bank.shape)}) restored under (1, 1), finite")
+    return dict(wall_s=wall, step=meta["step"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5543,10 +6325,6 @@ def main():
         f"{torch.version.cuda}; nvidia-smi: {smi}")
 
     from repro_torch.kernels import build
-    from repro_torch.kernels.mps_combine import ops as mops
-    from repro_torch.kernels.paged_attention import ops as pops
-    from repro_torch.kernels.quant_matmul import ops as qops
-    from repro_torch.kernels.ssd_scan import ops as sops
 
     t0 = time.perf_counter()
     reports = build.build()
@@ -5561,13 +6339,7 @@ def main():
             elif "Used" in line or "spill" in line:
                 log(f"[build] {src}: {kernel}: {line.split(':')[-1].strip()}")
 
-    counters = {"quant_matmul": qops.quant_matmul,
-                "paged_attention": pops.paged_attention_fwd,
-                "paged_prefill": pops.paged_prefill_fwd,
-                "mps_combine": mops.mps_combine_fwd,
-                "mps_combine_bwd": mops.mps_combine_bwd,
-                "ssd_scan": sops.ssd_scan,
-                "ssd_scan_bwd": sops.ssd_scan_bwd}
+    counters = _counters()
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
 
     def path(name, fn, *args):
@@ -5624,6 +6396,11 @@ def main():
                         **({"plain_ms": b["fwd_plain"]} if d == "fwd"
                            else {}))
             for label, b in banks.items()}
+    given = path("kernels (K4 given absmax)", phase_k4_given, dev, flush)
+    rows["mps_combine"]["given_absmax"] = given
+    rows["mps_combine"]["max_abs_err"] = max(
+        [rows["mps_combine"]["max_abs_err"]]
+        + [g["max_abs_err"] for g in given.values()])
     capped = path("kernels (softcap)", phase_softcap_attention, dev)
     for k, err in capped.items():
         rows[k]["softcap_max_abs_err"] = err
@@ -5647,6 +6424,7 @@ def main():
     jamba = path("path 11 (jamba serve)", phase_jamba, dev, counters, smi)
     moe_trained = path("path 12 (arctic train)", phase_train_moe, dev,
                        counters, smi, banks)
+    ep = path("path 13 (expert parallel)", phase_ep, dev, counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -5725,6 +6503,17 @@ def main():
                    launches_train_moe_float=moe_trained["served_float"][k],
                    launches_jamba_train_step=moe_trained["jamba"][
                        "launches"][k])
+        # path 13: each rank's launches (every rank counts the same) in
+        # the expert-parallel serve (plan-bound, float) and train halves
+        row.update(launches_ep_serve_a_rank=ep["serve"]["plan"][
+                       "launches"][k],
+                   launches_ep_serve_float_a_rank=ep["serve"]["float"][
+                       "launches"][k],
+                   launches_ep_train_a_rank=ep["train"]["launches"][k])
+        if k == "mps_combine":
+            row["launches_ep_train_given_absmax_a_rank"] = ep["train"][
+                "given"]
+            row["ep_max_allreduce_ms"] = ep["train"]["max_allreduce_ms"]
         if k == "quant_matmul":
             r["max_abs_err"] = max(r["max_abs_err"], jamba["k1_err"])
         row.update({

@@ -161,6 +161,19 @@ def lm_params_from_jax(tree, device="cpu", cfg=None):
     return params_from_jax(tree, device)
 
 
+def lm_shard_from_jax(tree, cfg, device="cpu"):
+    """This rank's port tree from a whole ``repro.models.lm`` tree under
+    the installed mesh (``distributed.sharding.use_mesh``): the tree
+    carried by :func:`lm_params_from_jax`, then cut by
+    ``launch.steps.shard_tree`` along ``lm.logical_axes`` (each bank's
+    experts on ``model``); a tree with gammas takes the search's axes."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    whole = lm_params_from_jax(tree, device, cfg)
+    mps_on = any(p.endswith("gamma") for p, _ in _leaf_shapes(whole))
+    return steps.shard_tree(whole, lm.logical_axes(cfg, mps_on))
+
+
 def cnn_params_from_jax(tree, device="cpu"):
     """A ``repro.models.cnn`` parameter tree (raw or BN-folded)."""
     for name, p in tree.items():

@@ -67,21 +67,43 @@ def delta_probs(delta: torch.Tensor, ctx: SearchCtx, tag: int = 0
 
 def effective_weight(w: torch.Tensor, gamma: torch.Tensor,
                      precisions: tuple[int, ...], ctx: SearchCtx,
-                     channel_axis: int = 0, tag: int = 0) -> torch.Tensor:
-    """Paper Eq. 5: W_hat = sum_p gamma_hat[:, p] * Q_p(W)."""
+                     channel_axis: int = 0, tag: int = 0,
+                     group=None) -> torch.Tensor:
+    """Paper Eq. 5: W_hat = sum_p gamma_hat[:, p] * Q_p(W).
+
+    ``group``: a process group over which ``w``'s other axes are split
+    (an expert bank's shard, ``distributed.sharding.axis_group``).  Each
+    rank reduces its own per-channel absmax, the all-reduce MAX gives the
+    whole weight's, and the combine takes it as given (K4's
+    ``absmax_in``, or the plain quantizer stack's ``absmax``); the
+    selection probabilities enter through the copy into the group, so
+    their Eq. 5 gradient, partial on each rank, is summed over it."""
     probs = gamma_probs(gamma, ctx, tag)  # (C, |P|)
     if probs.shape[0] == 1 and w.shape[channel_axis] != 1:
         # layer-wise MPS (EdMIPS-style): one selection row for the whole
         # layer, broadcast over channels (gradients sum over channels)
         probs = probs.expand(w.shape[channel_axis], probs.shape[1])
+    absmax = None
+    if group is not None:
+        from repro_torch.distributed import sharding
+        probs = sharding.copy_to(probs, group)
+        axis = channel_axis % w.ndim
+        absmax = sharding.all_reduce_max(torch.amax(
+            w.detach().abs(), dim=tuple(i for i in range(w.ndim)
+                                        if i != axis)), group)
     use_kernel = w.is_cuda if ctx.use_kernel is None else ctx.use_kernel
     if use_kernel:
-        return kernel_combine(w, probs, precisions, channel_axis)
+        return kernel_combine(w, probs, precisions, channel_axis, absmax)
     if w.is_cuda:
         raise ValueError("SearchCtx(use_kernel=False) runs the plain "
                          "quantizer stack, which takes CPU weights only; a "
                          "CUDA weight goes through kernel K4")
-    qs = quantizers.quantize_weights_multi(w, precisions, channel_axis)
+    if absmax is not None:
+        shape = [1] * w.ndim
+        shape[channel_axis] = w.shape[channel_axis]
+        absmax = absmax.reshape(shape)
+    qs = quantizers.quantize_weights_multi(w, precisions, channel_axis,
+                                           absmax)
     # reshape probs so that the channel dim broadcasts on `channel_axis`
     shape = [len(precisions)] + [1] * w.ndim
     shape[1 + channel_axis] = w.shape[channel_axis]
@@ -90,8 +112,8 @@ def effective_weight(w: torch.Tensor, gamma: torch.Tensor,
 
 
 def kernel_combine(w: torch.Tensor, probs: torch.Tensor,
-                   precisions: tuple[int, ...], channel_axis: int = 0
-                   ) -> torch.Tensor:
+                   precisions: tuple[int, ...], channel_axis: int = 0,
+                   absmax: torch.Tensor | None = None) -> torch.Tensor:
     """Eq. 5 through kernel K4 for a weight whose output channels lie on
     ``channel_axis``: the axis moved to the front and the rest flattened
     into rows of a contiguous ``(C_out, -1)`` copy (a transposing copy
@@ -100,7 +122,8 @@ def kernel_combine(w: torch.Tensor, probs: torch.Tensor,
     upstream gradient takes the same transposing copy into rows, and dW
     comes back through the view.  Both copies run inside the profiler
     range ``COPY_RANGES[w.ndim == 3]`` (whose device-side row repeats
-    their kernels' time).  Raises for a weight K4 cannot take."""
+    their kernels' time).  ``absmax`` (C_out,), when given, is K4's
+    ``absmax_in``.  Raises for a weight K4 cannot take."""
     from repro_torch.kernels.mps_combine import ops as mps_ops
     if w.dtype != torch.float32 or probs.dtype != torch.float32:
         raise TypeError(f"kernel K4 takes float32 weights and "
@@ -108,13 +131,14 @@ def kernel_combine(w: torch.Tensor, probs: torch.Tensor,
     axis = channel_axis % w.ndim
     if axis == 0:
         flat = w.reshape(w.shape[0], -1).contiguous()
-        out = mps_ops.mps_combine(flat, probs.contiguous(), precisions)
+        out = mps_ops.mps_combine(flat, probs.contiguous(), precisions,
+                                  absmax)
         return out.reshape(w.shape)
     rows = torch.movedim(w, axis, 0)
     label = COPY_RANGES[w.ndim == 3]
     with torch.profiler.record_function(label):
         flat = rows.reshape(rows.shape[0], -1).contiguous()
-    out = mps_ops.mps_combine(flat, probs.contiguous(), precisions)
+    out = mps_ops.mps_combine(flat, probs.contiguous(), precisions, absmax)
     return _FromRows.apply(out, tuple(rows.shape), axis, label)
 
 

@@ -96,30 +96,42 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_weights_symmetric(w: torch.Tensor, bits: int,
-                               channel_axis: int = 0) -> torch.Tensor:
+                               channel_axis: int = 0,
+                               absmax: torch.Tensor | None = None
+                               ) -> torch.Tensor:
     """Symmetric min-max per-channel fake quantization of weights.
 
     ``bits == 0`` returns zeros (structured pruning of the channel).  The
     scale, ``max|w| / (2^(b-1) - 1)`` per output channel, is held
     constant for the gradient; the clip comes before the round, so the
-    STE mask is ``1{|w/s| < qmax}`` (0.5 on the bound).
+    STE mask is ``1{|w/s| < qmax}`` (0.5 on the bound).  ``absmax``, when
+    given (broadcastable to w, the channel axis kept), replaces the
+    per-channel ``max|w|``: a weight split over ranks passes the maximum
+    over every rank's part.
     """
     if bits == 0:
         return torch.zeros_like(w)
     if bits >= 32:  # identity / float passthrough
         return w
     qmax = float(2 ** (bits - 1) - 1)
-    reduce_axes = tuple(i for i in range(w.ndim) if i != channel_axis)
-    absmax = torch.amax(w.detach().abs(), dim=reduce_axes, keepdim=True)
+    if absmax is None:
+        reduce_axes = tuple(i for i in range(w.ndim) if i != channel_axis)
+        absmax = torch.amax(w.detach().abs(), dim=reduce_axes, keepdim=True)
+    else:
+        absmax = absmax.detach()
     scale = torch.clamp_min(absmax, _EPS) * recip(qmax, w)
     q = ste_round(clip(w / scale, -qmax, qmax))
     return q * scale
 
 
 def quantize_weights_multi(w: torch.Tensor, precisions: tuple[int, ...],
-                           channel_axis: int = 0) -> torch.Tensor:
-    """Stack of fake-quantized variants of ``w``: shape (|P|, *w.shape)."""
-    return torch.stack([quantize_weights_symmetric(w, b, channel_axis)
+                           channel_axis: int = 0,
+                           absmax: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Stack of fake-quantized variants of ``w``: shape (|P|, *w.shape);
+    ``absmax`` as in :func:`quantize_weights_symmetric`."""
+    return torch.stack([quantize_weights_symmetric(w, b, channel_axis,
+                                                   absmax)
                         for b in precisions])
 
 

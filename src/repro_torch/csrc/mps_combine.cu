@@ -8,7 +8,7 @@
 //
 //   out[m, k]    = sum_p probs[m, p] * Q_p(W)[m, k]
 //   Q_p(W)       = clip(rint(W / s_p), +-qmax_p) * s_p
-//   absmax[m]    = max_k |W[m, k]|
+//   absmax[m]    = max_k |W[m, k]|   (or given: see below)
 //   dW[m, k]     = sum_p (probs[m, p] * inside_p) * g[m, k]
 //   inside_p     = 1{|r| < qmax_p} + 0.5 * 1{|r| = qmax_p},  r = W / s_p
 //   dprobs[m, p] = sum_k g[m, k] * Q_p(W)[m, k]     (0 for a 0-bit p)
@@ -75,6 +75,12 @@
 // likewise.  nvcc would otherwise contract acc + p * q into an FMA.  dprobs
 // sums in another order (FMAs, a fixed shuffle tree, then the row's warps
 // in order).
+//
+// A given absmax (mps_combine_given_launch): both forward kernels read each
+// row's absmax from absmax_in instead of reducing the row, as the TPU kernel
+// takes it (mps_combine_fwd(w, absmax, probs, ...)).  An expert bank split
+// over ranks passes the all-reduced maximum over every rank's rows; any
+// absmax >= the row's own max |W| keeps the fast path's bound above.
 //
 // mps_combine_probe is the forward ring kernel with clock64 stamps per tile
 // (load issued, landed, combined, stored), for chip_smoke.py's phase split.
@@ -290,7 +296,7 @@ struct RingArgs {
   const float* w;          // (M, K)
   const float* g;          // (M, K), backward
   const float* probs;      // (M, P)
-  const float* absmax_in;  // (M,), backward
+  const float* absmax_in;  // (M,): backward, or a forward's given absmax
   float* out;              // (M, K): the effective weight, or dW
   float* absmax_out;       // (M,) or null, forward
   float* dprobs;           // (M, P), backward
@@ -366,7 +372,7 @@ mps_ring_kernel(const RingArgs a) {
       }
       for (int c = lane; c < rows * a.P; c += 32)
         sprm[s][c] = a.probs[(size_t)row0 * a.P + c];
-      if (BWD && lane < rows)
+      if ((BWD || a.absmax_in) && lane < rows)
         sprm[s][NC * MAXP + lane] = a.absmax_in[row0 + lane];
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
@@ -392,7 +398,7 @@ mps_ring_kernel(const RingArgs a) {
     float part[Quant<NP>::N];
     if (has) {
       const float4* w4 = reinterpret_cast<const float4*>(sw);
-      if (BWD) {
+      if (BWD || a.absmax_in) {
         m = sprm[s][NC * MAXP + group];
       } else {
         for (int i = gl; i < nv; i += G * 32) m = max_abs4(m, w4[i]);
@@ -471,6 +477,7 @@ __device__ __forceinline__ float block_max(float m, float* red) {
 template <int NP>
 __global__ void __launch_bounds__(SIMPLE_THREADS)
 mps_simple_kernel(const float* __restrict__ w, const float* __restrict__ probs,
+                  const float* __restrict__ absmax_in,
                   float* __restrict__ out, float* __restrict__ absmax_out,
                   int K, int P, unsigned long long nz_bits,
                   unsigned long long nz_cols) {
@@ -478,9 +485,13 @@ mps_simple_kernel(const float* __restrict__ w, const float* __restrict__ probs,
   const size_t row = blockIdx.x;
   const float* wr = w + row * K;
   float m = 0.0f;
-  for (int k = threadIdx.x; k < K; k += SIMPLE_THREADS)
-    m = fmaxf(m, fabsf(wr[k]));
-  m = block_max(m, red);
+  if (absmax_in) {
+    m = absmax_in[row];
+  } else {
+    for (int k = threadIdx.x; k < K; k += SIMPLE_THREADS)
+      m = fmaxf(m, fabsf(wr[k]));
+    m = block_max(m, red);
+  }
   Quant<NP> q;
   row_quant<NP>(q, m, probs + row * P, nz_bits, nz_cols);
   for (int k = threadIdx.x; k < K; k += SIMPLE_THREADS)
@@ -622,14 +633,15 @@ bool bad_args(int M, int K, int P) {
   return P < 1 || P > MAXP || M < 0 || K < 0;
 }
 
-int forward(const void* w, const void* probs, void* out, void* absmax, int M,
-            int K, int P, unsigned long long packed, void* stamps,
-            void* stream) {
+int forward(const void* w, const void* probs, const void* absmax_in,
+            void* out, void* absmax, int M, int K, int P,
+            unsigned long long packed, void* stamps, void* stream) {
   if (bad_args(M, K, P)) return (int)cudaErrorInvalidValue;
   if (M == 0 || K == 0) return 0;
   RingArgs a = {};
   a.w = (const float*)w;
   a.probs = (const float*)probs;
+  a.absmax_in = (const float*)absmax_in;
   a.out = (float*)out;
   a.absmax_out = (float*)absmax;
   a.stamps = (long long*)stamps;
@@ -647,7 +659,8 @@ int forward(const void* w, const void* probs, void* out, void* absmax, int M,
   if (stamps) return (int)cudaErrorInvalidValue;  // the probe needs the ring
   return with_np(np, [&](auto n) {
     mps_simple_kernel<decltype(n)::value><<<M, SIMPLE_THREADS, 0, st>>>(
-        a.w, a.probs, a.out, a.absmax_out, K, P, a.nz_bits, a.nz_cols);
+        a.w, a.probs, a.absmax_in, a.out, a.absmax_out, K, P, a.nz_bits,
+        a.nz_cols);
     return (int)cudaGetLastError();
   });
 }
@@ -660,8 +673,20 @@ extern "C" int mps_combine_launch(const void* w, const void* probs, void* out,
                                   void* absmax, int M, int K, int P,
                                   unsigned long long packed_bits,
                                   void* stream) {
-  return forward(w, probs, out, absmax, M, K, P, packed_bits, nullptr,
-                 stream);
+  return forward(w, probs, nullptr, out, absmax, M, K, P, packed_bits,
+                 nullptr, stream);
+}
+
+// The forward with a given absmax_in (M,): each row's scales come from it
+// and the row is not reduced.
+extern "C" int mps_combine_given_launch(const void* w, const void* probs,
+                                        const void* absmax_in, void* out,
+                                        int M, int K, int P,
+                                        unsigned long long packed_bits,
+                                        void* stream) {
+  if (absmax_in == nullptr) return (int)cudaErrorInvalidValue;
+  return forward(w, probs, absmax_in, out, nullptr, M, K, P, packed_bits,
+                 nullptr, stream);
 }
 
 // The forward ring kernel with clock64 stamps: stamps (int64, 4 + 4 M) gets
@@ -674,7 +699,8 @@ extern "C" int mps_combine_probe(const void* w, const void* probs, void* out,
                                  unsigned long long packed_bits, void* stamps,
                                  void* stream) {
   if (stamps == nullptr) return (int)cudaErrorInvalidValue;
-  return forward(w, probs, out, absmax, M, K, P, packed_bits, stamps, stream);
+  return forward(w, probs, nullptr, out, absmax, M, K, P, packed_bits, stamps,
+                 stream);
 }
 
 // The straight-through backward: dw (M, K) and dprobs (M, P) from w, g

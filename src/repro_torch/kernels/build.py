@@ -48,6 +48,7 @@ SYMBOLS = {
     "paged_prefill": {"paged_prefill_bf16_dims": ([_P], _I)},
     "mps_combine": {
         "mps_combine_bwd_launch": ([_P] * 6 + [_I] * 3 + [_U64, _P], _I),
+        "mps_combine_given_launch": ([_P] * 4 + [_I] * 3 + [_U64, _P], _I),
         "mps_combine_probe": ([_P] * 4 + [_I] * 3 + [_U64, _P, _P], _I)},
     "ssd_scan": {"ssd_scan_bwd_launch": ([_P] * 8 + [_I] * 3 + [_P], _I),
                  "ssd_scan_bwd_scratch": ([_I] * 3, _LL)},

@@ -16,7 +16,10 @@ plain torch ops, the scale held constant::
     dprobs[i, p]   = sum_k g[i, k] * Q_p(W)[i, k]
 
 The forward kernel also writes each row's absmax, which the backward
-kernel reads instead of reducing W again.
+kernel reads instead of reducing W again.  Or the forward takes each
+row's absmax as given (``absmax_in``), as the TPU kernel does: an expert
+bank split over ranks combines its rows against the per-channel maximum
+over every rank's rows (``core.mps.effective_weight(..., group=)``).
 """
 from __future__ import annotations
 
@@ -59,36 +62,59 @@ def _on_card(what, *ts):
 
 def mps_combine_fwd(w: torch.Tensor, probs: torch.Tensor,
                     precisions: tuple[int, ...],
-                    absmax: torch.Tensor | None = None) -> torch.Tensor:
+                    absmax: torch.Tensor | None = None,
+                    absmax_in: torch.Tensor | None = None) -> torch.Tensor:
     """Eq. 5 forward (kernel K4).  w: (M, K) f32; probs: (M, |P|) f32.
     Returns (M, K) f32; fills ``absmax`` (M,) f32 with each row's
-    ``max |w|`` when given."""
+    ``max |w|`` when given.  ``absmax_in`` (M,) f32, contiguous, gives
+    each row's absmax instead (the kernels do not reduce the rows; any
+    value at least the row's own ``max |w|``); it excludes ``absmax``."""
     _check(w, probs, precisions)
-    if absmax is not None and absmax.shape != (w.shape[0],):
-        raise ValueError(f"absmax must be ({w.shape[0]},), got "
-                         f"{tuple(absmax.shape)}")
+    for name, t in (("absmax", absmax), ("absmax_in", absmax_in)):
+        if t is not None and t.shape != (w.shape[0],):
+            raise ValueError(f"{name} must be ({w.shape[0]},), got "
+                             f"{tuple(t.shape)}")
+    if absmax is not None and absmax_in is not None:
+        raise ValueError("mps_combine_fwd takes absmax (written) or "
+                         "absmax_in (read), not both")
     if w.device.type == "cpu":
+        if absmax_in is not None:
+            if absmax_in.device.type != "cpu" or absmax_in.dtype != w.dtype:
+                raise ValueError(f"absmax_in must be a {w.dtype} cpu tensor "
+                                 f"beside w, got {absmax_in.dtype} on "
+                                 f"{absmax_in.device}")
+            return _ref.mps_combine_ref(w, probs, precisions, absmax_in)
         if absmax is not None:
             absmax.copy_(torch.amax(w.abs(), dim=1))
         return _ref.mps_combine_ref(w, probs, precisions)
-    _on_card("mps_combine", w, probs, *[t for t in (absmax,) if t is not None])
+    extra = [t for t in (absmax, absmax_in) if t is not None]
+    _on_card("mps_combine", w, probs, *extra)
     w = w.contiguous()
     probs = probs.contiguous()
-    if absmax is not None and not absmax.is_contiguous():
-        raise ValueError("absmax must be contiguous")
+    if any(not t.is_contiguous() for t in extra):
+        raise ValueError("absmax / absmax_in must be contiguous")
     out = torch.empty_like(w)
-    fn = build.load("mps_combine")
-    build.check(fn(w.data_ptr(), probs.data_ptr(), out.data_ptr(),
-                   0 if absmax is None else absmax.data_ptr(),
-                   w.shape[0], w.shape[1], len(precisions),
-                   _packed(precisions),
-                   torch.cuda.current_stream(w.device).cuda_stream),
-                "mps_combine")
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    if absmax_in is not None:
+        fn = build.symbol("mps_combine", "mps_combine_given_launch")
+        rc = fn(w.data_ptr(), probs.data_ptr(), absmax_in.data_ptr(),
+                out.data_ptr(), w.shape[0], w.shape[1], len(precisions),
+                _packed(precisions), stream)
+    else:
+        fn = build.load("mps_combine")
+        rc = fn(w.data_ptr(), probs.data_ptr(), out.data_ptr(),
+                0 if absmax is None else absmax.data_ptr(),
+                w.shape[0], w.shape[1], len(precisions),
+                _packed(precisions), stream)
+    build.check(rc, "mps_combine")
     mps_combine_fwd.launches += 1
+    mps_combine_fwd.given_launches += absmax_in is not None
     return out
 
 
+# every launch; of them, the launches given an absmax
 mps_combine_fwd.launches = 0
+mps_combine_fwd.given_launches = 0
 
 
 def mps_combine_bwd(w: torch.Tensor, probs: torch.Tensor,
@@ -96,14 +122,15 @@ def mps_combine_bwd(w: torch.Tensor, probs: torch.Tensor,
                     precisions: tuple[int, ...]):
     """The straight-through backward of :func:`mps_combine`: ``(dw,
     dprobs)`` for the upstream gradient ``g`` (M, K), given the forward's
-    per-row ``absmax`` (M,) (the CPU's plain version reduces w itself)."""
+    per-row ``absmax`` (M,), which both the kernel and the plain version
+    read."""
     _check(w, probs, precisions)
     if g.shape != w.shape or absmax.shape != (w.shape[0],):
         raise ValueError(f"mps_combine_bwd takes g {tuple(w.shape)} and "
                          f"absmax ({w.shape[0]},), got {tuple(g.shape)}, "
                          f"{tuple(absmax.shape)}")
     if w.device.type == "cpu":
-        return _vjp_bwd(w, probs, precisions, g)
+        return _vjp_bwd(w, probs, precisions, g, absmax)
     _on_card("mps_combine_bwd", w, probs, absmax, g)
     w, probs, absmax, g = (t.contiguous() for t in (w, probs, absmax, g))
     dw = torch.empty_like(w)
@@ -122,8 +149,11 @@ def mps_combine_bwd(w: torch.Tensor, probs: torch.Tensor,
 mps_combine_bwd.launches = 0
 
 
-def _vjp_bwd(w, probs, precisions, g):
-    absmax = torch.amax(w.abs(), dim=1, keepdim=True)
+def _vjp_bwd(w, probs, precisions, g, absmax=None):
+    """The plain backward; ``absmax`` (M,) None reduces each row of w."""
+    if absmax is None:
+        absmax = torch.amax(w.abs(), dim=1)
+    absmax = absmax.reshape(-1, 1)
     dw = torch.zeros_like(w)
     cols = []
     for idx, bits in enumerate(precisions):
@@ -146,9 +176,13 @@ def _vjp_bwd(w, probs, precisions, g):
 
 class _MpsCombine(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, probs, precisions):
-        absmax = torch.empty(w.shape[0], dtype=w.dtype, device=w.device)
-        out = mps_combine_fwd(w, probs, precisions, absmax)
+    def forward(ctx, w, probs, precisions, given):
+        if given is None:
+            absmax = torch.empty(w.shape[0], dtype=w.dtype, device=w.device)
+            out = mps_combine_fwd(w, probs, precisions, absmax)
+        else:
+            absmax = given.detach()
+            out = mps_combine_fwd(w, probs, precisions, absmax_in=absmax)
         ctx.save_for_backward(w, probs, absmax)
         ctx.precisions = precisions
         return out
@@ -157,13 +191,16 @@ class _MpsCombine(torch.autograd.Function):
     def backward(ctx, g):
         w, probs, absmax = ctx.saved_tensors
         dw, dprobs = mps_combine_bwd(w, probs, absmax, g, ctx.precisions)
-        return dw, dprobs, None
+        return dw, dprobs, None, None
 
 
 def mps_combine(w: torch.Tensor, probs: torch.Tensor,
-                precisions: tuple[int, ...]) -> torch.Tensor:
+                precisions: tuple[int, ...],
+                absmax: torch.Tensor | None = None) -> torch.Tensor:
     """Effective weight ``sum_p probs[:, p] * Q_p(w)`` with the
-    straight-through gradient.  w: (M, K) f32."""
+    straight-through gradient.  w: (M, K) f32; ``absmax`` (M,), when
+    given, is each row's scale base (held constant), else the row's own
+    ``max |w|``."""
     precisions = tuple(int(b) for b in precisions)
     _check(w, probs, precisions)
-    return _MpsCombine.apply(w, probs, precisions)
+    return _MpsCombine.apply(w, probs, precisions, absmax)

@@ -15,13 +15,16 @@ from repro_torch.core import quantizers
 
 
 def mps_combine_ref(w: torch.Tensor, probs: torch.Tensor,
-                    precisions: tuple[int, ...]) -> torch.Tensor:
+                    precisions: tuple[int, ...],
+                    absmax: torch.Tensor | None = None) -> torch.Tensor:
     """w: (M, K); probs: (M, |P|) rows summing to 1.  Returns
-    ``sum_p probs[:, p] * Q_p(w)`` (M, K), the 0-bit term skipped."""
+    ``sum_p probs[:, p] * Q_p(w)`` (M, K), the 0-bit term skipped;
+    ``absmax`` (M,), when given, replaces each row's ``max |w|``."""
     acc = torch.zeros_like(w)
+    given = None if absmax is None else absmax.reshape(-1, 1)
     for idx, bits in enumerate(precisions):
         if bits == 0:
             continue
-        q = quantizers.quantize_weights_symmetric(w, bits, 0)
+        q = quantizers.quantize_weights_symmetric(w, bits, 0, absmax=given)
         acc = acc + probs[:, idx:idx + 1] * q
     return acc

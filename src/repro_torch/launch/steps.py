@@ -1,12 +1,25 @@
 """Step functions of ``repro.launch.steps`` over the port's LM: the
-training step (with the paper's joint search), prefill and decode."""
+training step (with the paper's joint search), prefill and decode; the
+per-shape sharding rules and the placements of a logical tree, and the
+cut of a whole tree into one rank's shard (and back).
+
+Under a mesh (``distributed.sharding.use_mesh``) the port places the
+``batch`` rows on ``data`` and the experts of every MoE bank on
+``model``: a rank holds the whole of every other leaf.  ``batch_struct``
+and ``cell_artifacts`` (the reference's dry-run inputs) wait with the
+dry-run (ROADMAP slice E).
+"""
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig
+import torch
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import mps
+from repro_torch.distributed import sharding
 from repro_torch.models import lm
 from repro_torch.optim import grad as gradlib
 from repro_torch.optim import optimizers
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 
 def make_train_step(cfg: ArchConfig, opt: optimizers.Optimizer,
@@ -22,23 +35,47 @@ def make_train_step(cfg: ArchConfig, opt: optimizers.Optimizer,
     micro-batch's graph live at a time, then divided by k.  The gradients
     are clipped to global norm ``clip_norm`` before ``opt.update``.  The
     step's global gradient norm (before clipping) is left in
-    ``step_fn.grad_norm``."""
+    ``step_fn.grad_norm``.
+
+    Under a mesh ``params`` and ``opt_state`` are this rank's shards
+    (:func:`shard_tree`) and ``batch`` is the global batch: it is split
+    into micro-batches first and each micro-batch's rows then
+    contiguously over the ``batch`` axes, as the reference's sharded
+    batch is.  The loss is the mean over the global batch, every
+    gradient leaf the mean over ``batch`` (the sums over ``experts``
+    happen in the backward, through ``sharding.copy_to``), and the norm
+    counts a split leaf's squares over all its ranks and a whole leaf's
+    once; every rank then holds the same replicated leaves."""
     ctx = mps.SearchCtx(tau=1.0) if search else None
     k = max(cfg.train_microbatches, 1)
+    logical = lm.logical_axes(cfg, mps_on=search)
 
     def loss_of(params, batch):
         return lm.loss_fn(cfg, params, batch, ctx=ctx,
                           lam=lam if search else 0.0)
 
     def step_fn(params, opt_state, batch, step):
+        dp, d = sharding.extent("batch"), sharding.axis_index("batch")
+        rows = {key: v.reshape((k, v.shape[0] // k) + v.shape[1:])
+                for key, v in batch.items()}
+        n = next(iter(rows.values())).shape[1]
+        if n % dp:
+            raise ValueError(f"a micro-batch of {n} rows does not split over "
+                             f"{dp} data ranks")
+        rows = {key: v[:, d * (n // dp):(d + 1) * (n // dp)]
+                for key, v in rows.items()}
         if k == 1:
-            loss, grads = gradlib.value_and_grad(loss_of, params, batch)
+            loss, grads = gradlib.value_and_grad(
+                loss_of, params, {key: v[0] for key, v in rows.items()})
         else:
-            micro = {key: v.reshape((k, v.shape[0] // k) + v.shape[1:])
-                     for key, v in batch.items()}
-            grads, loss = gradlib.accumulate_grads(loss_of, params, micro)
-        grads, step_fn.grad_norm = gradlib.clip_by_global_norm(grads,
-                                                               clip_norm)
+            grads, loss = gradlib.accumulate_grads(loss_of, params, rows)
+        group = sharding.axis_group("batch")
+        if group is not None:
+            loss = sharding.all_reduce_sum(loss, group) / dp
+            grads = tree_map(lambda g: (sharding.all_reduce_sum(
+                g.float(), group) / dp).to(g.dtype), grads)
+        grads, step_fn.grad_norm = gradlib.clip_by_global_norm(
+            grads, clip_norm, norm=_global_norm(grads, logical))
         new_params, new_opt = opt.update(grads, opt_state, params, step)
         return new_params, new_opt, loss
 
@@ -77,3 +114,130 @@ def make_decode_step(cfg: ArchConfig):
         return lm.decode_step(cfg, params, token_batch, caches, pos,
                               tables=tables)
     return step_fn
+
+
+def _global_norm(grads, logical):
+    """The gradient tree's global norm over all ranks: each leaf's
+    squares in tree order, those of a leaf split over the expert group
+    (``experts`` among its ``logical`` axes) summed over it (one
+    all-reduce), then one float32 sum."""
+    group = sharding.axis_group("experts")
+    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    if group is not None:
+        split = []
+
+        def walk(g, axes):
+            if isinstance(g, dict):
+                for key in g:
+                    walk(g[key], axes[key])
+            else:
+                split.append("experts" in axes)
+
+        walk(grads, logical)
+        where = [i for i, s in enumerate(split) if s]
+        if where:
+            tot = sharding.all_reduce_sum(torch.stack([sq[i] for i in where]),
+                                          group)
+            for j, i in enumerate(where):
+                sq[i] = tot[j]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+# ---------------------------------------------------------------------------
+# sharding rules and placements
+# ---------------------------------------------------------------------------
+
+def tree_map_axes(f, logical, *trees):
+    """Map ``f(axes, *leaves)`` over a logical tree (tuple leaves) and
+    trees of its structure."""
+    if isinstance(logical, dict):
+        return {k: tree_map_axes(f, v, *(t[k] for t in trees))
+                for k, v in logical.items()}
+    return f(logical, *trees)
+
+
+def shape_rules(shape: ShapeConfig) -> dict:
+    """Per-shape sharding rule overrides (``steps.shape_rules``)."""
+    if shape.kind == "train":
+        return {"act_seq": "model"}
+    if shape.kind == "prefill":
+        return {"act_seq": "model", "kv_seq": "model"}
+    if shape.global_batch == 1:      # long-context: shard the KV sequence
+        return {"batch": None, "act_seq": None,
+                "kv_seq": ("pod", "data", "model")}
+    return {"act_seq": None, "kv_seq": "model"}
+
+
+def batch_logical(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """The logical axes of one step's inputs (``steps.batch_logical``)."""
+    out = {}
+    if shape.kind == "decode":
+        key = "tokens" if cfg.frontend == "none" else "embeddings"
+        out[key] = ("batch", None) if key == "tokens" else \
+            ("batch", None, None)
+        return out
+    if cfg.frontend == "none":
+        out["tokens"] = ("batch", None)
+    else:
+        out["embeddings"] = ("batch", None, None)
+    if cfg.is_encdec:
+        out["enc_embeddings"] = ("batch", None, None)
+    if shape.kind == "train":
+        out["targets"] = ("batch", None)
+    return out
+
+
+def resolve_shardings(mesh, logical_tree):
+    """Logical tree -> the placements of each leaf over ``mesh``
+    (``sharding.sharding_for``: one ``Shard`` / ``Replicate`` a mesh
+    axis, the reference's ``NamedSharding`` in ``DeviceMesh`` terms).
+    ``mesh`` must be the installed one."""
+    if sharding.get_mesh() is not mesh:
+        raise ValueError("resolve_shardings: install the mesh first "
+                         "(sharding.use_mesh)")
+    return tree_map_axes(lambda axes: sharding.sharding_for(*axes),
+                         logical_tree)
+
+
+def _held(axes, leaf):
+    """``(dim, mesh axes)`` of each dimension of ``leaf`` the port
+    splits."""
+    mesh_axes = sharding.held_spec(*axes)
+    if len(mesh_axes) != leaf.dim():
+        raise ValueError(f"logical axes {axes} for a leaf of shape "
+                         f"{tuple(leaf.shape)}")
+    return [(i, sharding._axes(e)) for i, e in enumerate(mesh_axes) if e]
+
+
+def shard_tree(tree, logical_tree):
+    """This rank's shard of a whole tree under the installed mesh: each
+    dimension whose logical axis the port places (``batch`` rows on
+    ``data``, ``experts`` on ``model``) cut into equal contiguous blocks,
+    the rank's block kept (a copy); every other leaf as it is."""
+    mesh = sharding.get_mesh()
+
+    def cut(axes, leaf):
+        for dim, mesh_axes in _held(axes, leaf):
+            n = mesh.size(mesh_axes)
+            if leaf.shape[dim] % n:
+                raise ValueError(f"axis {dim} of {tuple(leaf.shape)} does "
+                                 f"not split {n} ways")
+            size = leaf.shape[dim] // n
+            leaf = leaf.narrow(dim, mesh.index(mesh_axes) * size,
+                               size).clone()
+        return leaf
+
+    return tree_map_axes(cut, logical_tree, tree)
+
+
+def gather_tree(tree, logical_tree):
+    """The whole tree from every rank's :func:`shard_tree` shard (on
+    every rank; a collective: all ranks call it with the same tree)."""
+    mesh = sharding.get_mesh()
+
+    def join(axes, leaf):
+        for dim, mesh_axes in reversed(_held(axes, leaf)):
+            leaf = sharding.all_gather_cat(leaf, dim, mesh.group(mesh_axes))
+        return leaf
+
+    return tree_map_axes(join, logical_tree, tree)

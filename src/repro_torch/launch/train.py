@@ -32,26 +32,48 @@ jamba-1.5-large-398b``) trains on sequences that its chunk
 ``--seq`` exits with an error.
 
 MoE stacks (llama4-scout, arctic) and the hybrid train on one device as
-the reference's single-device branch does: every expert local, each
-bank's one gamma searched over all its experts.  Their published widths
-do not fit one card (``chip_smoke.py`` trains arctic cut in depth and
-experts); the expert-parallel layout and the multi-device mesh flags
-stay with ROADMAP slice E.
+the reference's single-device branch does -- every expert local, each
+bank's one gamma searched over all its experts -- or on a mesh of ranks.
+
+The mesh: ``--mesh D,M`` (default ``1,1``, as the reference's launcher
+installs it) or ``--production-mesh`` (16 x 16 ranks) under
+``torch.distributed.run``, one process a rank::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --device cpu --dist-backend gloo \
+        --arch arctic-480b-smoke --search --mesh 2,2 --steps 2
+
+Each rank takes its rows of every batch (``batch`` on ``data``) and its
+experts of every MoE bank (``experts`` on ``model``, the reference's
+expert-parallel layout, ``nn/blocks.moe_layer``); every other leaf is
+whole on every rank (``distributed/sharding.py``).  Every rank draws the
+whole seed-0 tree and keeps its shard.  ``--dist-backend``: ``nccl`` by
+default on ``cuda``, ``gloo`` on the CPU; NCCL takes one rank a device,
+so ranks sharing a card need ``--dist-backend gloo`` (asked, never
+switched to).  Rank 0 prints.  Checkpoints are mesh-agnostic: the
+shards are gathered and rank 0 saves the whole tree, and a restore under
+any mesh cuts it again.
 """
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import signal
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import registry
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import mps
+from repro_torch.distributed import sharding
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
 from repro_torch.nn import blocks
@@ -122,20 +144,79 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--profile", type=int, default=0,
                     help="time and trace this many extra steps (CUDA)")
+    ap.add_argument("--mesh", default="1,1",
+                    help="data,model: the debug mesh's shape")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the 16x16 mesh (needs 256 ranks)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="process group backend (default: nccl on cuda, "
+                         "gloo on the cpu)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = registry.get(args.arch)
+    owned = not dist.is_initialized()
+    mesh = _make_mesh(args, dev)
+    rules = dict(registry.RULE_OVERRIDES.get(cfg.name.replace("-smoke", ""),
+                                             {}))
+    rules.update(steps_lib.shape_rules(ShapeConfig(
+        "train", "train", args.seq, args.batch)))
+    try:
+        with sharding.use_mesh(mesh, rules):
+            return _train(args, cfg, mesh)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _make_mesh(args, dev):
+    """The mesh of ``--mesh`` / ``--production-mesh``; initialises the
+    process group from ``torch.distributed.run``'s environment when the
+    mesh has more than one rank."""
+    data, model = (int(v) for v in args.mesh.split(","))
+    n = 256 if args.production_mesh else data * model
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if n > 1 or world > 1:
+        backend = args.dist_backend or ("nccl" if dev.type == "cuda"
+                                        else "gloo")
+        if backend == "nccl":
+            if dev.type != "cuda":
+                raise SystemExit("--dist-backend nccl runs on cuda; the cpu "
+                                 "takes gloo")
+            if world > torch.cuda.device_count():
+                raise SystemExit(
+                    f"--dist-backend nccl takes one rank a device: {world} "
+                    f"ranks on {torch.cuda.device_count()} cuda device(s); "
+                    f"pass --dist-backend gloo to share them")
+        if dev.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        if not dist.is_initialized():
+            dist.init_process_group(backend)
+    if args.production_mesh:
+        return meshlib.make_production_mesh(device=dev)
+    return meshlib.make_debug_mesh(data, model, device=dev)
+
+
+def _train(args, cfg, mesh) -> dict:
+    dev = mesh.device
+    lead = mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     if cfg.is_ssm or cfg.is_hybrid:
         try:
             blocks.ssm_chunk(cfg, args.seq, "train")
         except ValueError as e:
             raise SystemExit(f"--seq {args.seq}: {e}") from None
     gen = torch.Generator(device=dev).manual_seed(0)
-    params = lm.init_params(cfg, gen, dev, mps_on=args.search)
+    logical = lm.logical_axes(cfg, mps_on=args.search)
+    params = steps_lib.shard_tree(
+        lm.init_params(cfg, gen, dev, mps_on=args.search), logical)
     opt = optimizers.make_optimizer(cfg.optimizer, 3e-4)
     step_fn = steps_lib.make_train_step(cfg, opt, search=args.search)
     state = {"params": params, "opt": opt.init(params)}
+    logical = {"params": logical,
+               "opt": optimizers.state_logical_axes(cfg.optimizer, logical)}
 
     def batch_at(step):
         return synthetic.lm_batch(cfg.vocab, args.seq + 1, args.batch, step,
@@ -144,17 +225,22 @@ def main(argv=None) -> dict:
     mgr, start = None, 0
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, keep=2)
-        restored, meta = mgr.restore_latest(state)
+        restored, meta = restore_sharded(mgr, state, logical)
         if restored is not None:
             state, start = restored, meta["step"] + 1
-            print(f"[train] resumed from step {meta['step']}", flush=True)
+            say(f"[train] resumed from step {meta['step']}", flush=True)
+
+    def save(step, blocking=True):
+        whole = gather_state(state, logical)
+        if lead:
+            mgr.save(step, whole, blocking=blocking)
 
     stop = {"flag": False}
     prev = signal.signal(signal.SIGTERM, lambda *_: stop.update(flag=True))
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"[train] {cfg.name} on {where}: steps {start}..{args.steps - 1}, "
-          f"batch {args.batch} x seq {args.seq}, search {args.search}",
-          flush=True)
+    say(f"[train] {cfg.name} on {where}: steps {start}..{args.steps - 1}, "
+        f"batch {args.batch} x seq {args.seq}, search {args.search}, mesh "
+        f"{mesh.shape}", flush=True)
     losses = []
     t0 = time.perf_counter()
     try:
@@ -163,28 +249,32 @@ def main(argv=None) -> dict:
                                  step)
             state = {"params": p, "opt": o}
             losses.append(float(loss))
-            print(f"[train] step {step} loss {losses[-1]:.4f} grad norm "
-                  f"{float(step_fn.grad_norm):.4f} "
-                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            say(f"[train] step {step} loss {losses[-1]:.4f} grad norm "
+                f"{float(step_fn.grad_norm):.4f} "
+                f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            if dist.is_initialized():     # every rank stops at one step
+                flag = torch.tensor([float(stop["flag"])], device=dev)
+                stop["flag"] = bool(sharding.all_reduce_max(
+                    flag, dist.group.WORLD).item())
             if mgr and (step % args.ckpt_every == 0 and step > start
                         or stop["flag"]):
-                mgr.save(step, state, blocking=stop["flag"])
+                save(step, blocking=stop["flag"])
             if stop["flag"]:
-                print("[train] SIGTERM: checkpointed, exiting", flush=True)
+                say("[train] SIGTERM: checkpointed, exiting", flush=True)
                 sys.exit(0)
         if mgr:
             mgr.wait()
-            mgr.save(args.steps - 1, state)
+            save(args.steps - 1)
     finally:
         signal.signal(signal.SIGTERM, prev)
-    print(f"[train] done: losses {[round(v, 4) for v in losses]}",
-          flush=True)
+    say(f"[train] done: losses {[round(v, 4) for v in losses]}",
+        flush=True)
     if args.search:
-        print(f"[train] {lm.extract_plan(cfg, state['params']).summary()}",
-              flush=True)
+        say(f"[train] {lm.extract_plan(cfg, state['params']).summary()}",
+            flush=True)
     if args.profile:
-        if dev.type != "cuda":
-            raise RuntimeError("--profile times the card; run on cuda")
+        if dev.type != "cuda" or math.prod(mesh.shape.values()) > 1:
+            raise RuntimeError("--profile times the card, one rank on cuda")
         t0 = time.perf_counter()
         for step in range(args.steps, args.steps + args.profile):
             p, o, _ = step_fn(state["params"], state["opt"], batch_at(step),
@@ -209,6 +299,42 @@ def main(argv=None) -> dict:
               f"{100 * prof['device_s'] / prof['wall_s']:.1f}% of the window "
               f"(kernel time summed; the profiler slows the host)")
     return {"state": state, "losses": losses, "start": start}
+
+
+def gather_state(state, logical):
+    """The whole training state from every rank's shard (a collective);
+    with one rank, the state itself."""
+    mesh = sharding.get_mesh()
+    if mesh is None or math.prod(mesh.shape.values()) == 1:
+        return state
+    return steps_lib.gather_tree(state, logical)
+
+
+def restore_sharded(mgr, state, logical):
+    """The newest checkpoint (a whole tree, written under any mesh) cut
+    into this rank's shard: ``(state, meta)`` or ``(None, None)``.  Every
+    rank reads the file; the template is the whole tree's shapes."""
+    mesh = sharding.get_mesh()
+    if mesh is None or math.prod(mesh.shape.values()) == 1:
+        return mgr.restore_latest(state)
+    template = steps_lib.tree_map_axes(
+        lambda axes, leaf: _whole_like(axes, leaf, mesh), logical, state)
+    whole, meta = mgr.restore_latest(template)
+    if whole is None:
+        return None, None
+    shard = steps_lib.shard_tree(whole, logical)
+    return steps_lib.tree_map_axes(lambda _, t, like: t.to(like.device),
+                                   logical, shard, state), meta
+
+
+def _whole_like(axes, leaf, mesh):
+    """An empty host tensor of the whole leaf's shape, the template a
+    restore fills."""
+    shape = list(leaf.shape)
+    for dim, e in enumerate(sharding.held_spec(*axes)):
+        if e:
+            shape[dim] *= mesh.size(sharding._axes(e))
+    return torch.empty(shape, dtype=leaf.dtype)
 
 
 if __name__ == "__main__":

@@ -129,6 +129,23 @@ def _node(tree: dict, dotted: str):
     return tree
 
 
+class _Leaf:
+    """A tensor and its logical axes, while :func:`_build` walks the
+    tree (split apart by :func:`_split`)."""
+    __slots__ = ("t", "axes")
+
+    def __init__(self, t, axes):
+        self.t, self.axes = t, tuple(axes)
+
+
+def _split(tree):
+    if isinstance(tree, dict):
+        parts = {k: _split(v) for k, v in tree.items()}
+        return ({k: v[0] for k, v in parts.items()},
+                {k: v[1] for k, v in parts.items()})
+    return tree.t, tree.axes
+
+
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 device=None, mps_on: bool = False) -> dict:
     """Random parameters with ``lm.init_params``' tree and shapes (not its
@@ -139,6 +156,22 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     |P_W|)`` at the paper's Eq. 13 init (the reference's values);
     ``embed`` and ``lm_head`` carry none.  On the ``meta`` device the tree
     has its shapes and no numbers (no generator)."""
+    return _build(cfg, generator, device, mps_on)[0]
+
+
+def logical_axes(cfg: ArchConfig, mps_on: bool = False) -> dict:
+    """``lm.logical_axes``: the tree of :func:`init_params` with each leaf
+    its tuple of logical axis names (``distributed.sharding``), built by
+    the same walk on the ``meta`` device.  A stacked leaf leads with
+    ``"layers"``; an expert bank is ``("experts", "w_embed", None)`` (its
+    ``w_down`` ``("experts", None, "w_embed")``); a gamma ``(None,
+    None)``."""
+    return _build(cfg, None, "meta", mps_on)[1]
+
+
+def _build(cfg: ArchConfig, generator, device, mps_on: bool):
+    """(parameters, logical axes) of :func:`init_params` and
+    :func:`logical_axes`, one walk."""
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -147,11 +180,12 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     nsb = n_superblocks(cfg)
     d, v = cfg.d_model, padded_vocab(cfg)
 
-    def w(shape, scale=None, n=nsb, gamma=True):
+    def w(shape, logical, scale=None, n=nsb, gamma=True):
         """A weight stacked over ``n`` super-blocks (``n=0``: unstacked)."""
         fan_in = shape[0] if len(shape) == 2 else shape[-2]
         scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
         full = ((n,) if n else ()) + shape
+        lead = ("layers",) if n else ()
         if len(shape) == 3 and dev.type != "meta":
             # an expert bank (nsb, E, K, N): drawn one expert at a time,
             # so no float32 copy of the whole bank is ever made
@@ -164,27 +198,28 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         else:
             arr = torch.randn(full, generator=generator, device=dev,
                               dtype=torch.float32).to(dtype) * scale
-        out = {"w": arr}
+        out = {"w": _Leaf(arr, lead + tuple(logical))}
         if mps_on and n and gamma:
-            out["gamma"] = sampling.init_selection_logits(
-                cfg.mps_precisions, (n, shape[-1]), dev)
+            out["gamma"] = _Leaf(sampling.init_selection_logits(
+                cfg.mps_precisions, (n, shape[-1]), dev), lead + (None, None))
         return out
 
-    def vec(shape, init=0.0, n=nsb):
+    def vec(shape, logical, init=0.0, n=nsb):
         full = ((n,) if n else ()) + shape
-        return torch.full(full, init, dtype=dtype, device=dev)
+        return _Leaf(torch.full(full, init, dtype=dtype, device=dev),
+                     (("layers",) if n else ()) + tuple(logical))
 
-    params = {"embed": w((v, d), scale=0.02, n=0)}
+    params = {"embed": w((v, d), ("vocab", "w_embed"), scale=0.02, n=0)}
     params["blocks"] = {f"l{i}": _layer_params(cfg, spec, w, vec, nsb)
                         for i, spec in enumerate(block_pattern(cfg))}
-    params["final_norm"] = vec((d,), n=0)
-    params["lm_head"] = w((d, v), scale=0.02, n=0)
+    params["final_norm"] = vec((d,), (None,), n=0)
+    params["lm_head"] = w((d, v), ("w_embed", "vocab"), scale=0.02, n=0)
     if cfg.is_encdec:
         ne = n_enc_superblocks(cfg)
         params["enc_blocks"] = {f"l{i}": _layer_params(cfg, spec, w, vec, ne)
                                 for i, spec in enumerate(enc_pattern(cfg))}
-        params["enc_norm"] = vec((d,), n=0)
-    return params
+        params["enc_norm"] = vec((d,), (None,), n=0)
+    return _split(params)
 
 
 def _layer_params(cfg: ArchConfig, spec: LayerSpec, w, vec, n: int) -> dict:
@@ -192,14 +227,14 @@ def _layer_params(cfg: ArchConfig, spec: LayerSpec, w, vec, n: int) -> dict:
     super-blocks."""
     w, vec = functools.partial(w, n=n), functools.partial(vec, n=n)
     d = cfg.d_model
-    p = {"norm1": vec((d,)),
+    p = {"norm1": vec((d,), (None,)),
          "mixer": _mamba_params(cfg, w, vec) if spec.mixer == "mamba"
          else _attn_params(cfg, w, vec)}
     if spec.cross:
-        p["norm_cross"] = vec((d,))
+        p["norm_cross"] = vec((d,), (None,))
         p["cross"] = _attn_params(cfg, w, vec)
     if spec.ffn is not None:
-        p["norm2"] = vec((d,))
+        p["norm2"] = vec((d,), (None,))
         p["ffn"] = _moe_params(cfg, w) if spec.ffn == "moe" \
             else _ffn_params(cfg, w)
     return p
@@ -207,17 +242,21 @@ def _layer_params(cfg: ArchConfig, spec: LayerSpec, w, vec, n: int) -> dict:
 
 def _attn_params(cfg: ArchConfig, w, vec) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.h_eff, cfg.hkv_eff, cfg.head_dim
-    p = {"wq": w((d, h * hd)), "wk": w((d, hkv * hd)),
-         "wv": w((d, hkv * hd)), "wo": w((h * hd, d))}
+    p = {"wq": w((d, h * hd), ("w_embed", "heads_flat")),
+         "wk": w((d, hkv * hd), ("w_embed", "kv_flat")),
+         "wv": w((d, hkv * hd), ("w_embed", "kv_flat")),
+         "wo": w((h * hd, d), ("heads_flat", "w_embed"))}
     if cfg.qk_norm:
-        p["q_norm"] = vec((hd,))
-        p["k_norm"] = vec((hd,))
+        p["q_norm"] = vec((hd,), (None,))
+        p["k_norm"] = vec((hd,), (None,))
     return p
 
 
 def _ffn_params(cfg: ArchConfig, w) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": w((d, f)), "w_up": w((d, f)), "w_down": w((f, d))}
+    return {"w_gate": w((d, f), ("w_embed", "mlp")),
+            "w_up": w((d, f), ("w_embed", "mlp")),
+            "w_down": w((f, d), ("mlp", "w_embed"))}
 
 
 def _moe_params(cfg: ArchConfig, w) -> dict:
@@ -226,8 +265,10 @@ def _moe_params(cfg: ArchConfig, w) -> dict:
     bank carries the reference's one gamma ``(nsb, C_out, |P_W|)``, shared
     by all its experts."""
     d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
-    out = {"router": w((d, e), gamma=False), "w_gate": w((e, d, f)),
-           "w_up": w((e, d, f)), "w_down": w((e, f, d))}
+    out = {"router": w((d, e), (None, None), gamma=False),
+           "w_gate": w((e, d, f), ("experts", "w_embed", None)),
+           "w_up": w((e, d, f), ("experts", "w_embed", None)),
+           "w_down": w((e, f, d), ("experts", None, "w_embed"))}
     if cfg.dense_residual:
         out["shared"] = _ffn_params(cfg, w)
     return out
@@ -238,12 +279,18 @@ def _mamba_params(cfg: ArchConfig, w, vec) -> dict:
     projection, three depthwise conv kernels and the per-head vectors."""
     d, di, n, h, kk = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
                        cfg.ssm_heads, cfg.ssm_conv)
-    return {"in_z": w((d, di)), "in_x": w((d, di)), "in_b": w((d, n)),
-            "in_c": w((d, n)), "in_dt": w((d, h)), "out_proj": w((di, d)),
-            "conv_x": vec((kk, di), 0.1), "conv_b": vec((kk, n), 0.1),
-            "conv_c": vec((kk, n), 0.1), "dt_bias": vec((h,)),
-            "a_log": vec((h,)), "d_skip": vec((h,), 1.0),
-            "ssm_norm": vec((di,))}
+    return {"in_z": w((d, di), ("w_embed", "ssm_inner")),
+            "in_x": w((d, di), ("w_embed", "ssm_inner")),
+            "in_b": w((d, n), ("w_embed", None)),
+            "in_c": w((d, n), ("w_embed", None)),
+            "in_dt": w((d, h), ("w_embed", None)),
+            "out_proj": w((di, d), ("ssm_inner", "w_embed")),
+            "conv_x": vec((kk, di), (None, "ssm_inner"), 0.1),
+            "conv_b": vec((kk, n), (None, None), 0.1),
+            "conv_c": vec((kk, n), (None, None), 0.1),
+            "dt_bias": vec((h,), (None,)), "a_log": vec((h,), (None,)),
+            "d_skip": vec((h,), (None,), 1.0),
+            "ssm_norm": vec((di,), ("ssm_inner",))}
 
 
 # ---------------------------------------------------------------------------
@@ -255,16 +302,22 @@ def _make_getw(cfg: ArchConfig, ctx: Optional[mps.SearchCtx]):
     goes through untouched; under a ``SearchCtx`` a weight with a gamma
     becomes its Eq. 5 effective weight (``core.mps.effective_weight``,
     kernel K4 on the card, its output channels on the last axis); every
-    dense weight is cast to bf16 at the point of use."""
+    dense weight is cast to bf16 at the point of use.  Under a mesh that
+    splits the experts, an expert bank ``(E_loc, K, C_out)`` is this
+    rank's shard: its Eq. 5 weight takes the whole bank's per-channel
+    absmax and sums its probabilities' gradient over the expert group."""
+    from repro_torch.distributed import sharding
+
     def getw(pp):
         w = pp["w"]
         if isinstance(w, nnq.PackedLinear):
             return w
         if ctx is None or "gamma" not in pp:
             return w.to(torch.bfloat16)
+        group = sharding.axis_group("experts") if w.dim() == 3 else None
         return mps.effective_weight(
             w.float(), pp["gamma"], cfg.mps_precisions, ctx,
-            channel_axis=w.dim() - 1).to(torch.bfloat16)
+            channel_axis=w.dim() - 1, group=group).to(torch.bfloat16)
     return getw
 
 
@@ -553,14 +606,17 @@ def mps_size_cost(cfg: ArchConfig, params, ctx: mps.SearchCtx
     """Differentiable expected size in bytes over every gamma-carrying
     weight (paper Eq. 9 with C_in fixed per super-block: the residual
     stream keeps d_model; pruning shows through the 0-bit channels).  An
-    expert bank's C_in is ``E * K``: its one gamma prices every expert's
-    copy of a channel."""
+    expert bank's C_in is ``E * K`` with E all ``cfg.n_experts``, whether
+    the tree holds the whole bank or a rank's shard of it: its one gamma
+    prices every expert's copy of a channel."""
     total = None
     for node in _gamma_nodes(params):
         w, gm = node["w"], node["gamma"]
         cin = math.prod(w.shape[:-1])
         if gm.dim() == 3:          # stacked over super-blocks
             cin //= gm.shape[0]
+        if w.dim() - gm.dim() + 2 == 3:    # an expert bank (E, K, C_out)
+            cin = cin // w.shape[-3] * cfg.n_experts
         eb = mps.expected_bits(gm, cfg.mps_precisions, ctx)
         term = torch.sum(eb) * cin / 8.0
         total = term if total is None else total + term
@@ -631,6 +687,29 @@ def init_caches(cfg: ArchConfig, batch: int, seq_len: int, enc_len: int = 0,
     return _cache_tree(cfg, batch,
                        (batch, seq_len, cfg.hkv_eff, cfg.head_dim),
                        resolve_device(device), enc_len)
+
+
+def cache_logical_axes(cfg: ArchConfig) -> dict:
+    """``lm.cache_logical_axes``: the logical axes of :func:`init_caches`'
+    tree."""
+    caches = {}
+    for i, spec in enumerate(block_pattern(cfg)):
+        c = {}
+        if spec.mixer == "mamba":
+            c["mamba"] = {
+                "ssm": ("layers", "batch", "ssm_inner", None, None),
+                "conv": {"x": ("layers", "batch", None, "ssm_inner"),
+                         "b": ("layers", "batch", None, None),
+                         "c": ("layers", "batch", None, None)}}
+        else:
+            c["kv"] = {"k": ("layers", "batch", "kv_seq", None, None),
+                       "v": ("layers", "batch", "kv_seq", None, None)}
+        if spec.cross:
+            c["cross_kv"] = {
+                "k": ("layers", "batch", None, None, None),
+                "v": ("layers", "batch", None, None, None)}
+        caches[f"l{i}"] = c
+    return caches
 
 
 def init_paged_caches(cfg: ArchConfig, batch: int, page_size: int,

@@ -323,20 +323,26 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
 
 
 def _moe_local(x, router_w, w_gate, w_up, w_down, *, top_k: int,
-               capacity: int):
-    """Single-device MoE (``blocks._moe_local`` with every expert local):
-    x (T, D); banks (E, D, F), (E, D, F), (E, F, D).  Every expert runs
-    its SwiGLU on its ``C`` routed tokens (one batched product over the
-    experts), its output in float32 is scaled by the gates and added into
-    a float32 (T, D) sum, then rounded to x's dtype.  A token reaches at
-    most ``top_k`` experts; with ``top_k`` <= 2 the sum of its terms does
-    not depend on their order, so ``index_add_``'s atomic adds on the card
-    give one result whatever their order, and a remat recompute routes
-    the next MoE layer's tokens as the first forward did.  The gradient
-    reaches the banks through the routed tokens' products, the gates
-    through ``upd`` and ``x`` through both the gather and the router."""
+               capacity: int, e_offset: int = 0):
+    """``blocks._moe_local``: x (T, D) local tokens; banks (E_loc, D, F),
+    (E_loc, D, F), (E_loc, F, D) of the local experts ``e_offset ..
+    e_offset + E_loc - 1``.  Every token is routed over all E experts
+    (``router_w`` (D, E)); each local expert runs its SwiGLU on its ``C``
+    routed tokens (one batched product over the local experts), its
+    output in float32 is scaled by the gates and added into a float32
+    (T, D) sum, which is returned.  A token reaches at most ``top_k``
+    experts; with ``top_k`` <= 2 the sum of its terms does not depend on
+    their order, so ``index_add_``'s atomic adds on the card give one
+    result whatever their order, a remat recompute routes the next MoE
+    layer's tokens as the first forward did, and the sum of the ranks'
+    partial outputs adds only exact zeros to it.  The gradient reaches
+    the banks through the routed tokens' products, the gates through
+    ``upd`` and ``x`` through both the gather and the router."""
     _, _, top_g, top_i = moe_route(x, router_w, top_k=top_k,
                                    capacity=capacity)
+    e_loc = w_gate.shape[0]
+    top_g = top_g[e_offset:e_offset + e_loc]
+    top_i = top_i[e_offset:e_offset + e_loc]
     xe = x[top_i]                                               # (E, C, D)
     hh = silu(xla.matmul(xe, w_gate)) * xla.matmul(xe, w_up)
     oe = xla.matmul_f32(hh, w_down)                             # (E, C, D)
@@ -344,23 +350,41 @@ def _moe_local(x, router_w, w_gate, w_up, w_down, *, top_k: int,
     y = torch.zeros((x.shape[0], x.shape[1]), dtype=upd.dtype,
                     device=x.device)
     y.index_add_(0, top_i.reshape(-1), upd.reshape(-1, x.shape[1]))
-    return y.to(x.dtype)
+    return y
 
 
 def moe_layer(p: dict, x: torch.Tensor, cfg, effective_w=None):
-    """Top-k MoE over ``cfg.n_experts`` (``blocks.moe_layer``' single-device
-    branch: the port has no mesh).  x: (B, S, D).  The capacity counts
-    every row of the batch, padded and idle rows included:
-    ``max(1, ceil(B * S * k * capacity_factor / E))``.  With
-    ``cfg.dense_residual`` the shared SwiGLU FFN is added."""
+    """Top-k MoE over ``cfg.n_experts`` (``blocks.moe_layer``).  x: (B, S,
+    D), this rank's rows.  The capacity counts every row of them, padded
+    and idle rows included: ``max(1, ceil(B * S * k * capacity_factor /
+    E))`` -- the reference's ``t_loc``, its tokens a data shard.
+
+    With a mesh installed whose ``experts`` axis is split ``tp > 1`` ways
+    (``distributed.sharding``), the banks are this rank's ``E / tp``
+    experts (the reference's ``shard_map`` branch): ``x`` and the router
+    enter through the copy into the expert group, every token is routed
+    over all E experts, the local ones run, and the float32 partial sums
+    are all-reduced over the group before the cast.  Under a search
+    context the provider gives each bank shard the whole bank's Eq. 5
+    weight (``models.lm._make_getw``).  With ``cfg.dense_residual`` the
+    shared SwiGLU FFN is added, whole on every rank."""
+    from repro_torch.distributed import sharding
     getw = effective_w or (lambda pp: pp["w"])
     b, s, dm = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = max(1, int(math.ceil(b * s * k * cfg.capacity_factor / e)))
-    y = _moe_local(x.reshape(b * s, dm), p["router"]["w"],
-                   getw(p["w_gate"]), getw(p["w_up"]), getw(p["w_down"]),
-                   top_k=k, capacity=cap)
-    out = y.reshape(b, s, dm)
+    group = sharding.axis_group("experts")
+    tp = sharding.extent("experts")
+    e_loc = e // tp
+    banks = [getw(p[n]) for n in ("w_gate", "w_up", "w_down")]
+    if e % tp or banks[0].shape[0] != e_loc:
+        raise ValueError(f"moe_layer: {e} experts over {tp} ranks, the "
+                         f"banks hold {banks[0].shape[0]}")
+    y = _moe_local(sharding.copy_to(x, group).reshape(b * s, dm),
+                   sharding.copy_to(p["router"]["w"], group), *banks,
+                   top_k=k, capacity=cap,
+                   e_offset=sharding.axis_index("experts") * e_loc)
+    out = sharding.reduce_from(y, group).to(x.dtype).reshape(b, s, dm)
     if cfg.dense_residual:
         out = out + ffn_swiglu(p["shared"], x, effective_w)
     return out

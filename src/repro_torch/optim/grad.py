@@ -19,10 +19,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, norm=None):
     """``(tree * min(1, max_norm / max(norm, 1e-12)), norm)``; each leaf
-    keeps its dtype."""
-    norm = global_norm(tree)
+    keeps its dtype.  ``norm`` defaults to :func:`global_norm` of the
+    tree (a sharded tree's caller passes the norm over all ranks)."""
+    if norm is None:
+        norm = global_norm(tree)
     cap = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
     scale = torch.clamp(cap / torch.clamp_min(norm, 1e-12), max=1.0)
     return tree_map(lambda x: (x * scale).to(x.dtype), tree), norm

@@ -3,7 +3,9 @@ of tensors (``repro.optim.optimizers``): ``update`` returns new tensors
 and a new state, as the JAX package's does; nothing is updated in place.
 
 ``adam_int8`` keeps its moments int8 with the parameter's shape.
-``state_logical_axes`` is mesh code and stays with ROADMAP slice E.
+``state_logical_axes`` gives the state's logical axes
+(``distributed.sharding``): a rank updates its shard of a split leaf
+(an expert bank's experts) with the same per-row blocks as the whole.
 """
 from __future__ import annotations
 
@@ -207,6 +209,30 @@ def adam_int8(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
         return walk(params, grads, state)
 
     return Optimizer(init, update)
+
+
+def state_logical_axes(opt_name: str, params_logical):
+    """Logical-axis tree matching the optimizer state structure
+    (``optimizers.state_logical_axes``).  ``params_logical`` leaves are
+    tuples of logical axis names (or None); ``adam_int8``'s codes take
+    the leaf's axes, its row scales all but the last; ``sgd`` gives
+    ``()``, as the reference does."""
+    def minus_last(axes):
+        return tuple(axes[:-1]) if len(axes) > 0 else ()
+
+    def per_leaf(f, tree):
+        if isinstance(tree, dict):
+            return {k: per_leaf(f, v) for k, v in tree.items()}
+        return f(tree)
+
+    if opt_name == "adam":
+        return {"m": params_logical, "v": params_logical}
+    if opt_name == "adam_int8":
+        return per_leaf(lambda a: {"mq": a, "ms": minus_last(a), "vq": a,
+                                   "vs": minus_last(a)}, params_logical)
+    if opt_name == "sgd":
+        return ()
+    raise ValueError(opt_name)
 
 
 def make_optimizer(name: str, lr) -> Optimizer:

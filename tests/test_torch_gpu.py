@@ -737,17 +737,18 @@ def _k4_case(dev, m, k, pw, seed):
     return w, probs, up
 
 
-def _k4_check_bwd(w, probs, up, pw, dw, dprobs):
+def _k4_check_bwd(w, probs, up, pw, dw, dprobs, absmax=None):
     """dW bit for bit against the plain version on the card; dprobs
     within the summation bound 2 K 2^-24 sum_k |g q| of a float64 row
-    sum of the plain version's products g * Q_p(W)."""
-    want_dw, _ = mops._vjp_bwd(w, probs, pw, up)
+    sum of the plain version's products g * Q_p(W) (scales from
+    ``absmax`` when given)."""
+    want_dw, _ = mops._vjp_bwd(w, probs, pw, up, absmax)
     assert torch.equal(dw, want_dw)
     k = w.shape[1]
     for p in range(len(pw)):
         onehot = torch.zeros_like(probs)
         onehot[:, p] = 1.0
-        q = mops.mps_combine_ref(w, onehot, pw)   # Q_p(W), 0 if 0-bit
+        q = mops.mps_combine_ref(w, onehot, pw, absmax)   # Q_p(W)
         prod = (up * q).double()
         exact = prod.sum(1)
         bound = 2 * k * 2.0 ** -24 * prod.abs().sum(1)
@@ -773,6 +774,69 @@ def test_mps_combine_kernels_precision_sets(cuda, pw, m, k):
     assert torch.equal(got, mops.mps_combine_ref(w, probs, pw))
     assert torch.equal(absmax, torch.amax(w.abs(), 1))
     _k4_check_bwd(w, probs, up, pw, dw, dprobs)
+
+
+# path 13's bank shards (4 of arctic's experts as C_out rows of E_loc *
+# K: w_gate / w_up, w_down), beside ring- and simple-sized problems
+K4_GIVEN = [(4864, 28672), (7168, 19456)]
+
+
+def _given_absmax(w, seed):
+    """Each row's absmax as an expert bank split over ranks gives it:
+    at least the row's own max |w|, over some rows (the other ranks'
+    rows held larger values), exactly it on the rest."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    up = torch.where(torch.rand(w.shape[0], generator=g, device=w.device)
+                     < 0.5, 1.0, 1.3)
+    return torch.amax(w.abs(), 1) * up
+
+
+@pytest.mark.parametrize("m,k", K4_SHAPES + K4_RAGGED_TILES + K4_GIVEN)
+@pytest.mark.parametrize("pw", [(0, 2, 4, 8), (2, 3, 4, 5, 6, 7, 8, 16)])
+def test_mps_combine_given_absmax(cuda, pw, m, k):
+    """K4's forward given each row's absmax (the TPU kernel's interface;
+    ring and simple kernels) equals the plain version given the same
+    absmax bit for bit; the backward's dW bit for bit and dprobs within
+    the summation bound; the autograd function too; one launch, counted
+    as given."""
+    w, probs, up = _k4_case(cuda, m, k, pw, m * 7 + k + len(pw))
+    absmax = _given_absmax(w, m + k)
+    before = (mops.mps_combine_fwd.launches,
+              mops.mps_combine_fwd.given_launches)
+    got = mops.mps_combine_fwd(w, probs, pw, absmax_in=absmax)
+    dw, dprobs = mops.mps_combine_bwd(w, probs, absmax, up, pw)
+    torch.cuda.synchronize()
+    assert (mops.mps_combine_fwd.launches,
+            mops.mps_combine_fwd.given_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert torch.equal(got, mops.mps_combine_ref(w, probs, pw, absmax))
+    _k4_check_bwd(w, probs, up, pw, dw, dprobs, absmax)
+    wk = w.clone().requires_grad_()
+    (mops.mps_combine(wk, probs, pw, absmax) * up).sum().backward()
+    assert torch.equal(wk.grad, dw)
+
+
+def test_mps_combine_given_absmax_misaligned_and_refused(cuda):
+    """A view off a 16-byte boundary takes the simple kernel, bitwise;
+    a wrong shape or dtype, an absmax on the CPU, or both absmax and
+    absmax_in raise, and nothing launches."""
+    pw = (0, 2, 4, 8)
+    w0, probs, _ = _k4_case(cuda, 64, 576, pw, 3)
+    base = torch.empty(w0.numel() + 1, device=cuda)
+    base[1:] = w0.reshape(-1)
+    w = base[1:].view(w0.shape)
+    absmax = _given_absmax(w, 3)
+    assert torch.equal(mops.mps_combine_fwd(w, probs, pw, absmax_in=absmax),
+                       mops.mps_combine_ref(w, probs, pw, absmax))
+    before = mops.mps_combine_fwd.launches
+    for bad, err in ((absmax[:10], ValueError), (absmax.double(), TypeError),
+                     (absmax.cpu(), ValueError)):
+        with pytest.raises(err):
+            mops.mps_combine_fwd(w, probs, pw, absmax_in=bad)
+    with pytest.raises(ValueError, match="not both"):
+        mops.mps_combine_fwd(w, probs, pw, torch.empty_like(absmax),
+                             absmax_in=absmax)
+    assert mops.mps_combine_fwd.launches == before
 
 
 @pytest.mark.parametrize("pw", K4_PWS)

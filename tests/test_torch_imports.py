@@ -44,6 +44,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.obs, repro_torch.obs.validate\n"
         "import repro_torch.chaos, repro_torch.fleet\n"
         "import repro_torch.launch.fleet\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "assert not bad, bad\n")
@@ -282,3 +283,24 @@ def test_device_sampling_draws_deterministically():
     first = srv.serve([req])[0]
     assert len(first) == 2
     np.testing.assert_array_equal(srv.serve([req])[0], first)
+
+
+def test_mesh_layer_stands_alone():
+    """The mesh layer imports neither JAX nor ``repro``; the production
+    mesh raises, naming the ranks it needs (256, or 512 with pods)."""
+    code = (
+        "import sys\n"
+        "from repro_torch.distributed import sharding\n"
+        "from repro_torch.launch import mesh\n"
+        "for kw, n in (({}, 256), ({'multi_pod': True}, 512)):\n"
+        "    try:\n"
+        "        mesh.make_production_mesh(device='cpu', **kw)\n"
+        "    except RuntimeError as e:\n"
+        "        assert f'need {n} ranks' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('no error')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
