@@ -267,7 +267,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
               bounds.
 18. expert-parallel -- path 13: the mesh layer and the expert-parallel
               layout (``distributed.sharding``, ``launch.mesh``,
-              ``nn/blocks.moe_layer``'s mesh branch) on four processes
+              ``nn/blocks.moe_layer``'s mesh branch; the rule overrides
+              that unmap every axis but ``batch`` and ``experts``) on
+              four processes
               sharing the card (a gloo group with a file rendezvous under
               a temporary directory; NCCL takes one rank a device); the
               parent builds every kernel first, the ranks only load them,
@@ -296,12 +298,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
               ``python -m torch.distributed.run --standalone
               --nproc-per-node 4 -m repro_torch.launch.train --arch
               arctic-480b-smoke --search --mesh 2,2 --dist-backend gloo
-              --steps 3`` exits 0 and its checkpoint restores under (1,
-              1).  Before the paths, the kernels phase holds K4's forward
+              --steps 3`` (the launcher's full placements) exits 0 and
+              its checkpoint restores under (1, 1).  Before the paths,
+              the kernels phase holds K4's forward
               given an absmax bitwise at path 13's bank-shard shapes
               (4864 x 28672 and 7168 x 19456) and times it.
-19. report -- one JSON line of kernels (with each kernel's launches on
-              paths 8 to 13), the card's name and power limit, and last
+19. tensor-parallel -- path 14: tensor parallelism, FSDP and the
+              sequence-parallel residual stream in the search train step
+              (``distributed.sharding.Region``, ``models/lm._make_getw``,
+              the vocab-parallel embedding and loss, ``launch/steps``)
+              under the reference's rules (the arch's RULE_OVERRIDES and
+              the train shape's), four processes sharing the card over
+              gloo.  (a) llama3.2-1b at published widths and full depth
+              on mesh (2, 2), (b) mamba2-780m at published widths, 8 of
+              48 layers, on mesh (1, 4) (12 of 48 heads a rank): each
+              trained under the search (float32 masters, adam at 3e-4,
+              remat), 3 steps of 4 x 256 tokens; step 0's loss within
+              TP_LOSS and its clipped gradients within TP_GRAD relative
+              L2 a leaf of the port's (1, 1) step on the card on the
+              same parameters and data (run after the ranks exit);
+              every leaf the same on the ranks that hold the same shard
+              after every step; every gamma moved; K4 launches a rank
+              (llama's all given the absmax) and K5's forward and
+              backward on the local heads counted; step ms a rank, the
+              collectives' count and wall ms by kind, the card's busy
+              share over the last step (every rank profiled) and peak
+              memory a rank.
+20. report -- one JSON line of kernels (with each kernel's launches on
+              paths 8 to 14), the card's name and power limit, and last
               the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -5216,8 +5240,8 @@ class _KeepGrads:
     def init(self, params):
         return {"inner": self.inner.init(params), "grads": None}
 
-    def update(self, grads, state, params, step):
-        p, s = self.inner.update(grads, state["inner"], params, step)
+    def update(self, grads, state, params, step, axes=None):
+        p, s = self.inner.update(grads, state["inner"], params, step, axes)
         if self.keep is not None:
             grads = {k: g.clone() for k, g in _leaves(grads) if self.keep(k)}
         return p, {"inner": s, "grads": grads}
@@ -5586,6 +5610,14 @@ EP_TRAIN_GRAD = 7e-3
 K4_GIVEN = (("w_gate / w_up", 4864, 4 * 7168), ("w_down", 7168, 4 * 4864))
 
 
+def _ep_rules():
+    """The rule overrides that unmap every axis but ``batch`` and
+    ``experts``: path 13 holds the expert-parallel layout alone."""
+    from repro_torch.distributed import sharding
+    return {a: None for a in sharding.DEFAULT_RULES
+            if a not in ("batch", "experts")}
+
+
 def _ep_cfg(kw):
     import dataclasses
 
@@ -5785,7 +5817,7 @@ def _ep_rank_serve(rank):
            "bank_shape": tuple(params["blocks"]["l0"]["ffn"]["w_gate"][
                "w"].shape)}
     counters = _counters()
-    with sharding.use_mesh(mesh):
+    with sharding.use_mesh(mesh, _ep_rules()):
         for label, tree in (("plan", engine.apply_plan(cfg, params, plan)),
                             ("float", params)):
             timer = _CollectiveTimer()
@@ -5852,7 +5884,7 @@ def _ep_rank_train(rank, tmp):
     gradlib.accumulate_grads = acc
     timer = _CollectiveTimer()
     try:
-        with sharding.use_mesh(mesh):
+        with sharding.use_mesh(mesh, _ep_rules()):
             for i in range(EP_STEPS):
                 sharding.all_reduce_max = amax if i == 0 else inner_max
                 batch = synthetic.lm_batch(cfg.vocab, EP_SEQ + 1, EP_BATCH, i,
@@ -6311,6 +6343,453 @@ def _ep_cli(dev, tmp):
     return dict(wall_s=wall, step=meta["step"])
 
 
+# ---------------------------------------------------------------------------
+# path 14: tensor parallelism, FSDP and the split sequence
+# ---------------------------------------------------------------------------
+
+TP_RUNS = {"llama": ("llama3.2-1b", {}, (2, 2)),
+           "mamba": ("mamba2-780m", dict(n_layers=8), (1, 4))}  # of 48
+TP_STEPS = 3
+TP_DEVICE = "cuda"           # the ranks' device
+# step 0 against the port's (1, 1) step on the card: the loss within the
+# LM's rtol and each clipped gradient leaf within the LM bound (ROADMAP
+# section 3)
+TP_LOSS, TP_GRAD = 1e-4, 3e-2
+
+
+def _tp_cfg(which):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    arch, cut, _ = TP_RUNS[which]
+    return dataclasses.replace(registry.get(arch), **cut)
+
+
+def _tp_rules(cfg):
+    """The reference's rules for the train shape: the arch's
+    RULE_OVERRIDES and ``shape_rules``, as ``launch.train`` installs
+    them."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as steps_lib
+    rules = dict(registry.RULE_OVERRIDES.get(cfg.name, {}))
+    rules.update(steps_lib.shape_rules(ShapeConfig(
+        "train", "train", TRAIN_SEQ, TRAIN_BATCH)))
+    return rules
+
+
+class _Collectives:
+    """Count and wall ms of every collective of ``distributed.sharding``
+    on this rank, by kind (the card synchronised before and after
+    each)."""
+
+    KINDS = (("all_reduce", "_all_reduce"), ("all_gather", "_all_gather"),
+             ("reduce_scatter", "_reduce_scatter"))
+
+    def __init__(self):
+        from repro_torch.distributed import sharding
+        self.mod = sharding
+        self.inner = {attr: getattr(sharding, attr) for _, attr in self.KINDS}
+        self.got = {kind: [0, 0.0] for kind, _ in self.KINDS}
+        for kind, attr in self.KINDS:
+            setattr(sharding, attr, self._wrap(kind, self.inner[attr]))
+
+    def _wrap(self, kind, fn):
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.got[kind][0] += 1
+            self.got[kind][1] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return timed
+
+    def take(self):
+        got = {k: tuple(v) for k, v in self.got.items()}
+        self.got = {kind: [0, 0.0] for kind, _ in self.KINDS}
+        return got
+
+    def close(self):
+        for _, attr in self.KINDS:
+            setattr(self.mod, attr, self.inner[attr])
+
+
+class _SplitK:
+    """In this block every bf16 product of ``nn.xla_numerics.matmul``
+    (the layers' projections) is formed as two products over the halves
+    of its K axis, each rounded to bf16, summed in float32 and rounded
+    once: the rounding a row-parallel split over two ranks adds, with
+    nothing split.  The (1, 1) step under it is path 14's second
+    witness, the gradient gap a summation order alone makes."""
+
+    def __enter__(self):
+        from repro_torch.nn import xla_numerics
+        self.mod, self.inner = xla_numerics, xla_numerics.matmul
+        inner = self.inner
+
+        def split(a, b):
+            k = a.shape[-1]
+            if a.dtype != torch.bfloat16 or k % 2:
+                return inner(a, b)
+            h = k // 2
+            return (inner(a[..., :h], b[..., :h, :]).float()
+                    + inner(a[..., h:], b[..., h:, :]).float()).to(a.dtype)
+
+        xla_numerics.matmul = split
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.matmul = self.inner
+
+
+def _tp_digests(tree, logical):
+    """Per leaf: two int64 sums of its bit patterns and the mesh axes
+    that split it (the ranks that share its coordinates on them hold the
+    same shard)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps as steps_lib
+
+    def dig(axes, t):
+        d = _ep_digests({"x": t}, {"x": axes})["x"]
+        split = sorted({a for ax in sharding.dim_axes(*axes) for a in ax})
+        return d[:2] + (tuple(split),)
+
+    return dict(_leaves(steps_lib.tree_map_axes(dig, logical, tree)))
+
+
+def _tp_rank(rank, world, tmp):
+    """One of the four ranks: path 14's two runs; its results to
+    ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                            rank=rank, world_size=world)
+    try:
+        res = {}
+        for which in TP_RUNS:
+            res[which] = _tp_rank_train(which, rank, tmp)
+            _free(torch.device(TP_DEVICE))
+        torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_rank_train(which, rank, tmp):
+    """TP_STEPS search steps of one run on this rank under the
+    reference's rules: the whole seed-0 tree drawn on the card and cut
+    into this rank's shard, float32 masters, adam at 3e-4, remat.
+    Records the losses and norms, step 0's clipped gradient shards (to
+    ``tmp``), the digests after every step, the gammas' moves, the
+    launches (K4 given the absmax apart), the collectives by kind, step
+    ms, the last step's device ms (profiled) and peak memory."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import synthetic
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+
+    dev = torch.device(TP_DEVICE)
+    cfg = _tp_cfg(which)
+    mesh = meshlib.make_debug_mesh(*TP_RUNS[which][2], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    logical = lm.logical_axes(cfg, mps_on=True)
+    counters = _counters()
+    res = {"coords": mesh.coords, "losses": [], "norms": [], "digests": [],
+           "ms": []}
+    coll = _Collectives()
+    try:
+        with sharding.use_mesh(mesh, _tp_rules(cfg)):
+            whole = lm.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(0), dev, mps_on=True)
+            params = steps_lib.shard_tree(whole, logical)
+            del whole
+            _free(dev)
+            res["shapes"] = {k: tuple(t.shape) for k, t in _leaves(params)}
+            gamma0 = {k: t.clone() for k, t in _leaves(params)
+                      if k.endswith("gamma")}
+            opt = _KeepGrads(optimizers.make_optimizer(cfg.optimizer, 3e-4))
+            state = {"params": params, "opt": opt.init(params)}
+            del params
+            step_fn = steps_lib.make_train_step(cfg, opt, search=True)
+            torch.cuda.synchronize()
+            coll.take()
+            for fn in counters.values():
+                fn.launches = 0
+            counters["mps_combine"].given_launches = 0
+            for i in range(TP_STEPS):
+                batch = synthetic.lm_batch(cfg.vocab, TRAIN_SEQ + 1,
+                                           TRAIN_BATCH, i, device=dev)
+                last = i == TP_STEPS - 1
+                torch.cuda.synchronize()
+                with (profile(activities=[ProfilerActivity.CUDA]) if last
+                      else contextlib.nullcontext()) as prof:
+                    t1 = time.perf_counter()
+                    p, o, loss = step_fn(state["params"], state["opt"],
+                                         batch, i)
+                    torch.cuda.synchronize()
+                    res["ms"].append(1e3 * (time.perf_counter() - t1))
+                if i == 0:
+                    torch.save({k: g.cpu() for k, g in _leaves(o["grads"])},
+                               os.path.join(tmp, f"{which}_grads{rank}.pt"))
+                o["grads"] = None
+                state = {"params": p, "opt": o}
+                del p, o
+                res["losses"].append(float(loss))
+                res["norms"].append(float(step_fn.grad_norm))
+                res["digests"].append(_tp_digests(state["params"], logical))
+            res["launches"] = {k: fn.launches for k, fn in counters.items()}
+            res["given_launches"] = counters["mps_combine"].given_launches
+            res["collectives"] = coll.take()
+    finally:
+        coll.close()
+    # the last step's device ms by class: gloo's host staging (memcpy),
+    # K4, K5 and every other kernel
+    split = {"memcpy": 0.0, "K4": 0.0, "K5": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n = e.key
+        cls = "memcpy" if "memcpy" in n.lower() else "K4" if "mps_" in n \
+            else "K5" if "ssd_scan" in n else "other"
+        split[cls] += e.self_device_time_total / 1e3
+    res["device_split"] = split
+    res["device_ms"] = sum(split.values())
+    res["gammas_moved"] = all(not torch.equal(t, gamma0[k]) for k, t in
+                              _leaves(state["params"]) if k in gamma0)
+    res["n_gammas"] = len(gamma0)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def phase_tp(dev, counters, smi):
+    """Path 14: the full placements of the training step on four ranks
+    sharing the card (gloo; NCCL takes one rank a device).  The parent
+    has built every kernel; the ranks only load them.  (a) llama3.2-1b
+    at published widths and full depth on the (2, 2) mesh; (b)
+    mamba2-780m at published widths, 8 of 48 layers, on the (1, 4) mesh;
+    then, after the ranks exit, each run's (1, 1) step 0 on the card as
+    the reference."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    try:
+        socket.gethostbyname(socket.gethostname())
+    except OSError:
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    tmp = tempfile.mkdtemp(prefix="tp_")
+    t0 = time.perf_counter()
+    mp.spawn(_tp_rank, args=(4, tmp), nprocs=4, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(4)]
+    out = {"spawn_s": spawn_s}
+    try:
+        for which in TP_RUNS:
+            out[which] = _tp_check(which, [r[which] for r in ranks], tmp,
+                                   dev, smi)
+            _free(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[tp] both runs' ranks in {spawn_s:.1f} s (spawn to exit)")
+    return out
+
+
+def _tp_join(cfg, parts, logical, dev):
+    """The whole gradient tree of one run from every rank's shard
+    (``parts``: ``(rank coords, {leaf: tensor})`` pairs), each shard
+    placed at its rank's block of every dimension the rules split, on
+    the card."""
+    import math
+    import types
+
+    from repro_torch.distributed import sharding
+    shape = dict(zip(("data", "model"), next(
+        v[2] for v in TP_RUNS.values() if v[0] == cfg.name)))
+    grid = types.SimpleNamespace(axis_names=("data", "model"), shape=shape)
+    axes_of = dict(_leaves(logical))
+    out = {}
+    with sharding.use_mesh(grid, _tp_rules(cfg)):
+        for key in parts[0][1]:
+            dims = sharding.dim_axes(*axes_of[key])
+            whole = None
+            for coords, tree in parts:
+                part = tree[key]
+                if whole is None:
+                    whole = torch.empty(
+                        [n * math.prod(shape[a] for a in ax)
+                         for n, ax in zip(part.shape, dims)],
+                        dtype=part.dtype, device=dev)
+                idx = []
+                for n, ax in zip(part.shape, dims):
+                    c = 0
+                    for a in ax:
+                        c = c * shape[a] + coords[a]
+                    idx.append(slice(c * n, (c + 1) * n))
+                whole[tuple(idx)] = part.to(dev)
+            out[key] = whole
+    return out
+
+
+def _tp_check(which, tr, tmp, dev, smi):
+    """One run against its (1, 1) reference on the card: step 0's loss
+    within TP_LOSS, its clipped gradients a leaf within TP_GRAD relative
+    L2 (the ranks' shards joined); the ranks' losses equal, finite;
+    every leaf the same on the ranks that share its shard after every
+    step; every gamma moved; the launches."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import optimizers
+
+    cfg = _tp_cfg(which)
+    shape = TP_RUNS[which][2]
+    tag = f"[tp] ({'ab'[list(TP_RUNS).index(which)]}) {cfg.name}"
+    losses = tr[0]["losses"]
+    if any(r["losses"] != losses for r in tr) or not all(
+            np.isfinite(losses + tr[0]["norms"])):
+        raise AssertionError(f"{tag}: losses {[r['losses'] for r in tr]}")
+    for step in range(TP_STEPS):
+        for key, (_, _, split) in tr[0]["digests"][step].items():
+            for r in tr:
+                peers = [q for q in tr if all(
+                    q["coords"][a] == r["coords"][a] for a in split)]
+                if any(q["digests"][step][key] != r["digests"][step][key]
+                       for q in peers):
+                    raise AssertionError(f"{tag}: {key} differs between "
+                                         f"ranks that share its shard after "
+                                         f"step {step}")
+    if not all(r["gammas_moved"] and r["n_gammas"] for r in tr):
+        raise AssertionError(f"{tag}: a gamma did not move")
+    # the (1, 1) reference: the same tree and step-0 batch, one process
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev, mps_on=True)
+    opt = _KeepGrads(optimizers.make_optimizer(cfg.optimizer, 3e-4))
+    step_fn = steps_lib.make_train_step(cfg, opt, search=True)
+    batch = synthetic.lm_batch(cfg.vocab, TRAIN_SEQ + 1, TRAIN_BATCH, 0,
+                               device=dev)
+    state0 = opt.init(params)
+    _, st, loss = step_fn(params, state0, batch, 0)
+    ref_loss, ref_norm = float(loss), float(step_fn.grad_norm)
+    ref = dict(_leaves(st["grads"]))
+    del st
+    ref_s = time.perf_counter() - t0
+    ref_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the second witness: the same step with only its products' sums
+    # reordered (_SplitK), against the (1, 1) step
+    with _SplitK():
+        _, st, loss = step_fn(params, state0, batch, 0)
+    wit_loss = abs(float(loss) / ref_loss - 1)
+    wit = {k: _rel(g, ref[k]) for k, g in _leaves(st["grads"])}
+    del params, st, opt, state0
+    _free(dev)
+    if not np.isfinite(wit_loss + sum(wit.values())):
+        raise AssertionError(f"{tag}: the split-K witness is not finite")
+    wit_worst = max(wit, key=wit.get)
+    parts = [(r["coords"], torch.load(
+        os.path.join(tmp, f"{which}_grads{rank}.pt"), weights_only=False))
+        for rank, r in enumerate(tr)]
+    joined = _tp_join(cfg, parts, lm.logical_axes(cfg, mps_on=True), dev)
+    del parts
+    gaps = {k: _rel(joined[k], ref[k]) for k in ref}
+    del joined, ref
+    worst = max(gaps, key=gaps.get)
+    loss_gap = abs(losses[0] / ref_loss - 1)
+    if loss_gap > TP_LOSS or gaps[worst] > TP_GRAD:
+        raise AssertionError(f"{tag}: step 0 loss {losses[0]} vs (1, 1) "
+                             f"{ref_loss} (gap {loss_gap:.3g}, bound "
+                             f"{TP_LOSS}); gradient {worst} {gaps[worst]:.3g} "
+                             f"(bound {TP_GRAD})")
+    r0 = tr[0]
+    coll = r0["collectives"]
+    wall = [r["ms"][-1] for r in tr]
+    busy = sum(r["device_ms"] for r in tr) / max(wall)
+    kern_busy = sum(r["device_ms"] - r["device_split"]["memcpy"]
+                    for r in tr) / max(wall)
+    heads = (f"{cfg.ssm_heads // shape[1]} of {cfg.ssm_heads} SSM heads"
+             if cfg.is_ssm else f"{cfg.h_eff // shape[1]} of {cfg.h_eff} "
+             f"query heads, {cfg.d_ff // shape[1]} of {cfg.d_ff} FFN columns")
+    log(f"{tag} at published widths, {cfg.n_layers} layers on mesh {shape} "
+        f"({heads} a rank, the vocab's {lm.padded_vocab(cfg) // shape[1]} "
+        f"rows a rank, the sequence's {TRAIN_SEQ // shape[1]} rows between "
+        f"layers), float32 masters, {cfg.optimizer}, remat {cfg.remat}, "
+        f"{TP_STEPS} search steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"losses {[round(v, 5) for v in losses]} (every rank), grad norms "
+        f"{[round(v, 4) for v in r0['norms']]}; step 0 against the (1, 1) "
+        f"step on the card: loss {losses[0]:.6f} vs {ref_loss:.6f} (gap "
+        f"{loss_gap:.3g}, bound {TP_LOSS}), norm {r0['norms'][0]:.5f} vs "
+        f"{ref_norm:.5f}, clipped gradients of {len(gaps)} leaves within "
+        f"{TP_GRAD} relative L2 (worst {worst} {gaps[worst]:.3g}, median "
+        f"{float(np.median(list(gaps.values()))):.3g}); the witness, the "
+        f"(1, 1) step with every bf16 product's K halves rounded apart, "
+        f"against the (1, 1) step: loss gap {wit_loss:.3g}, worst "
+        f"{wit_worst} {wit[wit_worst]:.3g}, median "
+        f"{float(np.median(list(wit.values()))):.3g}; every leaf the same "
+        f"on the ranks that share its shard after every step; all "
+        f"{r0['n_gammas']} gammas moved")
+    log(f"{tag}: launches a rank K4 {r0['launches']['mps_combine']} forward "
+        f"({r0['given_launches']} given the absmax) and "
+        f"{r0['launches']['mps_combine_bwd']} backward"
+        + (f", K5 {r0['launches']['ssd_scan']} forward and "
+           f"{r0['launches']['ssd_scan_bwd']} backward on "
+           f"{cfg.ssm_heads // shape[1]} heads a rank"
+           if cfg.is_ssm else "")
+        + f"; step ms a rank {[[round(x, 1) for x in r['ms']] for r in tr]} "
+        f"(the last profiled on every rank); rank 0's collectives over the "
+        f"{TP_STEPS} steps (count, wall ms): "
+        f"{ {k: (n, round(ms, 1)) for k, (n, ms) in coll.items()} }, "
+        f"{sum(ms for _, ms in coll.values()):.1f} ms of "
+        f"{sum(r0['ms']):.1f}; the last step's device ms a rank "
+        f"{[round(r['device_ms'], 1) for r in tr]} (rank 0's by class "
+        f"{ {k: round(v, 1) for k, v in r0['device_split'].items()} }), "
+        f"card busy {100 * busy:.1f}% (their sum over the slowest rank's "
+        f"wall; {100 * kern_busy:.1f}% without the staging copies); peak "
+        f"a rank {[round(r['peak_gib'], 2) for r in tr]} GiB; the (1, 1) "
+        f"reference {ref_s:.1f} s, peak {ref_peak:.2f} GiB; {smi}")
+    nsb = lm.n_superblocks(cfg)
+    nodes = lm.mps_param_count(cfg) * nsb
+    remat = 2 if cfg.remat else 1
+    need = {"mps_combine": nodes * remat * TP_STEPS,
+            "mps_combine_bwd": nodes * TP_STEPS}
+    # a projection's C_in split over a mesh axis of extent > 1: every
+    # llama projection; mamba's out_proj alone (C_in ssm_inner on model)
+    given = need["mps_combine"] if shape[0] > 1 else \
+        nsb * remat * TP_STEPS
+    if cfg.is_ssm:
+        need.update(ssd_scan=nsb * remat * TP_STEPS,
+                    ssd_scan_bwd=nsb * TP_STEPS)
+    for r in tr:
+        got = r["launches"]
+        if any(got[x] != v for x, v in need.items()) or any(
+                v for x, v in got.items() if x not in need) or \
+                r["given_launches"] != given:
+            raise AssertionError(f"{tag}: rank {r['coords']} launches {got}, "
+                                 f"given {r['given_launches']}; need {need}, "
+                                 f"given {given}")
+    return dict(launches=r0["launches"], given=r0["given_launches"],
+                losses=losses, ref_loss=ref_loss, loss_gap=loss_gap,
+                gap_max=gaps[worst], gap_worst=worst,
+                gap_median=float(np.median(list(gaps.values()))),
+                witness_loss=wit_loss, witness_max=wit[wit_worst],
+                witness_worst=wit_worst,
+                witness_median=float(np.median(list(wit.values()))),
+                ms=[r["ms"] for r in tr], collectives=coll, busy=busy,
+                kernel_busy=kern_busy, device_split=r0["device_split"],
+                rank_peak_gib=[r["peak_gib"] for r in tr],
+                ref_peak_gib=ref_peak)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6425,6 +6904,7 @@ def main():
     moe_trained = path("path 12 (arctic train)", phase_train_moe, dev,
                        counters, smi, banks)
     ep = path("path 13 (expert parallel)", phase_ep, dev, counters, smi)
+    tp = path("path 14 (tensor parallel)", phase_tp, dev, counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -6510,7 +6990,13 @@ def main():
                    launches_ep_serve_float_a_rank=ep["serve"]["float"][
                        "launches"][k],
                    launches_ep_train_a_rank=ep["train"]["launches"][k])
+        # path 14: each rank's launches (every rank counts the same) in
+        # the tensor-parallel llama (2, 2) and mamba (1, 4) runs
+        for which in TP_RUNS:
+            row[f"launches_tp_{which}_a_rank"] = tp[which]["launches"][k]
         if k == "mps_combine":
+            row["launches_tp_given_absmax_a_rank"] = {
+                which: tp[which]["given"] for which in TP_RUNS}
             row["launches_ep_train_given_absmax_a_rank"] = ep["train"][
                 "given"]
             row["ep_max_allreduce_ms"] = ep["train"]["max_allreduce_ms"]

@@ -165,8 +165,9 @@ def lm_shard_from_jax(tree, cfg, device="cpu"):
     """This rank's port tree from a whole ``repro.models.lm`` tree under
     the installed mesh (``distributed.sharding.use_mesh``): the tree
     carried by :func:`lm_params_from_jax`, then cut by
-    ``launch.steps.shard_tree`` along ``lm.logical_axes`` (each bank's
-    experts on ``model``); a tree with gammas takes the search's axes."""
+    ``launch.steps.shard_tree`` along ``lm.logical_axes`` (every axis
+    the installed rules map); a tree with gammas takes the search's
+    axes."""
     from repro_torch.launch import steps
     from repro_torch.models import lm
     whole = lm_params_from_jax(tree, device, cfg)

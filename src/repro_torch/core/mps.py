@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core import quantizers, sampling
 from repro_torch.core import rng as trng
+from repro_torch.distributed import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,29 +69,34 @@ def delta_probs(delta: torch.Tensor, ctx: SearchCtx, tag: int = 0
 def effective_weight(w: torch.Tensor, gamma: torch.Tensor,
                      precisions: tuple[int, ...], ctx: SearchCtx,
                      channel_axis: int = 0, tag: int = 0,
-                     group=None) -> torch.Tensor:
-    """Paper Eq. 5: W_hat = sum_p gamma_hat[:, p] * Q_p(W).
+                     absmax_group=None, probs_group=None,
+                     rows=None) -> torch.Tensor:
+    """Paper Eq. 5: W_hat = sum_p gamma_hat[:, p] * Q_p(W), for ``w``
+    whole or a rank's shard of it (``distributed.sharding``).
 
-    ``group``: a process group over which ``w``'s other axes are split
-    (an expert bank's shard, ``distributed.sharding.axis_group``).  Each
-    rank reduces its own per-channel absmax, the all-reduce MAX gives the
-    whole weight's, and the combine takes it as given (K4's
-    ``absmax_in``, or the plain quantizer stack's ``absmax``); the
-    selection probabilities enter through the copy into the group, so
-    their Eq. 5 gradient, partial on each rank, is summed over it."""
+    ``absmax_group``: the process group over which ``w``'s other axes
+    (its C_in) are split.  Each rank reduces its own per-channel absmax,
+    the all-reduce MAX gives the whole weight's, and the combine takes
+    it as given (K4's ``absmax_in``, or the plain quantizer stack's
+    ``absmax``).  ``probs_group``: the selection probabilities enter
+    through the copy into it, so their Eq. 5 gradient, partial on each
+    rank, is summed over it.  ``rows``: ``(start, count)`` of the
+    channels this shard holds, the probabilities' rows it takes (after
+    the copy)."""
     probs = gamma_probs(gamma, ctx, tag)  # (C, |P|)
     if probs.shape[0] == 1 and w.shape[channel_axis] != 1:
         # layer-wise MPS (EdMIPS-style): one selection row for the whole
         # layer, broadcast over channels (gradients sum over channels)
         probs = probs.expand(w.shape[channel_axis], probs.shape[1])
+    probs = sharding.copy_to(probs, probs_group)
+    if rows is not None:
+        probs = probs.narrow(0, *rows)
     absmax = None
-    if group is not None:
-        from repro_torch.distributed import sharding
-        probs = sharding.copy_to(probs, group)
+    if absmax_group is not None:
         axis = channel_axis % w.ndim
         absmax = sharding.all_reduce_max(torch.amax(
             w.detach().abs(), dim=tuple(i for i in range(w.ndim)
-                                        if i != axis)), group)
+                                        if i != axis)), absmax_group)
     use_kernel = w.is_cuda if ctx.use_kernel is None else ctx.use_kernel
     if use_kernel:
         return kernel_combine(w, probs, precisions, channel_axis, absmax)

@@ -3,11 +3,15 @@ training step (with the paper's joint search), prefill and decode; the
 per-shape sharding rules and the placements of a logical tree, and the
 cut of a whole tree into one rank's shard (and back).
 
-Under a mesh (``distributed.sharding.use_mesh``) the port places the
-``batch`` rows on ``data`` and the experts of every MoE bank on
-``model``: a rank holds the whole of every other leaf.  ``batch_struct``
-and ``cell_artifacts`` (the reference's dry-run inputs) wait with the
-dry-run (ROADMAP slice E).
+Under a mesh (``distributed.sharding.use_mesh``) the port places every
+logical axis the installed rules map: the ``batch`` rows on ``data``,
+the weights' ``w_embed`` axis on ``data`` (FSDP), the tensor-parallel
+axes and the experts on ``model`` and, in the training step, the
+residual stream's sequence on ``model``.  The prefill and decode steps
+refuse a mesh that splits a tensor-parallel, sequence or FSDP axis
+(ROADMAP section 1, items 2-3), as do the enc-dec, VLM and hybrid
+training steps.  ``batch_struct`` and ``cell_artifacts`` (the
+reference's dry-run inputs) wait with the dry-run.
 """
 from __future__ import annotations
 
@@ -41,18 +45,23 @@ def make_train_step(cfg: ArchConfig, opt: optimizers.Optimizer,
     (:func:`shard_tree`) and ``batch`` is the global batch: it is split
     into micro-batches first and each micro-batch's rows then
     contiguously over the ``batch`` axes, as the reference's sharded
-    batch is.  The loss is the mean over the global batch, every
-    gradient leaf the mean over ``batch`` (the sums over ``experts``
-    happen in the backward, through ``sharding.copy_to``), and the norm
-    counts a split leaf's squares over all its ranks and a whole leaf's
-    once; every rank then holds the same replicated leaves."""
+    batch is.  The loss is the mean over the global batch and every
+    gradient leaf the mean over ``batch``: a leaf split over the data
+    axes (FSDP) arrives summed over them by its gather's backward and is
+    only divided, every other leaf is all-reduced over them first (the
+    sums over the tensor-parallel and expert groups happen in the
+    backward, through the collectives of ``sharding``).  The norm counts
+    a split leaf's squares over all its ranks and a whole leaf's once;
+    ``adam_int8`` takes a split row's scale over the ranks that hold it
+    (``opt.update`` is handed the parameters' logical axes).  Every rank then holds the same
+    replicated leaves."""
     ctx = mps.SearchCtx(tau=1.0) if search else None
     k = max(cfg.train_microbatches, 1)
     logical = lm.logical_axes(cfg, mps_on=search)
 
     def loss_of(params, batch):
         return lm.loss_fn(cfg, params, batch, ctx=ctx,
-                          lam=lam if search else 0.0)
+                          lam=lam if search else 0.0, logical=logical)
 
     def step_fn(params, opt_state, batch, step):
         dp, d = sharding.extent("batch"), sharding.axis_index("batch")
@@ -72,19 +81,34 @@ def make_train_step(cfg: ArchConfig, opt: optimizers.Optimizer,
         group = sharding.axis_group("batch")
         if group is not None:
             loss = sharding.all_reduce_sum(loss, group) / dp
-            grads = tree_map(lambda g: (sharding.all_reduce_sum(
-                g.float(), group) / dp).to(g.dtype), grads)
+            grads = tree_map_axes(_data_mean, logical, grads)
         grads, step_fn.grad_norm = gradlib.clip_by_global_norm(
             grads, clip_norm, norm=_global_norm(grads, logical))
-        new_params, new_opt = opt.update(grads, opt_state, params, step)
+        new_params, new_opt = opt.update(grads, opt_state, params, step,
+                                         logical)
         return new_params, new_opt, loss
 
     step_fn.grad_norm = None
     return step_fn
 
 
+def _data_mean(axes, g):
+    """A gradient leaf's mean over the data axes: summed over those that
+    do not split it (a split one arrives summed), then divided by their
+    extent."""
+    batch = sharding.mesh_axes("batch")
+    split = {a for ax in sharding.dim_axes(*axes) for a in ax}
+    group = sharding.group_of(tuple(a for a in batch if a not in split))
+    return (sharding.all_reduce_sum(g.float(), group)
+            / sharding.extent("batch")).to(g.dtype)
+
+
 def make_prefill_step(cfg: ArchConfig):
-    """(params, batch) -> (last-position logits, new dense caches)."""
+    """(params, batch) -> (last-position logits, new dense caches).
+    Raises a ValueError under a mesh that splits a tensor-parallel,
+    sequence or FSDP axis (ROADMAP section 1, items 2-3)."""
+    sharding.refuse_split("the prefill step")
+
     def step_fn(params, batch):
         return lm.forward(cfg, params, batch, mode="prefill",
                           logits_mode="last")
@@ -99,7 +123,10 @@ def make_paged_prefill_step(cfg: ArchConfig):
     to a q-chunk boundary: padded rows are never written to the pool, and
     the logits are read at ``lens[0] - 1``.  A hybrid's ``kv_caches``
     holds only its attention layers' pools; its Mamba-2 layers prefill
-    from zero and return their new state in the tree."""
+    from zero and return their new state in the tree.  Refuses a mesh
+    as :func:`make_prefill_step` does."""
+    sharding.refuse_split("the paged prefill step")
+
     def step_fn(params, batch, kv_caches, tables, lens):
         return lm.forward(cfg, params, batch, mode="prefill",
                           logits_mode="last", last_pos=lens[0] - 1,
@@ -109,7 +136,10 @@ def make_paged_prefill_step(cfg: ArchConfig):
 
 def make_decode_step(cfg: ArchConfig):
     """``token_batch`` holds ``tokens`` (B, 1) or ``embeddings`` (B, 1,
-    D); ``tables`` is the paged block-table tensor (None for dense)."""
+    D); ``tables`` is the paged block-table tensor (None for dense).
+    Refuses a mesh as :func:`make_prefill_step` does."""
+    sharding.refuse_split("the decode step")
+
     def step_fn(params, token_batch, caches, pos, tables=None):
         return lm.decode_step(cfg, params, token_batch, caches, pos,
                               tables=tables)
@@ -118,28 +148,24 @@ def make_decode_step(cfg: ArchConfig):
 
 def _global_norm(grads, logical):
     """The gradient tree's global norm over all ranks: each leaf's
-    squares in tree order, those of a leaf split over the expert group
-    (``experts`` among its ``logical`` axes) summed over it (one
-    all-reduce), then one float32 sum."""
-    group = sharding.axis_group("experts")
-    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
-    if group is not None:
-        split = []
+    squares in tree order, those of a split leaf summed over the mesh
+    axes that split it (one all-reduce a set of axes), then one float32
+    sum."""
+    sq, where = [], {}
 
-        def walk(g, axes):
-            if isinstance(g, dict):
-                for key in g:
-                    walk(g[key], axes[key])
-            else:
-                split.append("experts" in axes)
+    def walk(axes, g):
+        split = {a for ax in sharding.dim_axes(*axes) for a in ax}
+        group = sharding.group_of(tuple(split))
+        if group is not None:
+            where.setdefault(tuple(sorted(split)), []).append(len(sq))
+        sq.append(torch.sum(torch.square(g.float())))
 
-        walk(grads, logical)
-        where = [i for i, s in enumerate(split) if s]
-        if where:
-            tot = sharding.all_reduce_sum(torch.stack([sq[i] for i in where]),
-                                          group)
-            for j, i in enumerate(where):
-                sq[i] = tot[j]
+    tree_map_axes(walk, logical, grads)
+    for axes, idx in where.items():
+        tot = sharding.all_reduce_sum(torch.stack([sq[i] for i in idx]),
+                                      sharding.group_of(axes))
+        for j, i in enumerate(idx):
+            sq[i] = tot[j]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -199,25 +225,26 @@ def resolve_shardings(mesh, logical_tree):
                          logical_tree)
 
 
-def _held(axes, leaf):
-    """``(dim, mesh axes)`` of each dimension of ``leaf`` the port
-    splits."""
-    mesh_axes = sharding.held_spec(*axes)
-    if len(mesh_axes) != leaf.dim():
+def _placed(axes, leaf):
+    """``(dim, mesh axes)`` of each dimension of ``leaf`` the installed
+    mesh splits."""
+    dims = sharding.dim_axes(*axes)
+    if len(dims) != leaf.dim():
         raise ValueError(f"logical axes {axes} for a leaf of shape "
                          f"{tuple(leaf.shape)}")
-    return [(i, sharding._axes(e)) for i, e in enumerate(mesh_axes) if e]
+    mesh = sharding.get_mesh()
+    return [(i, ax) for i, ax in enumerate(dims) if mesh.size(ax) > 1]
 
 
 def shard_tree(tree, logical_tree):
     """This rank's shard of a whole tree under the installed mesh: each
-    dimension whose logical axis the port places (``batch`` rows on
-    ``data``, ``experts`` on ``model``) cut into equal contiguous blocks,
-    the rank's block kept (a copy); every other leaf as it is."""
+    dimension whose logical axis the rules map cut into equal contiguous
+    blocks over its mesh axes, the rank's block kept (a copy); a whole
+    leaf as it is."""
     mesh = sharding.get_mesh()
 
     def cut(axes, leaf):
-        for dim, mesh_axes in _held(axes, leaf):
+        for dim, mesh_axes in _placed(axes, leaf):
             n = mesh.size(mesh_axes)
             if leaf.shape[dim] % n:
                 raise ValueError(f"axis {dim} of {tuple(leaf.shape)} does "
@@ -236,7 +263,7 @@ def gather_tree(tree, logical_tree):
     mesh = sharding.get_mesh()
 
     def join(axes, leaf):
-        for dim, mesh_axes in reversed(_held(axes, leaf)):
+        for dim, mesh_axes in reversed(_placed(axes, leaf)):
             leaf = sharding.all_gather_cat(leaf, dim, mesh.group(mesh_axes))
         return leaf
 

@@ -43,11 +43,22 @@ installs it) or ``--production-mesh`` (16 x 16 ranks) under
         -m repro_torch.launch.train --device cpu --dist-backend gloo \
         --arch arctic-480b-smoke --search --mesh 2,2 --steps 2
 
-Each rank takes its rows of every batch (``batch`` on ``data``) and its
-experts of every MoE bank (``experts`` on ``model``, the reference's
-expert-parallel layout, ``nn/blocks.moe_layer``); every other leaf is
-whole on every rank (``distributed/sharding.py``).  Every rank draws the
-whole seed-0 tree and keeps its shard.  ``--dist-backend``: ``nccl`` by
+The launcher installs the reference's rules (the arch's
+``RULE_OVERRIDES`` and the train shape's), and the port places every
+axis they map (``distributed/sharding.py``): each rank takes its rows of
+every batch (``batch`` on ``data``), its block of every weight's
+``w_embed`` axis (FSDP on ``data``), its heads, FFN columns, vocab rows,
+Mamba-2 heads and experts (tensor and expert parallelism on ``model``),
+and the residual stream's rows of the sequence between layers
+(``act_seq`` on ``model``); the dense, SSM and MoE families train so::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --device cpu --dist-backend gloo \
+        --arch llama3.2-1b-smoke --search --mesh 2,2 --steps 2
+
+(the enc-dec, VLM and hybrid families refuse a mesh that splits more
+than ``batch`` and ``experts``: ROADMAP section 1, items 2-3).  Every
+rank draws the whole seed-0 tree and keeps its shard.  ``--dist-backend``: ``nccl`` by
 default on ``cuda``, ``gloo`` on the CPU; NCCL takes one rank a device,
 so ranks sharing a card need ``--dist-backend gloo`` (asked, never
 switched to).  Rank 0 prints.  Checkpoints are mesh-agnostic: the
@@ -331,9 +342,8 @@ def _whole_like(axes, leaf, mesh):
     """An empty host tensor of the whole leaf's shape, the template a
     restore fills."""
     shape = list(leaf.shape)
-    for dim, e in enumerate(sharding.held_spec(*axes)):
-        if e:
-            shape[dim] *= mesh.size(sharding._axes(e))
+    for dim, ax in enumerate(sharding.dim_axes(*axes)):
+        shape[dim] *= mesh.size(ax)
     return torch.empty(shape, dtype=leaf.dtype)
 
 

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import mps, sampling
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.nn import blocks
 from repro_torch.nn import quantized as nnq
 from repro_torch.nn import xla_numerics
@@ -242,10 +243,9 @@ def _layer_params(cfg: ArchConfig, spec: LayerSpec, w, vec, n: int) -> dict:
 
 def _attn_params(cfg: ArchConfig, w, vec) -> dict:
     d, h, hkv, hd = cfg.d_model, cfg.h_eff, cfg.hkv_eff, cfg.head_dim
-    p = {"wq": w((d, h * hd), ("w_embed", "heads_flat")),
-         "wk": w((d, hkv * hd), ("w_embed", "kv_flat")),
-         "wv": w((d, hkv * hd), ("w_embed", "kv_flat")),
-         "wo": w((h * hd, d), ("heads_flat", "w_embed"))}
+    ax = blocks.AXES
+    p = {"wq": w((d, h * hd), ax["wq"]), "wk": w((d, hkv * hd), ax["wk"]),
+         "wv": w((d, hkv * hd), ax["wv"]), "wo": w((h * hd, d), ax["wo"])}
     if cfg.qk_norm:
         p["q_norm"] = vec((hd,), (None,))
         p["k_norm"] = vec((hd,), (None,))
@@ -253,10 +253,9 @@ def _attn_params(cfg: ArchConfig, w, vec) -> dict:
 
 
 def _ffn_params(cfg: ArchConfig, w) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": w((d, f), ("w_embed", "mlp")),
-            "w_up": w((d, f), ("w_embed", "mlp")),
-            "w_down": w((f, d), ("mlp", "w_embed"))}
+    d, f, ax = cfg.d_model, cfg.d_ff, blocks.AXES
+    return {"w_gate": w((d, f), ax["w_gate"]), "w_up": w((d, f), ax["w_up"]),
+            "w_down": w((f, d), ax["w_down"])}
 
 
 def _moe_params(cfg: ArchConfig, w) -> dict:
@@ -264,11 +263,11 @@ def _moe_params(cfg: ArchConfig, w) -> dict:
     and, with ``dense_residual``, the shared FFN.  Under ``mps_on`` each
     bank carries the reference's one gamma ``(nsb, C_out, |P_W|)``, shared
     by all its experts."""
-    d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+    d, e, f, ax = cfg.d_model, cfg.n_experts, cfg.expert_d_ff, blocks.AXES
     out = {"router": w((d, e), (None, None), gamma=False),
-           "w_gate": w((e, d, f), ("experts", "w_embed", None)),
-           "w_up": w((e, d, f), ("experts", "w_embed", None)),
-           "w_down": w((e, f, d), ("experts", None, "w_embed"))}
+           "w_gate": w((e, d, f), ax["bank_gate"]),
+           "w_up": w((e, d, f), ax["bank_up"]),
+           "w_down": w((e, f, d), ax["bank_down"])}
     if cfg.dense_residual:
         out["shared"] = _ffn_params(cfg, w)
     return out
@@ -279,12 +278,11 @@ def _mamba_params(cfg: ArchConfig, w, vec) -> dict:
     projection, three depthwise conv kernels and the per-head vectors."""
     d, di, n, h, kk = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
                        cfg.ssm_heads, cfg.ssm_conv)
-    return {"in_z": w((d, di), ("w_embed", "ssm_inner")),
-            "in_x": w((d, di), ("w_embed", "ssm_inner")),
-            "in_b": w((d, n), ("w_embed", None)),
-            "in_c": w((d, n), ("w_embed", None)),
-            "in_dt": w((d, h), ("w_embed", None)),
-            "out_proj": w((di, d), ("ssm_inner", "w_embed")),
+    ax = blocks.AXES
+    return {"in_z": w((d, di), ax["in_z"]), "in_x": w((d, di), ax["in_x"]),
+            "in_b": w((d, n), ax["in_b"]), "in_c": w((d, n), ax["in_c"]),
+            "in_dt": w((d, h), ax["in_dt"]),
+            "out_proj": w((di, d), ax["out_proj"]),
             "conv_x": vec((kk, di), (None, "ssm_inner"), 0.1),
             "conv_b": vec((kk, n), (None, None), 0.1),
             "conv_c": vec((kk, n), (None, None), 0.1),
@@ -298,27 +296,72 @@ def _mamba_params(cfg: ArchConfig, w, vec) -> dict:
 # ---------------------------------------------------------------------------
 
 def _make_getw(cfg: ArchConfig, ctx: Optional[mps.SearchCtx]):
-    """Weight provider (``lm._make_effective_w``): a :class:`PackedLinear`
-    goes through untouched; under a ``SearchCtx`` a weight with a gamma
-    becomes its Eq. 5 effective weight (``core.mps.effective_weight``,
-    kernel K4 on the card, its output channels on the last axis); every
-    dense weight is cast to bf16 at the point of use.  Under a mesh that
-    splits the experts, an expert bank ``(E_loc, K, C_out)`` is this
-    rank's shard: its Eq. 5 weight takes the whole bank's per-channel
-    absmax and sums its probabilities' gradient over the expert group."""
-    from repro_torch.distributed import sharding
+    """Weight provider (``lm._make_effective_w``): ``getw(pp, axes,
+    region)`` gives the weight of node ``pp`` as this rank computes with
+    it.  A :class:`PackedLinear` goes through untouched; under a
+    ``SearchCtx`` a weight with a gamma becomes its Eq. 5 effective
+    weight (``core.mps.effective_weight``, kernel K4 on the card, its
+    output channels on the last axis); every dense weight is cast to
+    bf16 at the point of use.
 
-    def getw(pp):
+    Under a mesh, ``axes`` (the weight's logical axes, ``blocks.AXES``)
+    say how the rank's shard is cut.  Eq. 5 runs on the shard where the
+    master lies, with the whole weight's per-channel absmax (all-reduced
+    over the mesh axes that split its C_in) and this shard's rows of the
+    selection probabilities (their gradient summed over the split axes
+    other than the data axes, which the step's average sums); then the
+    bf16 cast; a weight the tensor-parallel ``region``
+    (``sharding.Region``) does not split enters through the copy into
+    it (each rank uses it for its own part); then the FSDP all-gather of
+    every dimension split over the data axes, whose backward
+    reduce-scatters the gradient (the sum over the data ranks).  The
+    all-gather moves bf16, as the reference's does."""
+
+    def getw(pp, axes=None, region=None):
         w = pp["w"]
         if isinstance(w, nnq.PackedLinear):
             return w
+        dims = sharding.dim_axes(*axes) if axes is not None else []
+        if dims and len(dims) != w.dim():
+            raise ValueError(f"logical axes {axes} for a weight of shape "
+                             f"{tuple(w.shape)}")
+        if not any(dims):
+            dims = []
         if ctx is None or "gamma" not in pp:
-            return w.to(torch.bfloat16)
-        group = sharding.axis_group("experts") if w.dim() == 3 else None
-        return mps.effective_weight(
-            w.float(), pp["gamma"], cfg.mps_precisions, ctx,
-            channel_axis=w.dim() - 1, group=group).to(torch.bfloat16)
+            out = w.to(torch.bfloat16)
+        else:
+            out = _effective(cfg, ctx, w, pp["gamma"], dims)
+        if region is not None and not region.splits(dims):
+            out = region.shared(out)
+        if not dims:
+            return out
+        batch = set(sharding.mesh_axes("batch"))
+        for d, ax in enumerate(dims):
+            if ax and set(ax) <= batch:
+                out = sharding.gather(out, d, sharding.group_of(ax))
+        return out
     return getw
+
+
+def _effective(cfg, ctx, w, gamma, dims):
+    """Eq. 5 of a weight (or a rank's shard: ``dims`` its dimensions'
+    mesh axes, ``sharding.dim_axes``), cast to bf16."""
+    ch = w.dim() - 1
+    if not dims:
+        return mps.effective_weight(w.float(), gamma, cfg.mps_precisions,
+                                    ctx, channel_axis=ch).to(torch.bfloat16)
+    cin = {a for ax in dims[:ch] for a in ax}
+    batch = set(sharding.mesh_axes("batch"))
+    split = {a for ax in dims for a in ax} - batch
+    rows = None
+    if dims[ch]:
+        n = w.shape[ch]
+        rows = (sharding.get_mesh().index(dims[ch]) * n, n)
+    return mps.effective_weight(
+        w.float(), gamma, cfg.mps_precisions, ctx, channel_axis=ch,
+        absmax_group=sharding.group_of(tuple(cin)),
+        probs_group=sharding.group_of(tuple(split)),
+        rows=rows).to(torch.bfloat16)
 
 
 def _index(tree, j: int):
@@ -355,11 +398,31 @@ def _store(dst, src):
 
 def _embed_in(cfg, params, batch) -> torch.Tensor:
     """The decoder's input: a stub frontend's ``embeddings`` cast to bf16
-    (no scale), else the embedding rows of ``tokens`` times sqrt(d)."""
+    (no scale), else the embedding rows of ``tokens`` times sqrt(d).
+
+    Under a mesh the table ``(vocab, w_embed)`` is this rank's shard: it
+    is gathered over the data axes (FSDP, float32: the rows' gradient is
+    summed in float32 as on one device), each rank looks up the tokens
+    of its vocab rows (Megatron's vocab-parallel embedding), and the
+    rows are summed over the vocab group onto the stream's layout
+    (reduce-scattered along a split sequence): one rank's row plus exact
+    zeros, the single device's values."""
     if "embeddings" in batch:
         return batch["embeddings"].to(torch.bfloat16)
-    # gather rows first, cast after: the same values as casting the table
-    x = params["embed"]["w"][batch["tokens"].long()].to(torch.bfloat16)
+    table, tokens = params["embed"]["w"], batch["tokens"].long()
+    dims = sharding.dim_axes("vocab", "w_embed")
+    if dims and dims[1]:
+        table = sharding.gather(table, 1, sharding.group_of(dims[1]))
+    reg = sharding.Region("vocab")
+    if reg.n > 1:
+        local = tokens - reg.i * table.shape[0]
+        hit = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)] * hit[..., None]
+    else:
+        # gather rows first, cast after: the same values as casting the
+        # table
+        x = table[tokens]
+    x = reg.exit(x).to(torch.bfloat16)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.bfloat16,
                             device=x.device)
 
@@ -377,13 +440,18 @@ def _superblock(cfg: ArchConfig, pattern, blk, x, s, *, mode, caches, j,
     The stream is bf16, except after a float tree's cross attention: its
     projections take the raw weights (the reference passes the cross
     branch no weight hook), f32 masters give f32 products, and JAX
-    promotes ``x + yc`` and everything after it in the layer to f32."""
+    promotes ``x + yc`` and everything after it in the layer to f32.
+    Under a mesh that splits ``act_seq`` the stream holds this rank's
+    rows of the sequence: the norms run on them (their weights' gradients
+    summed over the sequence's group) and each mixer and FFN is a
+    tensor-parallel region between them."""
     new = {}
     for i, spec in enumerate(pattern):
         p = blk[f"l{i}"]
         c = None if caches is None else caches.get(f"l{i}")
         nc = new[f"l{i}"] = {}
-        hn = blocks.rmsnorm(s, p["norm1"], cfg.norm_eps).to(x.dtype)
+        hn = blocks.rmsnorm(s, sharding.seq_shared(p["norm1"]),
+                            cfg.norm_eps).to(x.dtype)
         if spec.mixer == "mamba":
             st = None if c is None else _index(c["mamba"], j)
             y, st_new = blocks.mamba2_layer(
@@ -408,7 +476,8 @@ def _superblock(cfg: ArchConfig, pattern, blk, x, s, *, mode, caches, j,
             x = s.to(torch.promote_types(x.dtype, yc.dtype))
         if spec.ffn is None:
             continue
-        h2 = blocks.rmsnorm(s, p["norm2"], cfg.norm_eps).to(x.dtype)
+        h2 = blocks.rmsnorm(s, sharding.seq_shared(p["norm2"]),
+                            cfg.norm_eps).to(x.dtype)
         if spec.ffn == "moe":
             y2 = blocks.moe_layer(p["ffn"], h2, cfg, effective_w=getw)
         else:
@@ -494,6 +563,12 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     Hkv, D)`` KV, for a cross layer its ``cross_kv`` ``(nsb, B, S_enc,
     Hkv, D)`` in the projections' dtype, and for a Mamba-2 layer its SSM
     state ``(nsb, B, H, P, N)`` and conv windows ``(nsb, B, K-1, C)``.
+    Under a mesh that splits a tensor-parallel, sequence or FSDP axis
+    (``sharding.tp_split``) only the training step of the dense, SSM and
+    MoE families is placed: ``mode="train"`` with ``logits_mode="hidden"``
+    gives this rank's rows of the batch, the whole sequence (gathered
+    once after the final norm); anything else raises a ValueError naming
+    ROADMAP section 1, items 2-3.
     A prefill given caches starts each Mamba-2 layer from their SSM
     state, as the JAX package does; a Mamba-2 layer the given tree lacks
     (a hybrid's paged prefill is handed only its KV pools) starts from
@@ -504,6 +579,13 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     does not run the encoder: the reference runs it over the step's one
     token and uses none of its output.
     """
+    if sharding.tp_split():
+        if mode != "train" or logits_mode != "hidden":
+            sharding.refuse_split(f"lm.forward(mode={mode!r}, "
+                                  f"logits_mode={logits_mode!r})")
+        if cfg.family not in ("dense", "ssm", "moe"):
+            sharding.refuse_split(f"the {cfg.family} family's training "
+                                  f"step")
     pattern = block_pattern(cfg)
     missing = [] if caches is None else [
         f"l{i}" for i in range(len(pattern)) if f"l{i}" not in caches]
@@ -536,9 +618,10 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
         # and their new (nsb, B, ...) states come back beside the pools
         caches = {**caches, **_stack([{ln: blk[ln] for ln in missing}
                                       for blk in out_caches])}
-    x = blocks.rmsnorm(s, params["final_norm"], cfg.norm_eps).to(x.dtype)
+    x = blocks.rmsnorm(s, sharding.seq_shared(params["final_norm"]),
+                       cfg.norm_eps).to(x.dtype)
     if logits_mode == "hidden":
-        return x, caches
+        return sharding.seq_gather(x), caches
     if logits_mode == "last":
         if last_pos is None:
             x = x[:, -1:, :]
@@ -556,26 +639,50 @@ LOSS_SEQ_CHUNKS = 8
 
 
 def loss_fn(cfg: ArchConfig, params, batch,
-            ctx: Optional[mps.SearchCtx] = None, lam: float = 0.0
-            ) -> torch.Tensor:
+            ctx: Optional[mps.SearchCtx] = None, lam: float = 0.0,
+            logical=None) -> torch.Tensor:
     """Mean next-token cross-entropy (+ ``lam * mps_size_cost`` under a
     ``SearchCtx``).  The logits are formed over ``LOSS_SEQ_CHUNKS``
     sequence chunks, each recomputed in the backward, so the f32 (B, S, V)
     logits never exist at once; the chunk sums are added in order, as the
-    reference does."""
+    reference does.
+
+    Under a mesh the head ``(w_embed, vocab)`` is gathered over the data
+    axes (FSDP, bf16) and keeps this rank's vocab columns: the
+    cross entropy is vocab-parallel (Megatron's): the logsumexp from the
+    group's MAX and its sum of exponentials, the target's logit from the
+    rank that holds it, every rank ending with the same loss.  ``logical``
+    (the tree's logical axes) goes to :func:`mps_size_cost`."""
     hidden, _ = forward(cfg, params, batch, mode="train", ctx=ctx,
                         logits_mode="hidden")
     targets = batch["targets"].long()
     head = params["lm_head"]["w"].to(torch.bfloat16)
+    dims = sharding.dim_axes("w_embed", "vocab")
+    if dims and dims[0]:
+        head = sharding.gather(head, 0, sharding.group_of(dims[0]))
+    vg = sharding.group_of(dims[1]) if dims else None
+    v_loc = head.shape[1]
+    lo = sharding.get_mesh().index(dims[1]) * v_loc if vg is not None else 0
 
     def chunk_nll(x_c, tgt_c):
         logits = torch.matmul(x_c, head)
         if cfg.final_softcap > 0:
             logits = blocks.softcap(logits, cfg.final_softcap)
         logits = logits.float()
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = torch.take_along_dim(logits, tgt_c[..., None], dim=-1)[..., 0]
-        return torch.sum(logz - tgt)
+        if vg is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            tgt = torch.take_along_dim(logits, tgt_c[..., None],
+                                       dim=-1)[..., 0]
+            return torch.sum(logz - tgt)
+        m = sharding.all_reduce_max(logits.detach().amax(dim=-1), vg)
+        se = sharding.reduce_from(torch.sum(torch.exp(
+            logits - m[..., None]), dim=-1), vg)
+        logz = m + torch.log(se)
+        local = tgt_c - lo
+        hit = (local >= 0) & (local < v_loc)
+        tgt = torch.take_along_dim(logits, local.clamp(0, v_loc - 1)[
+            ..., None], dim=-1)[..., 0] * hit
+        return torch.sum(logz - sharding.reduce_from(tgt, vg))
 
     b, s, _ = hidden.shape
     nc = LOSS_SEQ_CHUNKS if s % LOSS_SEQ_CHUNKS == 0 else 1
@@ -586,37 +693,50 @@ def loss_fn(cfg: ArchConfig, params, batch,
                                    use_reentrant=False)
     task = total / float(b * s)
     if ctx is not None and lam > 0.0:
-        task = task + lam * mps_size_cost(cfg, params, ctx)
+        task = task + lam * mps_size_cost(cfg, params, ctx, logical)
     return task
 
 
-def _gamma_nodes(tree):
-    """Every ``{"w", "gamma", ...}`` node, in the reference's order."""
+def _gamma_nodes(tree, axes=None):
+    """Every ``{"w", "gamma", ...}`` node, in the reference's order; with
+    ``axes`` (the tree's logical axes) each beside its weight's axes."""
     if not isinstance(tree, dict):
         return
     if "w" in tree and "gamma" in tree:
-        yield tree
+        yield tree if axes is None else (tree, axes["w"])
         return
     for k in sorted(tree):
-        yield from _gamma_nodes(tree[k])
+        yield from _gamma_nodes(tree[k], None if axes is None else axes[k])
 
 
-def mps_size_cost(cfg: ArchConfig, params, ctx: mps.SearchCtx
-                  ) -> torch.Tensor:
+def mps_size_cost(cfg: ArchConfig, params, ctx: mps.SearchCtx,
+                  logical=None) -> torch.Tensor:
     """Differentiable expected size in bytes over every gamma-carrying
     weight (paper Eq. 9 with C_in fixed per super-block: the residual
-    stream keeps d_model; pruning shows through the 0-bit channels).  An
-    expert bank's C_in is ``E * K`` with E all ``cfg.n_experts``, whether
-    the tree holds the whole bank or a rank's shard of it: its one gamma
-    prices every expert's copy of a channel."""
+    stream keeps d_model; pruning shows through the 0-bit channels).  C_in
+    is the whole weight's, whether the tree holds it or a rank's shard
+    (under a mesh each split dimension counts whole); an expert bank's is
+    ``E * K`` with E all ``cfg.n_experts``: its one gamma prices every
+    expert's copy of a channel.  The gammas are whole on every rank.
+    ``logical``, the tree's logical axes, is read under a mesh only (built
+    there when not given)."""
+    mesh = sharding.get_mesh()
+    if mesh is None:
+        nodes = ((node, None) for node in _gamma_nodes(params))
+    else:
+        nodes = _gamma_nodes(params, logical or logical_axes(cfg, True))
     total = None
-    for node in _gamma_nodes(params):
+    for node, axes in nodes:
         w, gm = node["w"], node["gamma"]
-        cin = math.prod(w.shape[:-1])
+        shape = list(w.shape)
+        if mesh is not None:
+            for d, ax in enumerate(sharding.dim_axes(*axes)):
+                shape[d] *= mesh.size(ax)
+        elif w.dim() - gm.dim() + 2 == 3:      # an expert bank (E, K, C)
+            shape[-3] = cfg.n_experts
+        cin = math.prod(shape[:-1])
         if gm.dim() == 3:          # stacked over super-blocks
             cin //= gm.shape[0]
-        if w.dim() - gm.dim() + 2 == 3:    # an expert bank (E, K, C_out)
-            cin = cin // w.shape[-3] * cfg.n_experts
         eb = mps.expected_bits(gm, cfg.mps_precisions, ctx)
         term = torch.sum(eb) * cin / 8.0
         total = term if total is None else total + term

@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.nn import quantized as nnq
@@ -27,6 +28,35 @@ __all__ = ["linear", "rmsnorm", "rope", "softcap", "_repeat_kv",
            "flash_attention", "decode_attention", "paged_decode_attention",
            "paged_prefill_attention", "attention_layer", "ffn_swiglu",
            "moe_route", "moe_layer", "silu", "mamba2_layer"]
+
+
+# the logical axes of each projection's weight (``lm._*_params`` without
+# the leading ``layers``): what a weight provider places under a mesh
+AXES = {"wq": ("w_embed", "heads_flat"), "wk": ("w_embed", "kv_flat"),
+        "wv": ("w_embed", "kv_flat"), "wo": ("heads_flat", "w_embed"),
+        "w_gate": ("w_embed", "mlp"), "w_up": ("w_embed", "mlp"),
+        "w_down": ("mlp", "w_embed"),
+        "bank_gate": ("experts", "w_embed", None),
+        "bank_up": ("experts", "w_embed", None),
+        "bank_down": ("experts", None, "w_embed"),
+        "in_z": ("w_embed", "ssm_inner"), "in_x": ("w_embed", "ssm_inner"),
+        "in_b": ("w_embed", None), "in_c": ("w_embed", None),
+        "in_dt": ("w_embed", None), "out_proj": ("ssm_inner", "w_embed")}
+
+
+def _raw(pp, axes=None, region=None):
+    """The weight provider of a layer given none: the weight as it is."""
+    return pp["w"]
+
+
+def _weight(getw, pp, name, region):
+    """Projection ``name``'s weight from the provider: ``getw(pp)`` with
+    no mesh installed, the reference's ``effective_w(pp)``; under one
+    ``getw(pp, AXES[name], region)``, which places this rank's part
+    (``models.lm._make_getw``)."""
+    if sharding.get_mesh() is None:
+        return getw(pp)
+    return getw(pp, AXES[name], region)
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
@@ -42,11 +72,19 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     return xla.matmul(x, w)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
-            ) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            group=None, n: int = 0) -> torch.Tensor:
+    """RMSNorm over the last axis.  ``group``: the last axis is split over
+    it, ``n`` values in all; the sum of squares is all-reduced
+    (``sharding.sum_shared``: every rank goes on with its own part)."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    if group is None:
+        ms = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        ms = sharding.sum_shared(torch.sum(x * x, dim=-1, keepdim=True),
+                                 group) / n
+    x = x * torch.rsqrt(ms + eps)
     return (x * (1.0 + w.float())).to(dt)
 
 
@@ -107,15 +145,41 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
     ``cross`` takes no rope: train and prefill attend over the keys and
     values of ``kv_input`` (the encoder's output; prefill returns them as
     the new cache), decode over the cached ones (every position).
+
+    Under a mesh that splits ``heads_flat`` (the training step) the layer
+    is a tensor-parallel region (``sharding.Region``): ``wq`` is split by
+    column into this rank's ``h / tp`` query heads, ``wk`` / ``wv`` are
+    whole (``kv_flat`` is in no rule) and sliced to the KV heads those
+    query heads read, ``wo`` is split by row and its partial output
+    leaves the region summed; ``x`` and ``y`` are the stream's rows
+    (the sequence split over ``act_seq``).  ``effective_w(pp, axes,
+    region)`` gives each weight as this rank uses it.
     """
     if kind not in ("full", "local", "chunked", "bidir", "cross"):
         raise ValueError(f"unknown attention kind {kind!r}")
+    reg = sharding.Region("heads_flat")
+    x = reg.enter(x)
     b, s, _ = x.shape
     h, hkv, hd = cfg.h_eff, cfg.hkv_eff, cfg.head_dim
-    getw = effective_w or (lambda pp: pp["w"])
-    q = linear(x, getw(p["wq"])).reshape(b, s, h, hd)
+    getw = effective_w or _raw
+    # this rank's query heads and the KV heads they read (GQA)
+    h, q0 = h // reg.n, reg.i * (h // reg.n)
+    g = cfg.h_eff // hkv
+    if cfg.h_eff % reg.n or (h % g if h >= g else g % h):
+        raise ValueError(f"{cfg.name}: {cfg.h_eff} query heads in groups "
+                         f"of {g} over {reg.n} ranks")
+    kv0, hkv = q0 // g, max(h // g, 1)
+    q = linear(x, _weight(getw, p["wq"], "wq", reg)).reshape(b, s, h, hd)
+    q_norm = reg.shared(p["q_norm"]) if cfg.qk_norm else None
+    k_norm = reg.shared(p["k_norm"]) if cfg.qk_norm else None
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        q = rmsnorm(q, q_norm, cfg.norm_eps)
+
+    def kv_w(name):
+        w = _weight(getw, p[name], name, reg)
+        if hkv == cfg.hkv_eff:
+            return w
+        return w[:, kv0 * hd:(kv0 + hkv) * hd]
     if kind == "cross":
         if mode == "decode":
             # the encoder's K/V, cached at prefill; the step's own
@@ -125,21 +189,22 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
                                    cap=cfg.attn_softcap)
         elif mode in ("prefill", "train"):
             skv = kv_input.shape[1]
-            kk = linear(kv_input, getw(p["wk"])).reshape(b, skv, hkv, hd)
-            vv = linear(kv_input, getw(p["wv"])).reshape(b, skv, hkv, hd)
+            kk = linear(kv_input, kv_w("wk")).reshape(b, skv, hkv, hd)
+            vv = linear(kv_input, kv_w("wv")).reshape(b, skv, hkv, hd)
             if cfg.qk_norm:
-                kk = rmsnorm(kk, p["k_norm"], cfg.norm_eps)
+                kk = rmsnorm(kk, k_norm, cfg.norm_eps)
             out = flash_attention(q, kk, vv, causal=False,
                                   cap=cfg.attn_softcap)
             new_cache = {"k": kk, "v": vv} if mode == "prefill" else None
         else:
             raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
                              f"got {mode!r}")
-        return linear(out.reshape(b, s, h * hd), getw(p["wo"])), new_cache
-    kk = linear(x, getw(p["wk"])).reshape(b, s, hkv, hd)
-    vv = linear(x, getw(p["wv"])).reshape(b, s, hkv, hd)
+        return reg.exit(linear(out.reshape(b, s, h * hd),
+                               _weight(getw, p["wo"], "wo", reg))), new_cache
+    kk = linear(x, kv_w("wk")).reshape(b, s, hkv, hd)
+    vv = linear(x, kv_w("wv")).reshape(b, s, hkv, hd)
     if cfg.qk_norm:
-        kk = rmsnorm(kk, p["k_norm"], cfg.norm_eps)
+        kk = rmsnorm(kk, k_norm, cfg.norm_eps)
     window = cfg.local_window if kind in ("local", "chunked") else 0
     chunked = kind == "chunked"
     dev = x.device
@@ -207,8 +272,8 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "
                          f"{mode!r}")
 
-    y = linear(out.reshape(b, s, h * hd), getw(p["wo"]))
-    return y, new_cache
+    y = linear(out.reshape(b, s, h * hd), _weight(getw, p["wo"], "wo", reg))
+    return reg.exit(y), new_cache
 
 
 class _Silu(torch.autograd.Function):
@@ -280,10 +345,15 @@ _gate = _Gate.apply
 
 
 def ffn_swiglu(p: dict, x: torch.Tensor, effective_w=None) -> torch.Tensor:
-    getw = effective_w or (lambda pp: pp["w"])
-    g = linear(x, getw(p["w_gate"]))
-    u = linear(x, getw(p["w_up"]))
-    return linear(silu(g) * u, getw(p["w_down"]))
+    """SwiGLU; under a mesh that splits ``mlp`` a tensor-parallel region:
+    ``w_gate`` / ``w_up`` split by column, ``w_down`` by row."""
+    getw = effective_w or _raw
+    reg = sharding.Region("mlp")
+    x = reg.enter(x)
+    g = linear(x, _weight(getw, p["w_gate"], "w_gate", reg))
+    u = linear(x, _weight(getw, p["w_up"], "w_up", reg))
+    return reg.exit(linear(silu(g) * u,
+                           _weight(getw, p["w_down"], "w_down", reg)))
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -361,30 +431,31 @@ def moe_layer(p: dict, x: torch.Tensor, cfg, effective_w=None):
 
     With a mesh installed whose ``experts`` axis is split ``tp > 1`` ways
     (``distributed.sharding``), the banks are this rank's ``E / tp``
-    experts (the reference's ``shard_map`` branch): ``x`` and the router
-    enter through the copy into the expert group, every token is routed
-    over all E experts, the local ones run, and the float32 partial sums
-    are all-reduced over the group before the cast.  Under a search
-    context the provider gives each bank shard the whole bank's Eq. 5
-    weight (``models.lm._make_getw``).  With ``cfg.dense_residual`` the
-    shared SwiGLU FFN is added, whole on every rank."""
-    from repro_torch.distributed import sharding
-    getw = effective_w or (lambda pp: pp["w"])
-    b, s, dm = x.shape
+    experts (the reference's ``shard_map`` branch), a tensor-parallel
+    region (``sharding.Region``): ``x`` enters it (through the copy into
+    the expert group, or gathered along the sequence where ``act_seq``
+    splits it), the router through the copy, every token is routed over
+    all E experts, the local ones run, and the float32 partial sums
+    leave it summed before the cast.  The capacity counts a data shard's
+    tokens, the whole sequence.  Under a search context the provider
+    gives each bank shard the whole bank's Eq. 5 weight
+    (``models.lm._make_getw``).  With ``cfg.dense_residual`` the shared
+    SwiGLU FFN is added (:func:`ffn_swiglu`, its own region)."""
+    getw = effective_w or _raw
+    reg = sharding.Region("experts")
+    xf = reg.enter(x)
+    b, s, dm = xf.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = max(1, int(math.ceil(b * s * k * cfg.capacity_factor / e)))
-    group = sharding.axis_group("experts")
-    tp = sharding.extent("experts")
-    e_loc = e // tp
-    banks = [getw(p[n]) for n in ("w_gate", "w_up", "w_down")]
-    if e % tp or banks[0].shape[0] != e_loc:
-        raise ValueError(f"moe_layer: {e} experts over {tp} ranks, the "
+    e_loc = e // reg.n
+    banks = [_weight(getw, p[n], "bank" + n[1:], reg)
+             for n in ("w_gate", "w_up", "w_down")]
+    if e % reg.n or banks[0].shape[0] != e_loc:
+        raise ValueError(f"moe_layer: {e} experts over {reg.n} ranks, the "
                          f"banks hold {banks[0].shape[0]}")
-    y = _moe_local(sharding.copy_to(x, group).reshape(b * s, dm),
-                   sharding.copy_to(p["router"]["w"], group), *banks,
-                   top_k=k, capacity=cap,
-                   e_offset=sharding.axis_index("experts") * e_loc)
-    out = sharding.reduce_from(y, group).to(x.dtype).reshape(b, s, dm)
+    y = _moe_local(xf.reshape(b * s, dm), reg.shared(p["router"]["w"]),
+                   *banks, top_k=k, capacity=cap, e_offset=reg.i * e_loc)
+    out = reg.exit(y.reshape(b, s, dm)).to(x.dtype)
     if cfg.dense_residual:
         out = out + ffn_swiglu(p["shared"], x, effective_w)
     return out
@@ -476,27 +547,47 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
     (``kernels/ssd_scan``); (c) each chunk's output from the state before
     it.  The JAX package runs the same recurrence inline, one chunk per
     ``lax.scan`` step.
+
+    Under a mesh that splits ``ssm_inner`` (the training step) the layer
+    is a tensor-parallel region (``sharding.Region``) over ``H / tp``
+    heads a rank: ``in_z``, ``in_x``, ``conv_x``, ``ssm_norm`` and
+    ``out_proj`` are split, ``in_b``, ``in_c``, ``in_dt``, the B / C
+    conv kernels and the per-head vectors whole and used in part (their
+    gradients summed over the region; ``in_dt`` and the vectors sliced
+    to the local heads), the norm's sum of squares all-reduced over the
+    whole ``d_inner``, and K5 runs on the local heads.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "
                          f"{mode!r}")
-    getw = effective_w or (lambda pp: pp["w"])
+    getw = effective_w or _raw
+    reg = sharding.Region("ssm_inner")
+    x = reg.enter(x)
     b, s, _ = x.shape
-    di, n, hd, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim, \
-        cfg.ssm_heads
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    # this rank's heads and their d_inner channels
+    if cfg.ssm_heads % reg.n:
+        raise ValueError(f"{cfg.name}: {cfg.ssm_heads} SSM heads over "
+                         f"{reg.n} ranks")
+    nh = cfg.ssm_heads // reg.n
+    di, heads = nh * hd, slice(reg.i * nh, (reg.i + 1) * nh)
 
-    z = linear(x, getw(p["in_z"]))                          # (B, S, di)
-    xs_pre = linear(x, getw(p["in_x"]))                     # (B, S, di)
-    bb_pre = linear(x, getw(p["in_b"]))                     # (B, S, N)
-    cc_pre = linear(x, getw(p["in_c"]))                     # (B, S, N)
-    dt = linear(x, getw(p["in_dt"]))                        # (B, S, H)
+    def w(name):
+        return _weight(getw, p[name], name, reg)
+
+    z = linear(x, w("in_z"))                                # (B, S, di)
+    xs_pre = linear(x, w("in_x"))                           # (B, S, di)
+    bb_pre = linear(x, w("in_b"))                           # (B, S, N)
+    cc_pre = linear(x, w("in_c"))                           # (B, S, N)
+    w_dt = w("in_dt")
+    dt = linear(x, w_dt if reg.n == 1 else w_dt[:, heads])  # (B, S, H)
 
     cst = None if state is None else state["conv"]
     xs_pre, ncx = _causal_conv1d(xs_pre, p["conv_x"], mode,
                                  None if cst is None else cst["x"])
-    bb_pre, ncb = _causal_conv1d(bb_pre, p["conv_b"], mode,
+    bb_pre, ncb = _causal_conv1d(bb_pre, reg.shared(p["conv_b"]), mode,
                                  None if cst is None else cst["b"])
-    cc_pre, ncc = _causal_conv1d(cc_pre, p["conv_c"], mode,
+    cc_pre, ncc = _causal_conv1d(cc_pre, reg.shared(p["conv_c"]), mode,
                                  None if cst is None else cst["c"])
     new_conv = {"x": ncx, "b": ncb, "c": ncc}
     # the JAX package reshapes xs between silu and the convert, and then
@@ -508,10 +599,12 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
     diff = torch.is_grad_enabled() and bb_pre.requires_grad
     bb_f = silu(bb_pre).float() if diff else silu_f32(bb_pre)   # (B, S, N)
     cc_f = silu(cc_pre).float() if diff else silu_f32(cc_pre)   # (B, S, N)
-    dt = _softplus(dt + xla.broadcast(p["dt_bias"], dt.shape)).float()
-    a = -torch.exp(p["a_log"].float())                      # (H,)
+    dt_bias, a_log, d_skip = (reg.shared(p[k])[heads]
+                              for k in ("dt_bias", "a_log", "d_skip"))
+    dt = _softplus(dt + xla.broadcast(dt_bias, dt.shape)).float()
+    a = -torch.exp(a_log.float())                           # (H,)
     dta = dt * a                                            # (B, S, H) <= 0
-    d_skip = p["d_skip"].float()[:, None]                   # (H, 1)
+    d_skip = d_skip.float()[:, None]                        # (H, 1)
 
     if mode == "decode":
         dec = torch.exp(dta[:, 0])                          # (B, H)
@@ -562,8 +655,9 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
         y = (y + d_skip * xs_f).reshape(b, s, di)
 
     y = _gate(y, silu(z))
-    y = rmsnorm(y, p["ssm_norm"], cfg.norm_eps).to(x.dtype)
-    out = linear(y, getw(p["out_proj"]))
+    y = rmsnorm(y, p["ssm_norm"], cfg.norm_eps, reg.split,
+                cfg.d_inner).to(x.dtype)
+    out = reg.exit(linear(y, w("out_proj")))
     if mode == "train":
         return out, None
     return out, {"ssm": s_new, "conv": new_conv}

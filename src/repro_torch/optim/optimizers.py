@@ -5,7 +5,10 @@ and a new state, as the JAX package's does; nothing is updated in place.
 ``adam_int8`` keeps its moments int8 with the parameter's shape.
 ``state_logical_axes`` gives the state's logical axes
 (``distributed.sharding``): a rank updates its shard of a split leaf
-(an expert bank's experts) with the same per-row blocks as the whole.
+with the same per-row blocks as the whole; where a leaf's last axis is
+split (``update``'s ``axes``: the parameters' logical axes), a row's
+int8 scale is the maximum over the ranks that hold its parts, as the
+reference's row maximum is.  ``sgd`` and ``adam`` ignore ``axes``.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from repro_torch.core import quantizers
 
 class Optimizer(NamedTuple):
     init: Callable
-    update: Callable   # (grads, state, params, step) -> (new_params, state)
+    # (grads, state, params, step, axes=None) -> (new_params, state)
+    update: Callable
 
 
 def tree_map(f, *trees):
@@ -56,7 +60,7 @@ def sgd(lr: Callable | float, momentum: float = 0.0,
         return tree_map(torch.zeros_like, params)
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, axes=None):
         lr_t = lr_fn(step)
         if weight_decay:
             grads = tree_map(lambda g, p: g + weight_decay * p, grads,
@@ -84,7 +88,7 @@ def adam(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
                 "v": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, axes=None):
         t = step + 1
         lr_t = lr_fn(step)
         m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
@@ -114,13 +118,27 @@ def adam(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
 # f32(1/127) that the reference computes under ``jax.jit``.
 
 
-def _q8_row(x: torch.Tensor):
+def _row_group(axes):
+    """The process group over which the last axis of a parameter with
+    logical axes ``axes`` is split (None when whole or not given)."""
+    if not axes:
+        return None
+    from repro_torch.distributed import sharding
+    dims = sharding.dim_axes(*axes)
+    return sharding.group_of(dims[-1]) if dims else None
+
+
+def _q8_row(x: torch.Tensor, group=None):
     inv = quantizers.recip(127.0, x)
     if x.dim() == 0:
         scale = torch.clamp_min(torch.abs(x), 1e-12) * inv
         q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
         return q, scale.float()
-    scale = torch.amax(torch.abs(x), dim=-1, keepdim=True) * inv
+    top = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    if group is not None:
+        from repro_torch.distributed import sharding
+        top = sharding.all_reduce_max(top, group)
+    scale = top * inv
     scale = torch.clamp_min(scale, 1e-12)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale[..., 0].float()
@@ -157,11 +175,11 @@ def adam_int8(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
         return tree_map(leaf, params)
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, axes=None):
         t = step + 1
         lr_t = lr_fn(step)
 
-        def leaf(p, g, s):
+        def leaf(p, g, s, group):
             bc1 = 1 - _f32(b1, p) ** t
             bc2 = 1 - _f32(b2, p) ** t
             g = g.float()
@@ -174,13 +192,14 @@ def adam_int8(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
             if weight_decay:
                 upd = upd + weight_decay * p.float()
             new_p = (p.float() - lr_t * upd).to(p.dtype)
-            mq, ms = _q8_row(m)
-            vq, vs = _q8_row(torch.sqrt(v))
+            mq, ms = _q8_row(m, group)
+            vq, vs = _q8_row(torch.sqrt(v), group)
             return new_p, {"mq": mq, "ms": ms, "vq": vq, "vs": vs}
 
-        def blocked(p, g, s):
+        def blocked(p, g, s, a):
+            group = _row_group(a)
             if p.dim() < 2 or p.numel() <= UPDATE_BLOCK:
-                return leaf(p, g, s)
+                return leaf(p, g, s, group)
             n = p.shape[-1]
             rows = max(1, UPDATE_BLOCK // n)
             flat = [t.reshape(-1, n) for t in (p, g, s["mq"], s["vq"])]
@@ -191,7 +210,7 @@ def adam_int8(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
                 r = slice(i, i + rows)
                 new_p, st = leaf(flat[0][r], flat[1][r], {
                     "mq": flat[2][r], "ms": scales[0][r],
-                    "vq": flat[3][r], "vs": scales[1][r]})
+                    "vq": flat[3][r], "vs": scales[1][r]}, group)
                 out[0][r], out[1][r], out[2][r] = new_p, st["mq"], st["vq"]
                 out_s[0][r], out_s[1][r] = st["ms"], st["vs"]
             return out[0].reshape(p.shape), {
@@ -199,14 +218,15 @@ def adam_int8(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
                     s["ms"].shape), "vq": out[2].reshape(p.shape),
                 "vs": out_s[1].reshape(s["vs"].shape)}
 
-        def walk(p, g, s):     # the state holds a dict per parameter leaf
+        def walk(p, g, s, a):  # the state: a dict per parameter leaf
             if not isinstance(p, dict):
-                return blocked(p, g, s)
-            outs = {k: walk(p[k], g[k], s[k]) for k in p}
+                return blocked(p, g, s, a)
+            outs = {k: walk(p[k], g[k], s[k], None if a is None else a[k])
+                    for k in p}
             return ({k: o[0] for k, o in outs.items()},
                     {k: o[1] for k, o in outs.items()})
 
-        return walk(params, grads, state)
+        return walk(params, grads, state, axes)
 
     return Optimizer(init, update)
 
@@ -283,7 +303,7 @@ def multi_optimizer(partition_fn, optimizers: dict) -> Optimizer:
             state[key] = opt.init(sub) if sub is not None else ()
         return state
 
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, axes=None):
         labels = tree_map_with_path(partition_fn, params)
         new_params = params
         new_states = {}
@@ -293,8 +313,9 @@ def multi_optimizer(partition_fn, optimizers: dict) -> Optimizer:
                 new_states[key] = state[key]
                 continue
             sub_g = _select(grads, labels, key)
+            sub_a = None if axes is None else _select(axes, labels, key)
             p_upd, new_states[key] = opt.update(sub_g, state[key], sub_p,
-                                                step)
+                                                step, sub_a)
             new_params = _merge(new_params, p_upd)
         return new_params, new_states
 

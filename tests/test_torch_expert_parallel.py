@@ -2,7 +2,10 @@
 ``distributed/sharding.py``) on spawned gloo ranks on the CPU, against
 the port's single-device layer and the JAX package's ``shard_map``.
 
-For each registry MoE arch's smoke layer (``torch_ep_cases``: arctic
+The ranks install the rule overrides that unmap every axis but
+``batch`` and ``experts`` (``torch_ep_cases.EP_RULES``): the
+expert-parallel layout alone.  For each registry MoE arch's smoke layer
+(``torch_ep_cases``: arctic
 top-2 with the shared FFN, scout top-1 with it, jamba's MoE slot top-2
 without it), weights in float32 and bf16, on meshes ``(1, 2)``, ``(1,
 4)`` and ``(2, 2)`` (one spawn of gloo ranks a mesh, every case in it):
@@ -94,7 +97,7 @@ def _rank_cases(shape):
         xb = torch.tensor(x).to(torch.bfloat16)
         ctt = torch.tensor(ct)
         res = {}
-        with sharding.use_mesh(mesh):
+        with sharding.use_mesh(mesh, ec.EP_RULES):
             d, dp = sharding.axis_index("batch"), sharding.extent("batch")
             rows = slice(d * ec.B // dp, (d + 1) * ec.B // dp)
             shard = steps.shard_tree(whole, ec.logical(arch))
@@ -112,7 +115,7 @@ def _rank_cases(shape):
                 p = {k: _leaf_grad(v) for k, v in p.items()}
                 xi = xb[rows].clone().requires_grad_()
                 try:
-                    with sharding.use_mesh(mesh) if where == "ep" else \
+                    with sharding.use_mesh(mesh, ec.EP_RULES) if where == "ep" else \
                             contextlib.nullcontext():
                         y = blocks.moe_layer(p, xi, cfg, effective_w=(
                             lm._make_getw(cfg, ctx)))

@@ -76,7 +76,8 @@ def _leaves(tree, path=""):
 
 def test_default_rules_match_jax():
     assert tsh.DEFAULT_RULES == jsh.DEFAULT_RULES
-    assert tsh.HELD == ("batch", "experts")
+    # every tensor-parallel axis is a mapped one
+    assert all(tsh.DEFAULT_RULES[a] == "model" for a in tsh.TP_AXES)
 
 
 @pytest.mark.parametrize("kind", ["2d", "3d"])
@@ -158,18 +159,52 @@ def _leaves_t(tree, path=""):
     return {path[:-1]: tree}
 
 
-def test_held_spec_places_batch_and_experts_only():
-    """Of a bank's axes the port places ``experts``; of a batch's,
-    ``batch``; ``w_embed`` (FSDP), ``mlp`` and the heads stay whole."""
-    with tsh.use_mesh(_tmesh("2d")):
-        assert tsh.spec("experts", "w_embed", None) == ("model", "data",
-                                                        None)
-        assert tsh.held_spec("experts", "w_embed", None) == ("model", None,
-                                                             None)
-        assert tsh.held_spec("layers", "w_embed", "mlp") == (None,) * 3
-        assert tsh.held_spec("batch", None) == ("data", None)
-    with tsh.use_mesh(_tmesh("3d")):
-        assert tsh.held_spec("batch", None) == (("pod", "data"), None)
+class _Grid:
+    """A mesh's axis extents without ranks: what a placement reads."""
+
+    def __init__(self, kind):
+        self.axis_names = AXES[kind]
+        self.shape = {a: 2 for a in self.axis_names}
+
+    def size(self, axes):
+        return int(np.prod([self.shape[a] for a in axes]))
+
+
+@pytest.mark.parametrize("kind", sorted(AXES))
+def test_placements_follow_the_spec_for_every_mapped_axis(kind):
+    """Every leaf of every registry smoke arch's search tree (and its
+    ``adam_int8`` state) is cut along exactly the dimensions whose
+    logical axes the reference's train rules map, over the JAX package's
+    mesh axes for them (``steps._placed``): FSDP, tensor and expert
+    parallelism alike; under the overrides that unmap all but ``batch``
+    and ``experts``, along the experts alone."""
+    train = jbase.ShapeConfig("train", "train", 32, 4)
+    for arch in [a for a in ARCHS if a.endswith("-smoke")]:
+        rules = dict(jreg.RULE_OVERRIDES.get(arch[:-len("-smoke")], {}))
+        rules.update(jsteps.shape_rules(train))
+        logical = tlm.logical_axes(treg.get(arch), mps_on=True)
+        trees = {"p": logical,
+                 "o": topt.state_logical_axes("adam_int8", logical)}
+        for tree in trees.values():
+            leaves = _leaves_t(tree)
+            for layout in ("full", "ep"):
+                over = dict(rules)
+                if layout == "ep":
+                    over.update({a: None for a in tsh.DEFAULT_RULES
+                                 if a not in ("batch", "experts")})
+                with jsh.use_mesh(_jmesh(kind), over), \
+                        tsh.use_mesh(_Grid(kind), over):
+                    for key, axes in leaves.items():
+                        meta = torch.empty((2,) * len(axes), device="meta")
+                        got = tsteps._placed(axes, meta)
+                        want = [(i, tuple(e) if isinstance(e, tuple) else (
+                            e,)) for i, e in enumerate(jsh.spec(*axes))
+                            if e is not None]
+                        assert [(i, tuple(a)) for i, a in got] == want, (
+                            arch, key, layout)
+                        if layout == "ep":
+                            assert all(axes[i] in ("experts", "batch")
+                                       for i, _ in got), (arch, key)
 
 
 def test_divisible_matches_jax():

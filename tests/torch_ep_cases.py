@@ -14,7 +14,14 @@ import torch
 
 from repro_torch.bridge import tree_to_numpy
 from repro_torch.configs import registry as treg
+from repro_torch.distributed import sharding as tsh
 from repro_torch.models import lm as tlm
+
+# the rule overrides that unmap every axis but ``batch`` and ``experts``:
+# the expert-parallel layout alone, which the expert-parallel suites hold
+# (the reference's override mechanism, ``sharding.use_mesh(mesh, rules)``)
+EP_RULES = {a: None for a in tsh.DEFAULT_RULES
+            if a not in ("batch", "experts")}
 
 SLOT = {"arctic-480b-smoke": "l0", "llama4-scout-17b-a16e-smoke": "l0",
         "jamba-1.5-large-398b-smoke": "l1"}

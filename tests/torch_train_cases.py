@@ -79,8 +79,9 @@ def _capturing(make, inner):
     def init(params):
         return {"inner": inner.init(params), "grads": None}
 
-    def update(grads, state, params, step):
-        new_p, new_s = inner.update(grads, state["inner"], params, step)
+    def update(grads, state, params, step, *axes):
+        new_p, new_s = inner.update(grads, state["inner"], params, step,
+                                    *axes)
         return new_p, {"inner": new_s, "grads": grads}
 
     return make(init, update)
