@@ -48,11 +48,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
               counts read around each run; 4 sampled requests (each draw
               held against the CPU's, one stream batched == solo); paged
               vs dense prefill logits agree.
-6. mamba   -- path 3: mamba2-780m at full width (random weights, seed 0)
-              served through a synthetic mixed-precision plan on the paged
+6. mamba   -- path 3: mamba2-780m at full width, 16 of 48 layers
+              (MAMBA_SERVE_LAYERS; random weights, seed 0) served
+              through a synthetic mixed-precision plan on the paged
               backend (8 greedy requests of 33-2048 tokens, chunks 256,
               150, 1 and 11), then float on the dense backend (4
-              requests); K5 launched 48 x admissions, K1 at least 6 x 48 x
+              requests); K5 launched 16 x admissions, K1 at least 6 x 16 x
               (decode steps + admissions) and 0 when float, no attention
               kernel; finite logits; two requests served alone give their
               batched streams; one full-width layer's prefill on the card
@@ -182,7 +183,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
               D = 128 (lens up to 4116; 4100 rows padded to 4112) against
               their plain versions, timed beside SDPA.
 15. fleet   -- path 10: ``launch.fleet.build_fleet`` serving full-width
-              llama3.2-1b (seed-0 weights, one parameter tree) from four
+              llama3.2-1b at 4 of 16 layers (FLEET_LAYERS; seed-0
+              weights, one parameter tree) from four
               replicas on the card, tiers float / w8 / mixed / w2 (paged,
               page 16, 8 slots, max_len 1024), behind pareto_degrade: a
               Poisson trace of 32 requests (prompts 16-512, 16-32 greedy
@@ -286,7 +288,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
               rank's K1 / K2 / K3 launches the single run's.  (b) arctic
               cut to 8 experts on mesh (2, 2), 4 a model rank, under the
               search (bf16 masters, adam_int8 at 3e-4, 4 micro-batches,
-              remat), 3 steps of 8 x 256 tokens: step 0's data-shard
+              remat), 2 steps of 8 x 256 tokens: step 0's data-shard
               losses bitwise against one process run on each shard alone
               (same t_loc), its clipped gradients within EP_TRAIN_GRAD
               relative L2 a leaf, each bank's absmax on every rank
@@ -313,7 +315,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
               on mesh (2, 2), (b) mamba2-780m at published widths, 8 of
               48 layers, on mesh (1, 4) (12 of 48 heads a rank): each
               trained under the search (float32 masters, adam at 3e-4,
-              remat), 3 steps of 4 x 256 tokens; step 0's loss within
+              remat), 2 steps of 4 x 256 tokens; step 0's loss within
               TP_LOSS and its clipped gradients within TP_GRAD relative
               L2 a leaf of the port's (1, 1) step on the card on the
               same parameters and data (run after the ranks exit);
@@ -324,8 +326,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
               collectives' count and wall ms by kind, the card's busy
               share over the last step (every rank profiled) and peak
               memory a rank.
-20. report -- one JSON line of kernels (with each kernel's launches on
-              paths 8 to 14), the card's name and power limit, and last
+20. serve-mesh -- path 15: the prefill and decode placements
+              (``launch/steps`` under ``shape_rules``, the split dense
+              cache and the merged attention partials of
+              ``nn/blocks.attention_layer``, Mamba-2 on its local heads)
+              on four processes sharing the card over gloo, each run
+              first on one process (the (1, 1) run, whose greedy inputs
+              the ranks are then fed, and the split-K witness).  (a)
+              llama3.2-1b at published widths, 4 of 16 layers, on (2,
+              2): prefill 8 x 1024 tokens (FSDP over data, the sequence and
+              the cache over model), the cache copied into 2048
+              positions, 8 decode steps at batch 8; (b) llama3.2-1b at
+              batch 1 under the long_500k rules on (2, 2), 4 of 16
+              layers: a 32768-position cache from a seeded generator
+              (8192 a rank), 8 decode steps at 32760-32767 (only the
+              last rank writes); (c) mamba2-780m at 8 of 48 layers on (1, 4):
+              prefill 4 x 2048 (K5 on 12 heads a rank), 16 decode steps.
+              Each against its (1, 1) run: logits and gathered caches
+              within SM_LOGITS / SM_CACHE relative L2, argmax agreement
+              at least SM_ARGMAX; every rank's gathered results the
+              same; K5 launched once a layer a rank; step ms,
+              collectives, busy share (over the latest of the last
+              SM_PROFILED decode steps, each profiled alone, whose trace
+              holds every launch record) and peak memory a rank.  (d)
+              the dry-run (``launch.dryrun``) on 256 fake ranks, in two
+              background processes beside (a)-(c), stopped while the
+              ranks profile: llama3.2-1b
+              prefill_32k and decode_32k, mamba2-780m long_500k and
+              train_4k --search, each cell ok, its roofline printed.
+21. report -- one JSON line of kernels (with each kernel's launches on
+              paths 8 to 15), the card's name and power limit, and last
               the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -2114,14 +2144,21 @@ def phase_mamba_k1(p_dev, dev):
     return err
 
 
+# path 3's depth: 16 of mamba2-780m's 48 layers (the script's time limit)
+MAMBA_SERVE_LAYERS = 16
+
+
 def phase_mamba(dev, counters):
+    import dataclasses
+
     from repro_torch.configs import registry
     from repro_torch.models import lm
     from repro_torch.serve import engine
     from repro_torch.serve.sampling import SamplingParams
     from repro_torch.serve.scheduler import Request
 
-    cfg = registry.get("mamba2-780m")
+    cfg = dataclasses.replace(registry.get("mamba2-780m"),
+                              n_layers=MAMBA_SERVE_LAYERS)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
@@ -4316,6 +4353,7 @@ def phase_vlm_attention(dev, flush):
 # ---------------------------------------------------------------------------
 
 FLEET_ARCH = "llama3.2-1b"
+FLEET_LAYERS = 4                # of 16: the script's time limit
 FLEET_TIERS = ("float", "w8", "mixed", "w2")
 FLEET_KW = dict(max_len=1024, max_batch=8, cache="paged", page_size=16,
                 pages=None, base_step_ms=8.0)
@@ -4522,7 +4560,8 @@ def _chaos_window(records, tiers):
 
 def phase_fleet(dev, counters, smi):
     """Path 10: ``launch.fleet.build_fleet`` serving full-width
-    llama3.2-1b (random weights, seed 0) from four replicas on the one
+    llama3.2-1b at FLEET_LAYERS of its 16 layers (random weights, seed
+    0) from four replicas on the one
     card -- tiers float, w8, mixed, w2 built from one parameter tree --
     paged (page 16), 8 slots, max_len 1024.  Run 1: pareto_degrade over
     a Poisson trace of 32 requests (prompts 16-512, 16-32 greedy tokens,
@@ -4539,6 +4578,7 @@ def phase_fleet(dev, counters, smi):
     replica's launches and streams equal with obs attached and detached;
     the metrics and trace written pass ``repro_torch.obs.validate``.
     Launches and decode times are counted inside the three runs only."""
+    import dataclasses
     import shutil
     import tempfile
     from repro_torch import fleet as fleet_mod
@@ -4548,7 +4588,8 @@ def phase_fleet(dev, counters, smi):
     from repro_torch.models import lm
     from repro_torch.obs import (Observability, validate, write_prometheus)
 
-    cfg = registry.get(FLEET_ARCH)
+    cfg = dataclasses.replace(registry.get(FLEET_ARCH),
+                              n_layers=FLEET_LAYERS)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             device=dev)
@@ -5600,7 +5641,8 @@ EP_SERVE = dict(n_layers=1, param_dtype="bfloat16")     # all 128 experts
 EP_TRAIN = dict(n_layers=1, n_experts=8)               # of 35 layers, 128
 EP_LENS = (64, 200, 377, 512)
 EP_NEW, EP_PS, EP_MAX_LEN = 16, 16, 544
-EP_STEPS, EP_BATCH, EP_SEQ = 3, 8, 256
+# step 1 runs on updated shards with non-zero moments, and is profiled
+EP_STEPS, EP_BATCH, EP_SEQ = 2, 8, 256
 EP_CLI = "arctic-480b-smoke"
 # the (2, 2) step's clipped gradients against the single-process
 # reference on the same data shards, relative L2 per leaf: 1.5x this
@@ -6349,7 +6391,7 @@ def _ep_cli(dev, tmp):
 
 TP_RUNS = {"llama": ("llama3.2-1b", {}, (2, 2)),
            "mamba": ("mamba2-780m", dict(n_layers=8), (1, 4))}  # of 48
-TP_STEPS = 3
+TP_STEPS = 2         # step 1: updated shards, non-zero moments, profiled
 TP_DEVICE = "cuda"           # the ranks' device
 # step 0 against the port's (1, 1) step on the card: the loss within the
 # LM's rtol and each clipped gradient leaf within the LM bound (ROADMAP
@@ -6790,6 +6832,539 @@ def _tp_check(which, tr, tmp, dev, smi):
                 ref_peak_gib=ref_peak)
 
 
+# ---------------------------------------------------------------------------
+# path 15: the prefill and decode placements, and the dry-run
+# ---------------------------------------------------------------------------
+
+# (arch, cut, mesh, run, batch, prompt, cache positions, decode steps):
+# ``serve`` prefills under the prefill rules and decodes under the
+# decode_32k rules; ``long`` decodes at batch 1 under the long_500k rules
+# from a cache filled from a seeded generator
+SM_RUNS = {"a": ("llama3.2-1b", dict(n_layers=4), (2, 2), "serve", 8, 1024,
+                 2048, 8),                                      # of 16
+           "b": ("llama3.2-1b", dict(n_layers=4), (2, 2), "long", 1, 0,
+                 32768, 8),                                     # of 16
+           "c": ("mamba2-780m", dict(n_layers=8), (1, 4), "serve", 4, 2048,
+                 0, 16)}                                        # of 48
+# the mesh run against the (1, 1) run on the card (PERF.md, written
+# before the first run): the worst relative L2 of the logits and of a
+# gathered cache leaf, and the share of argmax agreements
+SM_LOGITS, SM_CACHE, SM_ARGMAX = 5e-2, 5e-2, 0.5
+# a rank profiles its last SM_PROFILED decode steps, each alone, and
+# reads the latest whose kernel counts equal another's (a trace that
+# lost launch records matches none)
+SM_PROFILED = 3
+# the dry-run's cells (path 15 (d)) on 256 fake ranks, one process of one
+# core a group: llama3.2-1b's prefill_32k alone traces in 64 s on an idle
+# core, the other three in 40 s, and path 15's ranks take ~100 s
+DRYRUN_CELLS = ((("llama3.2-1b", "prefill_32k", False),),
+                (("llama3.2-1b", "decode_32k", False),
+                 ("mamba2-780m", "long_500k", False),
+                 ("mamba2-780m", "train_4k", True)))
+
+
+def _sm_cfg(which):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    arch, cut = SM_RUNS[which][:2]
+    return dataclasses.replace(registry.get(arch), **cut)
+
+
+def _sm_rules(which, kind):
+    """The reference's rules of the run's prefill or decode shape: the
+    arch's RULE_OVERRIDES and ``shape_rules``."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as steps_lib
+    arch, _, _, _, b, s, s_max, _ = SM_RUNS[which]
+    rules = dict(registry.RULE_OVERRIDES.get(arch, {}))
+    rules.update(steps_lib.shape_rules(ShapeConfig(
+        kind, kind, s if kind == "prefill" else s_max, b)))
+    return rules
+
+
+def _sm_inputs(which, cfg, dev):
+    """The run's prompt (B, S) and, under ``long``, its whole cache of
+    S_MAX positions, from seeded generators on the card."""
+    from repro_torch.models import lm
+    _, _, _, run, b, s, s_max, _ = SM_RUNS[which]
+    g = torch.Generator(device=dev).manual_seed(1)
+    if run == "serve":
+        return torch.randint(cfg.vocab, (b, s), generator=g, device=dev), \
+            None
+    whole = lm.init_caches(cfg, b, s_max, device=dev)
+    for leaf in _leaves(whole):
+        leaf[1].copy_(torch.randn(leaf[1].shape, generator=g, device=dev))
+    return None, whole
+
+
+def _sm_decode_cache(cfg, which, whole, dev):
+    """A prefill's gathered caches in the decode run's tree: KV copied
+    into S_MAX positions (so a kv_seq split of 2 leaves every new
+    position to the second rank), a Mamba-2 state as it is."""
+    from repro_torch.models import lm
+    _, _, _, _, b, s, s_max, _ = SM_RUNS[which]
+    if not s_max:
+        return whole
+    big = lm.init_caches(cfg, b, s_max, device=dev)
+    for (k, dst), (_, src) in zip(_leaves(big), _leaves(whole)):
+        if k.endswith(("/k", "/v")):
+            dst[:, :, :s].copy_(src)
+        else:
+            dst.copy_(src)
+    return big
+
+
+def _sm_device(prof):
+    """A profiled decode step: each CUDA kernel's count, and the device
+    ms by class (gloo's host staging copies, K5, every other kernel)."""
+    counts = {}
+    split = {"memcpy": 0.0, "K5": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        counts[e.key] = e.count
+        cls = "memcpy" if "memcpy" in e.key.lower() else "K5" \
+            if "ssd_scan" in e.key else "other"
+        split[cls] += e.self_device_time_total / 1e3
+    return counts, split
+
+
+def _sm_signal(pids, sig):
+    """``sig`` to each of the dry-run's processes still there."""
+    for pid in pids:
+        try:
+            os.kill(pid, sig)
+        except ProcessLookupError:
+            pass
+
+
+def _sm_run(which, params, dev, forced=None, mesh=None, coll=None,
+            quiet=()):
+    """One run of path 15 on this process: prefill (``serve``) then the
+    decode steps, greedy from the last logits or teacher-forced with
+    ``forced`` (T, B, 1).  Under ``mesh`` the parameters are this rank's
+    shards, the inputs global, and logits and caches are gathered; the
+    last SM_PROFILED decode steps are profiled, each alone, with the
+    dry-run's processes ``quiet`` stopped (SIGSTOP) from the first of
+    them until every rank has passed the last.  Returns the logits, the
+    inputs fed, the caches (after prefill and at the end, on the host),
+    step ms and, on a rank, the device ms of the latest profiled step
+    whose trace holds every launch record and the collectives."""
+    import contextlib
+    import signal
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+
+    cfg = _sm_cfg(which)
+    _, _, _, run, b, s, s_max, t = SM_RUNS[which]
+    cache_log = lm.cache_logical_axes(cfg)
+    logit_log = {"l": ("batch", None, "vocab")}
+
+    def placed(kind):
+        return contextlib.nullcontext() if mesh is None else \
+            sharding.use_mesh(mesh, _sm_rules(which, kind))
+
+    def gather(tree, logical):
+        return tree if mesh is None else steps_lib.gather_tree(tree, logical)
+
+    def host(tree):
+        return {k: v.to("cpu", copy=True) for k, v in _leaves(tree)}
+
+    prompt, whole = _sm_inputs(which, cfg, dev)
+    out = {"ms": [], "coll": {}}
+    if coll is not None:
+        coll.take()
+    if run == "serve":
+        with placed("prefill"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = steps_lib.make_prefill_step(cfg)(
+                params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            if coll is not None:
+                out["coll"]["prefill"] = coll.take()
+            logits = gather({"l": logits}, logit_log)["l"]
+            whole = gather(caches, cache_log)
+            out["prefill"] = logits.float().cpu()
+            out["cache"] = host(whole)
+            del caches
+        start = s
+        tok = logits[:, -1].argmax(-1)[:, None].int() if forced is None \
+            else forced[0].to(dev)
+        whole = _sm_decode_cache(cfg, which, whole, dev)
+    else:
+        start = s_max - t
+        tok = torch.randint(cfg.vocab, (b, 1), generator=torch.Generator(
+            device=dev).manual_seed(2), device=dev, dtype=torch.int32) \
+            if forced is None else forced[0].to(dev)
+    fed, got = [], []
+    with placed("decode"):
+        caches = whole if mesh is None else steps_lib.shard_tree(
+            whole, cache_log)
+        del whole
+        step = steps_lib.make_decode_step(cfg)
+        first = t - SM_PROFILED if mesh is not None else t
+        traces = {}
+        for i in range(t):
+            fed.append(tok.cpu())
+            if i == first:
+                _sm_signal(quiet, signal.SIGSTOP)
+            torch.cuda.synchronize()
+            with (profile(activities=[ProfilerActivity.CUDA]) if i >= first
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                logits, caches = step(params, {"tokens": tok}, caches,
+                                      start + i)
+                torch.cuda.synchronize()
+                out["ms"].append(1e3 * (time.perf_counter() - t0))
+            if i >= first:
+                traces[i] = _sm_device(prof)
+            logits = gather({"l": logits}, logit_log)["l"]
+            got.append(logits.float().cpu())
+            if i + 1 < t:
+                tok = logits[:, -1].argmax(-1)[:, None].int() \
+                    if forced is None else forced[i + 1].to(dev)
+        if mesh is not None:
+            torch.distributed.barrier()
+            _sm_signal(quiet, signal.SIGCONT)
+        if coll is not None:
+            out["coll"]["decode"] = coll.take()
+        out["final"] = host(gather(caches, cache_log))
+        out["shapes"] = {k: tuple(v.shape) for k, v in _leaves(caches)}
+    out["logits"] = torch.stack(got)
+    out["fed"] = torch.stack(fed)
+    if mesh is not None:
+        agreeing = [i for i in sorted(traces, reverse=True)
+                    if any(traces[i][0] == traces[j][0] for j in traces
+                           if j != i)]
+        if not agreeing:
+            raise AssertionError(
+                f"[serve-mesh] ({which}) every profiled decode step's trace "
+                f"lost launch records: kernel counts "
+                f"{[sum(c.values()) for c, _ in traces.values()]}")
+        step_read = agreeing[0]
+        out["profiled"] = step_read
+        # the other profiled steps' kernel counts that differ from its
+        # (key: (count there, count in the step read))
+        read = traces[step_read][0]
+        out["unmatched"] = {
+            i: {k[:60]: (c.get(k, 0), read.get(k, 0))
+                for k in set(c) | set(read) if c.get(k, 0) != read.get(k, 0)}
+            for i, (c, _) in traces.items() if c != read}
+        out["device_split"] = traces[step_read][1]
+        out["device_ms"] = sum(out["device_split"].values())
+    return out
+
+
+def _sm_rank(rank, world, tmp, quiet):
+    """One of the four ranks: path 15's three runs, teacher-forced with
+    the (1, 1) runs' inputs (``tmp/forced_<run>.pt``), the dry-run's
+    processes ``quiet`` stopped while the decode steps are profiled;
+    rank 0's results to ``tmp/sm_<run>.pt``, every rank's summary to
+    ``tmp/sm_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                            rank=rank, world_size=world)
+    dev = torch.device(TP_DEVICE)
+    summary = {}
+    try:
+        for which in SM_RUNS:
+            cfg = _sm_cfg(which)
+            mesh = meshlib.make_debug_mesh(*SM_RUNS[which][2], device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            counters = _counters()
+            coll = _Collectives()
+            try:
+                kind = "prefill" if SM_RUNS[which][3] == "serve" else \
+                    "decode"
+                with sharding.use_mesh(mesh, _sm_rules(which, kind)):
+                    whole = lm.init_params(cfg, torch.Generator(
+                        device=dev).manual_seed(0), dev)
+                    params = steps_lib.shard_tree(
+                        whole, lm.logical_axes(cfg))
+                    del whole
+                    _free(dev)
+                forced = torch.load(os.path.join(tmp, f"forced_{which}.pt"))
+                torch.cuda.synchronize()
+                for fn in counters.values():
+                    fn.launches = 0
+                res = _sm_run(which, params, dev, forced, mesh, coll,
+                              quiet)
+                launches = {k: fn.launches for k, fn in counters.items()}
+            finally:
+                coll.close()
+            digest = [float(res["logits"].double().sum()),
+                      float(res["final"][next(iter(res["final"]))]
+                            .double().sum())]
+            summary[which] = dict(
+                coords=mesh.coords, ms=res["ms"],
+                prefill_ms=res.get("prefill_ms"), coll=res["coll"],
+                device_ms=res["device_ms"], profiled=res["profiled"],
+                unmatched=res["unmatched"],
+                device_split=res["device_split"], launches=launches,
+                shapes=res["shapes"], digest=digest,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            if rank == 0:
+                torch.save(res, os.path.join(tmp, f"sm_{which}.pt"))
+            del params, res
+            _free(dev)
+        torch.save(summary, os.path.join(tmp, f"sm_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dryrun_start(tmp):
+    """Path 15 (d) in the background: ``launch.dryrun`` on 256 fake
+    ranks, a process of one core for each group of DRYRUN_CELLS (its
+    cells in turn), records to ``tmp``.  CPU only; it runs beside path
+    15's runs on the card, after every phase that profiles a kernel, and
+    is stopped while those runs profile their decode steps."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": os.pathsep.join(
+        [str(pathlib.Path(__file__).resolve().parent / "src"),
+         os.environ.get("PYTHONPATH", "")])}
+    code = ("import sys, time\nfrom repro_torch.launch import dryrun\n"
+            "t0 = time.perf_counter()\n"
+            "rc = max(dryrun.main(a) for a in %r)\n"
+            "print(f'[dryrun-wall] {time.perf_counter() - t0:.1f}')\n"
+            "sys.exit(rc)\n")
+    return [subprocess.Popen(
+        [sys.executable, "-c", code % [
+            ["--arch", a, "--shape", sh, "--out", tmp]
+            + (["--search"] if srch else []) for a, sh, srch in cells]],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for cells in DRYRUN_CELLS], time.perf_counter()
+
+
+def _dryrun_check(procs, t0, tmp):
+    """Path 15 (d): every process exits 0 and every cell's record is
+    ``ok``; prints each cell's roofline line (a model from the H100's
+    datasheet peaks, not a measurement)."""
+    import signal
+    _sm_signal([p.pid for p in procs], signal.SIGCONT)  # a rank died
+    text = ""
+    for p in procs:
+        log_p, _ = p.communicate(timeout=900)
+        text += log_p
+        if p.returncode != 0:
+            raise AssertionError(f"[serve-mesh] (d) the dry-run exited "
+                                 f"{p.returncode}: {log_p[-3000:]}")
+    wall = time.perf_counter() - t0
+    # each process's own seconds, from after its imports to its last
+    # cell (beside the card's phases; the stops included)
+    own = [float(line.split()[1]) for line in text.splitlines()
+           if line.startswith("[dryrun-wall]")]
+    out = {"process_s": own}
+    for arch, shape, srch in sum(DRYRUN_CELLS, ()):
+        name = f"{arch}__{shape}__16x16{'__search' if srch else ''}.json"
+        with open(os.path.join(tmp, name)) as f:
+            rec = json.load(f)
+        if not rec.get("ok"):
+            raise AssertionError(f"[serve-mesh] (d) {name}: {rec}")
+        out[name[:-5]] = dict(roofline=rec["roofline"],
+                              trace_s=rec["trace_s"],
+                              memory=rec["memory_analysis"],
+                              collectives=rec["collectives"])
+    for line in text.splitlines():
+        if line.startswith("[dryrun]"):
+            log(f"[serve-mesh] (d) {line}")
+    log(f"[serve-mesh] (d) the dry-run (torch {torch.__version__}, fake "
+        f"process group of 256 ranks, meta tensors) exited 0, every cell "
+        f"ok; its processes ran {own} s beside path 15's runs (stopped "
+        f"while they profiled), read {wall:.1f} s after their start")
+    return out
+
+
+def phase_serve_mesh(dev, counters, smi):
+    """Path 15: the dry-run started in the background; the prefill and
+    decode placements on four ranks sharing the card (gloo), each run
+    first on one process (the (1, 1) run, its greedy inputs then fed to
+    the ranks); then the dry-run's results."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import lm
+
+    try:
+        socket.gethostbyname(socket.gethostname())
+    except OSError:
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    tmp = tempfile.mkdtemp(prefix="sm_")
+    dry_tmp = tempfile.mkdtemp(prefix="dryrun_")
+    dryrun = _dryrun_start(dry_tmp) + (dry_tmp,)
+    single, witness = {}, {}
+    try:
+        for which in SM_RUNS:
+            cfg = _sm_cfg(which)
+            params = lm.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(0), dev)
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            single[which] = _sm_run(which, params, dev)
+            single[which]["s"] = time.perf_counter() - t0
+            single[which]["launches"] = {k: fn.launches
+                                         for k, fn in counters.items()}
+            forced = single[which]["fed"]
+            torch.save(forced, os.path.join(tmp, f"forced_{which}.pt"))
+            with _SplitK():
+                witness[which] = _sm_run(which, params, dev, forced)
+            del params
+            _free(dev)
+        t0 = time.perf_counter()
+        mp.spawn(_sm_rank, args=(4, tmp, [p.pid for p in dryrun[0]]),
+                 nprocs=4, join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"sm_rank{r}.pt"),
+                            weights_only=False) for r in range(4)]
+        out = {"spawn_s": spawn_s}
+        for which in SM_RUNS:
+            mesh = torch.load(os.path.join(tmp, f"sm_{which}.pt"),
+                              weights_only=False)
+            out[which] = _sm_check(which, mesh, [r[which] for r in ranks],
+                                   single[which], witness[which], smi)
+        log(f"[serve-mesh] the three runs' ranks in {spawn_s:.1f} s (spawn "
+            f"to exit)")
+        out["dryrun"] = _dryrun_check(*dryrun)
+    finally:
+        for p in dryrun[0]:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(dry_tmp, ignore_errors=True)
+    return out
+
+
+def _sm_gaps(got, want):
+    """Relative L2 of the prefill logits, each decode step's logits and
+    every gathered cache leaf of ``got`` against ``want``; the share of
+    argmax agreements over the decode rows (and the prefill's)."""
+    gaps = {}
+    if "prefill" in want:
+        gaps["prefill"] = _rel(got["prefill"], want["prefill"])
+    for i in range(want["logits"].shape[0]):
+        gaps[f"logits/{i}"] = _rel(got["logits"][i], want["logits"][i])
+    for tag in ("cache", "final"):
+        for k, v in want.get(tag, {}).items():
+            gaps[f"{tag}/{k}"] = _rel(got[tag][k].float(), v.float())
+    a = got["logits"].argmax(-1)
+    b = want["logits"].argmax(-1)
+    return gaps, float((a == b).float().mean())
+
+
+def _sm_check(which, mesh, tr, single, witness, smi):
+    """One run: the ranks' gathered results the same on every rank; the
+    mesh run's logits and caches against the (1, 1) run within SM_LOGITS
+    / SM_CACHE and its argmax agreements at least SM_ARGMAX, beside the
+    split-K witness; the cache shard shapes; K5's launches on the local
+    heads (mamba: one a layer a rank in the prefill, none in decode);
+    step ms a rank, collectives, busy share, peak memory."""
+    cfg = _sm_cfg(which)
+    arch, _, shape, run, b, s, s_max, t = SM_RUNS[which]
+    tag = f"[serve-mesh] ({which}) {arch}"
+    if any(r["digest"] != tr[0]["digest"] for r in tr):
+        raise AssertionError(f"{tag}: the ranks' gathered logits differ: "
+                             f"{[r['digest'] for r in tr]}")
+    gaps, agree = _sm_gaps(mesh, single)
+    wgaps, wagree = _sm_gaps(witness, single)
+    if not all(np.isfinite(list(gaps.values()) + list(wgaps.values()))):
+        raise AssertionError(f"{tag}: not finite")
+    lk = [k for k in gaps if k.startswith(("prefill", "logits"))]
+    ck = [k for k in gaps if k not in lk]
+    worst_l = max(lk, key=gaps.get)
+    worst_c = max(ck, key=gaps.get)
+    wl, wc = max(lk, key=wgaps.get), max(ck, key=wgaps.get)
+    if gaps[worst_l] > SM_LOGITS or gaps[worst_c] > SM_CACHE or \
+            agree < SM_ARGMAX:
+        raise AssertionError(f"{tag}: logits {worst_l} {gaps[worst_l]:.3g} "
+                             f"(bound {SM_LOGITS}), cache {worst_c} "
+                             f"{gaps[worst_c]:.3g} (bound {SM_CACHE}), argmax "
+                             f"agreement {agree:.3f} (bound {SM_ARGMAX})")
+    # K5: one launch a Mamba-2 layer a rank in the prefill, on its heads
+    need = {k: 0 for k in tr[0]["launches"]}
+    if cfg.is_ssm:
+        need["ssd_scan"] = cfg.n_layers
+    for r in tr:
+        if r["launches"] != need:
+            raise AssertionError(f"{tag}: rank {r['coords']} launches "
+                                 f"{r['launches']}, need {need}")
+    if cfg.is_ssm and single["launches"]["ssd_scan"] != cfg.n_layers:
+        raise AssertionError(f"{tag}: the (1, 1) run launched K5 "
+                             f"{single['launches']['ssd_scan']} times")
+    dec = [r["ms"] for r in tr]
+    wall = max(r["ms"][r["profiled"]] for r in tr)
+    busy = sum(r["device_ms"] for r in tr) / wall
+    kern_busy = sum(r["device_ms"] - r["device_split"]["memcpy"]
+                    for r in tr) / wall
+    r0 = tr[0]
+    coll = {ph: {k: (n, round(ms, 1)) for k, (n, ms) in c.items() if n}
+            for ph, c in r0["coll"].items()}
+    heads = (f"{cfg.ssm_heads // shape[1]} of {cfg.ssm_heads} SSM heads "
+             f"(K5 on B * H = {b} x {cfg.ssm_heads // shape[1]})"
+             if cfg.is_ssm else f"{cfg.h_eff // shape[1]} of {cfg.h_eff} "
+             f"query heads")
+    what = (f"prefill {b} x {s} tokens, then {t} decode steps at batch {b}"
+            + (f" on a {s_max}-position cache" if s_max else "")
+            if run == "serve" else
+            f"batch 1 under the long_500k rules: a {s_max}-position cache "
+            f"from a seeded generator, {s_max // 4} positions a rank, "
+            f"{t} decode steps at positions {s_max - t}-{s_max - 1}")
+    log(f"{tag} at published widths, {cfg.n_layers} layers on mesh {shape} "
+        f"({heads} a rank), {what}, teacher-forced with the (1, 1) run's "
+        f"greedy inputs: against the (1, 1) run on the card, worst logits "
+        f"{worst_l} {gaps[worst_l]:.3g} (bound {SM_LOGITS}), worst cache "
+        f"leaf {worst_c} {gaps[worst_c]:.3g} (bound {SM_CACHE}), argmax "
+        f"agreement {agree:.4f} ({int(round(agree * t * b))} of {t * b} "
+        f"rows; bound {SM_ARGMAX}); the split-K witness against the (1, 1) "
+        f"run: logits {wl} {wgaps[wl]:.3g}, cache {wc} {wgaps[wc]:.3g}, "
+        f"argmax {wagree:.4f}; every rank's gathered results the same; "
+        f"cache shards {sorted(set(r0['shapes'].values()))}")
+    log(f"{tag}: " + (f"prefill ms a rank "
+                      f"{[round(r['prefill_ms'], 1) for r in tr]} "
+                      f"((1, 1) {single['prefill_ms']:.1f}), "
+                      if run == "serve" else "")
+        + f"decode step ms a rank {[[round(x, 1) for x in d] for d in dec]}"
+        f", median {float(np.median(sum(dec, []))):.1f} ((1, 1) median "
+        f"{float(np.median(single['ms'])):.1f}); rank 0's collectives "
+        f"(count, wall ms) {coll}; a profiled decode step's device ms a "
+        f"rank {[round(r['device_ms'], 2) for r in tr]} (steps "
+        f"{[r['profiled'] for r in tr]}, the dry-run stopped; steps whose "
+        f"kernel counts differ: {[r['unmatched'] for r in tr]}; rank 0's by "
+        f"class "
+        f"{ {k: round(v, 2) for k, v in r0['device_split'].items()} }), "
+        f"card busy {100 * busy:.1f}% (their sum over the slowest rank's "
+        f"wall; {100 * kern_busy:.1f}% without the staging copies); "
+        f"launches a rank {r0['launches']}; peak a rank "
+        f"{[round(r['peak_gib'], 2) for r in tr]} GiB; the (1, 1) run "
+        f"{single['s']:.1f} s; {smi}")
+    return dict(gap_logits=gaps[worst_l], gap_cache=gaps[worst_c],
+                argmax=agree, witness_logits=wgaps[wl],
+                witness_cache=wgaps[wc], witness_argmax=wagree,
+                decode_ms=dec, prefill_ms=[r["prefill_ms"] for r in tr],
+                single_ms=single["ms"], collectives=r0["coll"], busy=busy,
+                kernel_busy=kern_busy, device_split=r0["device_split"],
+                launches=r0["launches"],
+                rank_peak_gib=[r["peak_gib"] for r in tr])
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6905,6 +7480,8 @@ def main():
                        counters, smi, banks)
     ep = path("path 13 (expert parallel)", phase_ep, dev, counters, smi)
     tp = path("path 14 (tensor parallel)", phase_tp, dev, counters, smi)
+    sm = path("path 15 (prefill and decode placements, dry-run)",
+              phase_serve_mesh, dev, counters, smi)
 
     meta = {
         "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
@@ -6994,6 +7571,11 @@ def main():
         # the tensor-parallel llama (2, 2) and mamba (1, 4) runs
         for which in TP_RUNS:
             row[f"launches_tp_{which}_a_rank"] = tp[which]["launches"][k]
+        # path 15: each rank's launches in the prefill / decode runs
+        # (K5 on mamba's local heads; the float runs take no other)
+        for which in SM_RUNS:
+            row[f"launches_serve_mesh_{which}_a_rank"] = sm[which][
+                "launches"][k]
         if k == "mps_combine":
             row["launches_tp_given_absmax_a_rank"] = {
                 which: tp[which]["given"] for which in TP_RUNS}

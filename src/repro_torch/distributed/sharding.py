@@ -39,9 +39,18 @@ The collectives are ``torch.autograd.Function``s over a process group:
 The group's backend takes the tensors where they lie: NCCL on the card,
 gloo on the CPU and on the card (ranks that share one card; an all-gather
 or a reduce-scatter of a CUDA tensor over gloo is staged through host
-memory here).  Half-width floats are summed in float32 and rounded once;
-gathers move bytes, bit for bit.  Every collective goes through one of
-``_all_reduce``, ``_all_gather`` and ``_reduce_scatter``.
+memory here), and the ``fake`` backend of the dry-run
+(``torch.testing._internal.distributed.fake_pg``), whose ``meta`` tensors
+carry shapes alone.  Half-width floats are summed in float32 and rounded
+once; gathers move bytes, bit for bit.  Every collective goes through
+one of ``_all_reduce``, ``_all_gather`` and ``_reduce_scatter``, each of
+which records its kind and result bytes in the installed
+:class:`Ledger` (:func:`count_collectives`).
+
+The serving steps' dense KV cache splits its sequence over ``kv_seq``'s
+mesh axes: :func:`kv_offset` is the first position this rank holds,
+and :func:`merge_partials` merges the attention partials the ranks
+compute over their positions.
 """
 from __future__ import annotations
 
@@ -55,7 +64,7 @@ import torch.distributed as dist
 
 # process-wide, not thread-local as the reference's: autograd runs a CUDA
 # backward -- and a remat recompute inside it -- on its own device thread
-_state = types.SimpleNamespace(rules=None, mesh=None)
+_state = types.SimpleNamespace(rules=None, mesh=None, ledger=None)
 
 DEFAULT_RULES: dict[str, object] = {
     "batch": ("pod", "data"),
@@ -78,7 +87,8 @@ DEFAULT_RULES: dict[str, object] = {
 }
 
 # the tensor-parallel axes: a mesh that splits one of them (or the
-# sequence) places the training step only (ROADMAP section 1, items 2-3)
+# sequence) places the dense, SSM and MoE families only (ROADMAP section
+# 1, item 2)
 TP_AXES = ("heads", "heads_flat", "mlp", "vocab", "ssm_inner")
 
 
@@ -223,27 +233,66 @@ def group_of(mesh_axes):
     return mesh.group(tuple(mesh_axes))
 
 
-def tp_split() -> tuple:
+def tp_split(serving: bool = False) -> tuple:
     """The tensor-parallel axes (:data:`TP_AXES`), ``act_seq`` and the
-    weights' FSDP axis ``w_embed`` that the installed mesh splits: the
-    placements this slice makes in the training step of the dense, SSM
-    and MoE families only."""
-    return tuple(a for a in TP_AXES + ("act_seq", "w_embed")
-                 if extent(a) > 1)
+    weights' FSDP axis ``w_embed`` that the installed mesh splits, and
+    with ``serving`` the dense cache's ``kv_seq``: the placements the
+    port makes for the dense, SSM and MoE families only."""
+    names = TP_AXES + ("act_seq", "w_embed") + (("kv_seq",) if serving
+                                                else ())
+    return tuple(a for a in names if extent(a) > 1)
 
 
-def refuse_split(what: str):
+def refuse_split(what: str, serving: bool = False):
     """ValueError when the installed mesh splits a tensor-parallel,
-    sequence or FSDP axis (:func:`tp_split`) under ``what``, which the
-    port does not place yet."""
-    split = tp_split()
+    sequence, FSDP (or with ``serving`` a cache-sequence) axis
+    (:func:`tp_split`) under ``what``, which the port does not place
+    yet."""
+    split = tp_split(serving)
     if split:
         raise ValueError(
             f"{what} under a mesh that splits {', '.join(split)}: the port "
-            f"places these in the training step of the dense, SSM and MoE "
-            f"families only; the prefill and decode placements and the "
-            f"enc-dec, VLM and hybrid layers are ROADMAP section 1, items "
-            f"2-3 (unmap the axes through use_mesh's rules)")
+            f"places these in the training, prefill and decode steps of "
+            f"the dense, SSM and MoE families on dense caches; the enc-dec, "
+            f"VLM and hybrid layers under tensor parallelism and a page "
+            f"pool under a mesh are not placed yet (ROADMAP section 1, "
+            f"items 2-3; unmap the axes through use_mesh's rules)")
+
+
+def kv_offset(s_local: int) -> int:
+    """The first cache position this rank holds when the dense cache's
+    sequence (``kv_seq``) is split into blocks of ``s_local`` positions,
+    one a rank in row-major order over its mesh axes (0 when whole)."""
+    return axis_index("kv_seq") * s_local if extent("kv_seq") > 1 else 0
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   group) -> torch.Tensor:
+    """Attention over positions split across ``group``, from each rank's
+    partials: ``m`` (..., H) the running max of its scores (``-inf``
+    where its positions are wholly masked), ``l`` (..., H) the sum of
+    ``exp(score - m)`` (0 there) and ``acc`` (..., H, D) the unnormalised
+    output, all float32.  One all-gather of the three, then the merge in
+    rank order on every rank, so that every rank holds the same bits:
+    ``sum_r acc_r e^(m_r - M) / sum_r l_r e^(m_r - M)`` with ``M`` the
+    maximum over ranks.  ``group`` None: this rank's partials alone."""
+    packed = torch.cat([acc, m[..., None], l[..., None]], dim=-1)
+    return merge_stacked(all_gather_cat(packed[None], 0, group))
+
+
+def merge_stacked(parts: torch.Tensor) -> torch.Tensor:
+    """:func:`merge_partials`' merge of the ranks' partials stacked in
+    rank order: ``parts`` (n, ..., H, D + 2) holds each rank's ``acc``,
+    then ``m``, then ``l`` on the last axis."""
+    top = parts[..., -2].amax(dim=0)
+    out = den = None
+    for r in range(parts.shape[0]):
+        scale = torch.exp(parts[r, ..., -2] - top)
+        term, dt = parts[r, ..., :-2] * scale[..., None], \
+            parts[r, ..., -1] * scale
+        out = term if out is None else out + term
+        den = dt if den is None else den + dt
+    return out / den[..., None]
 
 
 class Region:
@@ -326,7 +375,44 @@ def seq_shared(t: torch.Tensor) -> torch.Tensor:
 # collectives
 # ---------------------------------------------------------------------------
 
+class Ledger:
+    """Each collective kind's count and result bytes on this rank, in
+    the reference's names (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``): an all-reduce's buffer (float32 for a
+    half-width sum), an all-gather's gathered tensor, a reduce-scatter's
+    block (float32 for a half-width sum) -- what ``hlo_analysis`` reads
+    off a collective's result type."""
+
+    def __init__(self):
+        self.counts: dict = {}
+        self.bytes: dict = {}
+
+    def add(self, kind: str, t: torch.Tensor):
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0) + \
+            t.numel() * t.element_size()
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Record every collective of this module in a new :class:`Ledger`
+    for the block (yielded); nothing is recorded outside one."""
+    prev, _state.ledger = _state.ledger, Ledger()
+    try:
+        yield _state.ledger
+    finally:
+        _state.ledger = prev
+
+
+def _record(kind: str, t: torch.Tensor):
+    if _state.ledger is not None:
+        _state.ledger.add(kind, t)
+
+
 def _staged(t: torch.Tensor, group) -> bool:
+    """A CUDA tensor over gloo goes through host memory; the other
+    backends (NCCL, and the dry-run's ``fake`` one on ``meta`` tensors)
+    take it where it lies."""
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
@@ -340,6 +426,7 @@ def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
     else:
         buf = buf.clone()
     dist.all_reduce(buf, op=op, group=group)
+    _record("all-reduce", buf)
     return buf.to(t.dtype)
 
 
@@ -354,8 +441,10 @@ def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
         raw = raw.cpu()
     parts = [torch.empty_like(raw) for _ in range(n)]
     dist.all_gather(parts, raw, group=group)
-    return torch.cat([p.to(home).view(t.dtype).reshape(src.shape)
-                      for p in parts], dim=dim)
+    out = torch.cat([p.to(home).view(t.dtype).reshape(src.shape)
+                     for p in parts], dim=dim)
+    _record("all-gather", out)
+    return out
 
 
 def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -375,6 +464,7 @@ def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     chunks = [c.contiguous() for c in buf.chunk(n, dim=dim)]
     out = torch.empty_like(chunks[0])
     dist.reduce_scatter(out, chunks, group=group)
+    _record("reduce-scatter", out)
     return out.to(device=home, dtype=t.dtype)
 
 

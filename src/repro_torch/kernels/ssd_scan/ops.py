@@ -1,7 +1,10 @@
 """``ssd_scan``: the Mamba-2 inter-chunk state pass (kernel K5,
 ``csrc/ssd_scan.cu``), differentiable.  A CUDA tensor launches the
 kernels -- the forward scan, and in the backward ``ssd_scan_bwd_kernel``
--- and a CPU tensor takes the plain versions of ``ref.py``."""
+-- and a CPU tensor takes the plain versions of ``ref.py``.  A ``meta``
+tensor (the dry-run's: shapes, no data) takes the plain versions too,
+which give the shapes and the operations they stand for; a CUDA tensor
+never does."""
 from __future__ import annotations
 
 import torch
@@ -14,11 +17,11 @@ ssd_scan_bwd_ref = _ref.ssd_scan_bwd_ref
 
 
 def _device(*ts) -> torch.device:
-    """The one device of ``ts`` (None entries skipped): the CPU, or a
-    CUDA device; raises otherwise."""
+    """The one device of ``ts`` (None entries skipped): the CPU, a CUDA
+    device or ``meta``; raises otherwise."""
     devs = {t.device for t in ts if t is not None}
     dev = devs.pop() if len(devs) == 1 else None
-    if dev is None or dev.type not in ("cpu", "cuda"):
+    if dev is None or dev.type not in ("cpu", "cuda", "meta"):
         got = sorted(str(t.device) for t in ts if t is not None)
         raise ValueError(f"ssd_scan runs on one cuda device or the cpu, got "
                          f"{got}")
@@ -26,7 +29,7 @@ def _device(*ts) -> torch.device:
 
 
 def _scan(decay, s_in, s0):
-    if _device(decay, s_in, s0).type == "cpu":
+    if _device(decay, s_in, s0).type in ("cpu", "meta"):
         return _ref.ssd_scan_ref(decay, s_in, s0)
     c, h, p, n = s_in.shape
     prefix = torch.empty_like(s_in)
@@ -58,7 +61,7 @@ def ssd_scan_bwd(decay: torch.Tensor, prefix: torch.Tensor,
     if any(t is not None and (t.dtype != torch.float32
                               or not t.is_contiguous()) for t in ops):
         raise ValueError("ssd_scan_bwd needs contiguous float32 operands")
-    if _device(*ops).type == "cpu":
+    if _device(*ops).type in ("cpu", "meta"):
         return _ref.ssd_scan_bwd_ref(decay, prefix, dprefix, dfinal)
     c, h, p, n = prefix.shape
     ds_in = torch.empty_like(prefix)

@@ -91,8 +91,11 @@ class Mesh:
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
     """16 x 16 ``("data", "model")`` ranks, or 2 x 16 x 16 with a leading
-    pure-data-parallel ``pod`` axis; raises, naming the ranks it needs,
-    when the process group is smaller."""
+    pure-data-parallel ``pod`` axis, over a process group of that size;
+    raises, naming the ranks it needs, when the group is smaller.  Over
+    the dry-run's ``fake`` backend (one process standing for every rank,
+    ``torch.testing._internal.distributed.fake_pg``) the device defaults
+    to ``meta``: the mesh and its groups allocate nothing."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
@@ -101,7 +104,10 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
         raise RuntimeError(
             f"need {n} ranks for the production mesh, have {world}; launch "
             f"{n} processes (python -m torch.distributed.run --nnodes ... "
-            f"--nproc-per-node ...)")
+            f"--nproc-per-node ...), or start a fake process group of {n} "
+            f"ranks (launch/dryrun.py)")
+    if device is None and dist.get_backend() == "fake":
+        device = "meta"
     return Mesh(shape, axes, device)
 
 

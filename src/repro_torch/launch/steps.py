@@ -6,12 +6,17 @@ cut of a whole tree into one rank's shard (and back).
 Under a mesh (``distributed.sharding.use_mesh``) the port places every
 logical axis the installed rules map: the ``batch`` rows on ``data``,
 the weights' ``w_embed`` axis on ``data`` (FSDP), the tensor-parallel
-axes and the experts on ``model`` and, in the training step, the
-residual stream's sequence on ``model``.  The prefill and decode steps
-refuse a mesh that splits a tensor-parallel, sequence or FSDP axis
-(ROADMAP section 1, items 2-3), as do the enc-dec, VLM and hybrid
-training steps.  ``batch_struct`` and ``cell_artifacts`` (the
-reference's dry-run inputs) wait with the dry-run.
+axes and the experts on ``model``, the residual stream's sequence
+(``act_seq``) and the dense cache's (``kv_seq``) where the shape's rules
+(:func:`shape_rules`) put them.  The three steps take the global batch
+and cut this rank's rows themselves; parameters, optimizer state and
+caches are this rank's shards (:func:`shard_tree`).  The paged prefill
+step, a decode step on page pools and the enc-dec, VLM and hybrid
+families refuse a mesh that splits a tensor-parallel, sequence, FSDP or
+cache-sequence axis (ROADMAP section 1, items 2-3).  :func:`batch_struct`
+and :func:`cell_artifacts` are the dry-run's inputs
+(``launch/dryrun.py``): meta tensors of a cell's step arguments and
+their placements.
 """
 from __future__ import annotations
 
@@ -103,15 +108,31 @@ def _data_mean(axes, g):
             / sharding.extent("batch")).to(g.dtype)
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's contiguous block of the global batch's rows (dim 0)
+    over the ``batch`` axes, as the reference's sharded batch holds
+    them (the tensor itself with ``batch`` unmapped)."""
+    dp = sharding.extent("batch")
+    if dp == 1:
+        return t
+    if t.shape[0] % dp:
+        raise ValueError(f"a batch of {t.shape[0]} rows does not split over "
+                         f"{dp} data ranks")
+    n = t.shape[0] // dp
+    return t.narrow(0, sharding.axis_index("batch") * n, n)
+
+
 def make_prefill_step(cfg: ArchConfig):
-    """(params, batch) -> (last-position logits, new dense caches).
-    Raises a ValueError under a mesh that splits a tensor-parallel,
-    sequence or FSDP axis (ROADMAP section 1, items 2-3)."""
-    sharding.refuse_split("the prefill step")
+    """(params, batch) -> (last-position logits, new dense caches).  Under
+    a mesh ``batch`` is the global batch (this rank's rows are cut here),
+    the logits are this rank's vocab shard of ``("batch", None,
+    "vocab")`` and the caches its shards of ``lm.cache_logical_axes``
+    (its ``kv_seq`` block of positions)."""
 
     def step_fn(params, batch):
-        return lm.forward(cfg, params, batch, mode="prefill",
-                          logits_mode="last")
+        return lm.forward(cfg, params, {k: _rows(v) for k, v in
+                                        batch.items()},
+                          mode="prefill", logits_mode="last")
     return step_fn
 
 
@@ -123,9 +144,11 @@ def make_paged_prefill_step(cfg: ArchConfig):
     to a q-chunk boundary: padded rows are never written to the pool, and
     the logits are read at ``lens[0] - 1``.  A hybrid's ``kv_caches``
     holds only its attention layers' pools; its Mamba-2 layers prefill
-    from zero and return their new state in the tree.  Refuses a mesh
-    as :func:`make_prefill_step` does."""
-    sharding.refuse_split("the paged prefill step")
+    from zero and return their new state in the tree.  A page pool has
+    no logical axes (nor in the reference): a ValueError under a mesh
+    that splits a tensor-parallel, sequence, FSDP or cache-sequence axis
+    (ROADMAP section 1, items 2-3)."""
+    sharding.refuse_split("the paged prefill step", serving=True)
 
     def step_fn(params, batch, kv_caches, tables, lens):
         return lm.forward(cfg, params, batch, mode="prefill",
@@ -137,11 +160,16 @@ def make_paged_prefill_step(cfg: ArchConfig):
 def make_decode_step(cfg: ArchConfig):
     """``token_batch`` holds ``tokens`` (B, 1) or ``embeddings`` (B, 1,
     D); ``tables`` is the paged block-table tensor (None for dense).
-    Refuses a mesh as :func:`make_prefill_step` does."""
-    sharding.refuse_split("the decode step")
+    Under a mesh the batch (and a (B,) ``pos``) are global, this rank's
+    rows cut here; ``caches`` are its shards, updated in place; the
+    logits its vocab shard.  Page pools refuse a split mesh, as
+    :func:`make_paged_prefill_step` does."""
 
     def step_fn(params, token_batch, caches, pos, tables=None):
-        return lm.decode_step(cfg, params, token_batch, caches, pos,
+        pos = torch.as_tensor(pos)
+        return lm.decode_step(cfg, params, {k: _rows(v) for k, v in
+                                            token_batch.items()},
+                              caches, _rows(pos) if pos.dim() else pos,
                               tables=tables)
     return step_fn
 
@@ -211,6 +239,78 @@ def batch_logical(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     if shape.kind == "train":
         out["targets"] = ("batch", None)
     return out
+
+
+def batch_struct(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """``steps.batch_struct``: one step's inputs as ``meta`` tensors (the
+    reference's ``ShapeDtypeStruct``s: the same shapes and dtypes,
+    nothing allocated)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        if cfg.frontend != "none":
+            return {"embeddings": sds((b, 1, cfg.d_model), torch.bfloat16)}
+        return {"tokens": sds((b, 1), torch.int32)}
+    batch = {}
+    if cfg.frontend == "none":
+        batch["tokens"] = sds((b, s), torch.int32)
+    else:  # precomputed patch/frame embeddings (stub frontend)
+        batch["embeddings"] = sds((b, s, cfg.d_model), torch.bfloat16)
+    if cfg.is_encdec:
+        batch["enc_embeddings"] = sds((b, s, cfg.d_model), torch.bfloat16)
+    if shape.kind == "train":
+        batch["targets"] = sds((b, s), torch.int32)
+    return batch
+
+
+def cell_artifacts(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                   search: bool = False):
+    """Everything one (arch x shape) cell's step needs under ``mesh``
+    (call inside ``sharding.use_mesh``, the reference's
+    ``steps.cell_artifacts``): ``(step, args, in_sh, out_sh, donate)``.
+    ``args`` are this rank's ``meta`` arguments: its shards of the
+    parameters (:func:`lm.init_params` on ``meta``, the counterpart of
+    the reference's ``lm.abstract_params``), of the optimizer state and
+    of the caches (:func:`lm.init_caches` on ``meta``, its
+    ``ShapeDtypeStruct`` tree), and the global batch
+    (:func:`batch_struct`), whose rows the step cuts itself; ``in_sh`` /
+    ``out_sh`` the placements of each argument and output
+    (:func:`resolve_shardings`, the batch's included);
+    ``donate`` the reference's donated argument indices (train (0, 1),
+    prefill (), decode (2,)).  Nothing is drawn or allocated."""
+    params_log = lm.logical_axes(cfg, mps_on=search)
+    params = shard_tree(lm.init_params(cfg, device="meta", mps_on=search),
+                        params_log)
+    params_sh = resolve_shardings(mesh, params_log)
+    b_abs = batch_struct(cfg, shape)
+    b_sh = resolve_shardings(mesh, batch_logical(cfg, shape))
+    scalar = sharding.sharding_for()
+    logits_sh = sharding.sharding_for("batch", None, "vocab")
+    cache_log = lm.cache_logical_axes(cfg)
+    if shape.kind == "train":
+        opt = optimizers.make_optimizer(cfg.optimizer, 1e-4)
+        opt_log = optimizers.state_logical_axes(cfg.optimizer, params_log)
+        opt_state = opt.init(params)
+        step = make_train_step(cfg, opt, search=search)
+        args = (params, opt_state, b_abs,
+                torch.empty((), dtype=torch.int32, device="meta"))
+        opt_sh = resolve_shardings(mesh, opt_log)
+        return (step, args, (params_sh, opt_sh, b_sh, scalar),
+                (params_sh, opt_sh, scalar), (0, 1))
+    cache_sh = resolve_shardings(mesh, cache_log)
+    if shape.kind == "prefill":
+        return (make_prefill_step(cfg), (params, b_abs), (params_sh, b_sh),
+                (logits_sh, cache_sh), ())
+    caches = shard_tree(lm.init_caches(cfg, shape.global_batch,
+                                       shape.seq_len, enc_len=shape.seq_len,
+                                       device="meta"), cache_log)
+    args = (params, b_abs, caches,
+            torch.empty((), dtype=torch.int32, device="meta"))
+    return (make_decode_step(cfg), args, (params_sh, b_sh, cache_sh, scalar),
+            (logits_sh, cache_sh), (2,))
 
 
 def resolve_shardings(mesh, logical_tree):

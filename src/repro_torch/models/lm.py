@@ -313,7 +313,9 @@ def _make_getw(cfg: ArchConfig, ctx: Optional[mps.SearchCtx]):
     bf16 cast; a weight the tensor-parallel ``region``
     (``sharding.Region``) does not split enters through the copy into
     it (each rank uses it for its own part); then the FSDP all-gather of
-    every dimension split over the data axes, whose backward
+    the ``w_embed`` dimension where the rules split it (over the data
+    axes; the long-context rules keep it there with ``batch``
+    unmapped), whose backward
     reduce-scatters the gradient (the sum over the data ranks).  The
     all-gather moves bf16, as the reference's does."""
 
@@ -335,9 +337,8 @@ def _make_getw(cfg: ArchConfig, ctx: Optional[mps.SearchCtx]):
             out = region.shared(out)
         if not dims:
             return out
-        batch = set(sharding.mesh_axes("batch"))
         for d, ax in enumerate(dims):
-            if ax and set(ax) <= batch:
+            if ax and axes[d] == "w_embed":
                 out = sharding.gather(out, d, sharding.group_of(ax))
         return out
     return getw
@@ -563,12 +564,21 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     Hkv, D)`` KV, for a cross layer its ``cross_kv`` ``(nsb, B, S_enc,
     Hkv, D)`` in the projections' dtype, and for a Mamba-2 layer its SSM
     state ``(nsb, B, H, P, N)`` and conv windows ``(nsb, B, K-1, C)``.
-    Under a mesh that splits a tensor-parallel, sequence or FSDP axis
-    (``sharding.tp_split``) only the training step of the dense, SSM and
-    MoE families is placed: ``mode="train"`` with ``logits_mode="hidden"``
-    gives this rank's rows of the batch, the whole sequence (gathered
-    once after the final norm); anything else raises a ValueError naming
-    ROADMAP section 1, items 2-3.
+    Under a mesh that splits a tensor-parallel, sequence, FSDP or (outside
+    training) cache-sequence axis (``sharding.tp_split``) the dense, SSM
+    and MoE families are placed in every mode on dense caches (the
+    enc-dec, VLM and hybrid families and page pools raise a ValueError
+    naming ROADMAP section 1, items 2-3).  ``batch`` holds this rank's
+    rows of the global batch (``launch/steps`` cuts them); ``caches``
+    this rank's shards of :func:`cache_logical_axes` (a prefill returns
+    them so).
+    ``logits_mode="hidden"`` gives this rank's rows of the batch, the
+    whole sequence (gathered once after the final norm); ``"last"`` and
+    ``"full"`` give this rank's vocab shard of ``("batch", None,
+    "vocab")``, as the reference's ``out_shardings`` place the logits,
+    the final softcap applied on the shard (``"last"`` takes the last
+    position's row from the rank whose block of the split sequence holds
+    it).
     A prefill given caches starts each Mamba-2 layer from their SSM
     state, as the JAX package does; a Mamba-2 layer the given tree lacks
     (a hybrid's paged prefill is handed only its KV pools) starts from
@@ -579,13 +589,15 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     does not run the encoder: the reference runs it over the step's one
     token and uses none of its output.
     """
-    if sharding.tp_split():
-        if mode != "train" or logits_mode != "hidden":
-            sharding.refuse_split(f"lm.forward(mode={mode!r}, "
-                                  f"logits_mode={logits_mode!r})")
+    serving = mode != "train"
+    if sharding.tp_split(serving):
         if cfg.family not in ("dense", "ssm", "moe"):
-            sharding.refuse_split(f"the {cfg.family} family's training "
-                                  f"step")
+            step = "training" if mode == "train" else mode
+            sharding.refuse_split(f"the {cfg.family} family's {step} step",
+                                  serving)
+        if tables is not None:
+            sharding.refuse_split(f"lm.forward(mode={mode!r}) on a page "
+                                  f"pool", serving)
     pattern = block_pattern(cfg)
     missing = [] if caches is None else [
         f"l{i}" for i in range(len(pattern)) if f"l{i}" not in caches]
@@ -622,14 +634,33 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
                        cfg.norm_eps).to(x.dtype)
     if logits_mode == "hidden":
         return sharding.seq_gather(x), caches
+    seq = sharding.axis_group("act_seq")
     if logits_mode == "last":
-        if last_pos is None:
+        n = x.shape[1]
+        if last_pos is None and seq is None:
             x = x[:, -1:, :]
         else:
-            idx = torch.as_tensor(last_pos, device=x.device).reshape(1)
-            x = x.index_select(1, idx.long())
-    logits = xla_numerics.matmul(x, params["lm_head"]["w"].to(
-        torch.bfloat16))
+            last = torch.as_tensor(
+                n * sharding.extent("act_seq") - 1 if last_pos is None
+                else last_pos, device=x.device).reshape(1).long()
+            if seq is None:
+                x = x.index_select(1, last)
+            else:
+                # every rank's row at the position (clamped into its
+                # block), then the row of the rank whose block holds it
+                at = (last - sharding.axis_index("act_seq") * n).clamp(
+                    0, n - 1)
+                rows = sharding.all_gather_cat(x.index_select(1, at), 1,
+                                               seq)
+                x = rows.index_select(1, torch.div(last, n,
+                                                   rounding_mode="floor"))
+    elif seq is not None:
+        x = sharding.seq_gather(x)
+    head = params["lm_head"]["w"].to(torch.bfloat16)
+    dims = sharding.dim_axes("w_embed", "vocab")
+    if dims and dims[0]:
+        head = sharding.gather(head, 0, sharding.group_of(dims[0]))
+    logits = xla_numerics.matmul(x, head)
     if cfg.final_softcap > 0:
         logits = blocks.softcap(logits, cfg.final_softcap)
     return logits, caches

@@ -4,7 +4,10 @@
 These live apart from :mod:`repro_torch.nn.blocks` so the paged-attention
 views (``kernels/paged_attention/ref.py``) can run the very same ops on a
 gathered pool without an import cycle: a view then equals the dense cache
-backend on the same logical rows.
+backend on the same logical rows.  :func:`decode_attention_partial` is
+the one-token attention over a rank's block of a cache whose sequence is
+split over ranks (``distributed.sharding.merge_partials`` merges the
+blocks).
 """
 from __future__ import annotations
 
@@ -112,6 +115,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)                        # (B, S, H, D)
 
 
+def _decode_mask(pos_k, pos, dev, window, chunked):
+    """(1|B, S) True where a key position is visible to the token at
+    ``pos`` (() or (B,)): causal, then the sliding window or the chunk."""
+    posv = torch.as_tensor(pos, device=dev)
+    pos_b = posv[None] if posv.dim() == 0 else posv         # (1,) or (B,)
+    mask = pos_k[None, :] <= pos_b[:, None]                 # (1|B, S)
+    if window > 0 and not chunked:
+        mask &= pos_k[None, :] > pos_b[:, None] - window
+    if window > 0 and chunked:
+        mask &= (pos_k[None, :] // window) == (pos_b[:, None] // window)
+    return mask
+
+
+def decode_attention_partial(q: torch.Tensor, cache_k: torch.Tensor,
+                             cache_v: torch.Tensor, pos, *, offset: int = 0,
+                             window: int = 0, chunked: bool = False,
+                             cap: float = 0.0):
+    """One-token attention over a block of the cache: q (B, 1, H, D) every
+    query head; cache (B, S_loc, Hkv, D) holding the absolute positions
+    ``offset .. offset + S_loc - 1``; ``pos`` () or (B,).  The mask is
+    :func:`decode_attention`'s on absolute positions (causal, sliding
+    window, chunked).  Returns float32 partials: ``m`` (B, H), the
+    largest visible score (``-inf`` where none is visible), ``l`` (B, H),
+    the sum of ``exp(score - m)`` (0 there), and ``acc`` (B, H, D), the
+    unnormalised output; ``sharding.merge_partials`` merges them over
+    the ranks that hold the cache's other blocks."""
+    b, s, hkv, d = cache_k.shape
+    h = q.shape[2]
+    k = repeat_kv(cache_k, h // hkv)
+    v = repeat_kv(cache_v, h // hkv)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) / math.sqrt(d)
+    logits = softcap(logits, cap)[:, :, 0]                   # (B, H, S)
+    mask = _decode_mask(offset + torch.arange(s, device=q.device), pos,
+                        q.device, window, chunked)
+    logits = torch.where(mask[:, None, :], logits, -math.inf)
+    m = logits.amax(dim=-1)                                  # (B, H)
+    p = torch.exp(logits - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    acc = torch.einsum("bhk,bkhd->bhd", p, v.float())
+    return m, p.sum(dim=-1), acc
+
+
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos, *, window: int = 0,
                      chunked: bool = False, cap: float = 0.0
@@ -130,14 +175,8 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     if pos is None:
         p = torch.softmax(logits, dim=-1)
         return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
-    pos_k = torch.arange(s, device=q.device)
-    posv = torch.as_tensor(pos, device=q.device)
-    pos_b = posv[None] if posv.dim() == 0 else posv         # (1,) or (B,)
-    mask = pos_k[None, :] <= pos_b[:, None]                 # (1|B, S)
-    if window > 0 and not chunked:
-        mask &= pos_k[None, :] > pos_b[:, None] - window
-    if window > 0 and chunked:
-        mask &= (pos_k[None, :] // window) == (pos_b[:, None] // window)
+    mask = _decode_mask(torch.arange(s, device=q.device), pos, q.device,
+                        window, chunked)
     logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())

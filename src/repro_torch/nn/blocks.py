@@ -19,8 +19,9 @@ from repro_torch.distributed import sharding
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.nn import quantized as nnq
-from repro_torch.nn.attention import (decode_attention, flash_attention,
-                                      softcap)
+from repro_torch.nn.attention import (decode_attention,
+                                      decode_attention_partial,
+                                      flash_attention, softcap)
 from repro_torch.nn.attention import repeat_kv as _repeat_kv
 from repro_torch.nn import xla_numerics as xla
 
@@ -146,14 +147,38 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
     values of ``kv_input`` (the encoder's output; prefill returns them as
     the new cache), decode over the cached ones (every position).
 
-    Under a mesh that splits ``heads_flat`` (the training step) the layer
-    is a tensor-parallel region (``sharding.Region``): ``wq`` is split by
+    Under a mesh that splits ``heads_flat`` the layer is a
+    tensor-parallel region (``sharding.Region``): ``wq`` is split by
     column into this rank's ``h / tp`` query heads, ``wk`` / ``wv`` are
     whole (``kv_flat`` is in no rule) and sliced to the KV heads those
     query heads read, ``wo`` is split by row and its partial output
     leaves the region summed; ``x`` and ``y`` are the stream's rows
-    (the sequence split over ``act_seq``).  ``effective_w(pp, axes,
-    region)`` gives each weight as this rank uses it.
+    (the sequence split over ``act_seq`` in training and prefill).
+    ``effective_w(pp, axes, region)`` gives each weight as this rank
+    uses it.  A dense cache is this rank's shard of
+    ``lm.cache_logical_axes``: its ``kv_seq`` block of positions (every
+    position when ``kv_seq`` is unmapped), every KV head.
+
+    * Prefill: the region's whole-sequence input runs the flash pass on
+      the local heads, as in training.  The cache rows are projected
+      from this rank's own block of the input rows with the whole ``wk``
+      / ``wv``: ``act_seq`` and ``kv_seq`` map to the same axes under the
+      reference's prefill rules, so those rows are the ones the rank
+      brought into the region, and the cache needs no all-to-all or
+      all-gather of K/V (taken over all-gathering the local heads' K/V:
+      one extra projection of S / tp rows against a collective of the
+      whole sequence's K/V).
+    * Decode: the token's K/V (every KV head) is written only by the
+      rank whose block holds ``pos``, slot by slot; with ``kv_seq``
+      split the local query heads are all-gathered over the heads'
+      group, every rank takes the partials of every head over its block
+      (``attention.decode_attention_partial``, masked on absolute
+      positions), ``sharding.merge_partials`` merges them over the
+      ``kv_seq`` group (every rank the same bits), and each rank keeps
+      its own heads for the row-split ``wo``.  Under the long-context
+      rules (``batch`` unmapped, ``kv_seq`` over every axis) the data
+      ranks repeat the projections, as the reference's replicated batch
+      does.
     """
     if kind not in ("full", "local", "chunked", "bidir", "cross"):
         raise ValueError(f"unknown attention kind {kind!r}")
@@ -175,11 +200,17 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
     if cfg.qk_norm:
         q = rmsnorm(q, q_norm, cfg.norm_eps)
 
-    def kv_w(name):
-        w = _weight(getw, p[name], name, reg)
+    def local_kv(w):
+        """The KV heads this rank's query heads read (columns of a
+        weight, or dim 2 of K/V)."""
         if hkv == cfg.hkv_eff:
             return w
-        return w[:, kv0 * hd:(kv0 + hkv) * hd]
+        if w.dim() == 2:
+            return w[:, kv0 * hd:(kv0 + hkv) * hd]
+        return w[:, :, kv0:kv0 + hkv]
+
+    def kv_w(name):
+        return local_kv(_weight(getw, p[name], name, reg))
     if kind == "cross":
         if mode == "decode":
             # the encoder's K/V, cached at prefill; the step's own
@@ -201,15 +232,23 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
                              f"got {mode!r}")
         return reg.exit(linear(out.reshape(b, s, h * hd),
                                _weight(getw, p["wo"], "wo", reg))), new_cache
-    kk = linear(x, kv_w("wk")).reshape(b, s, hkv, hd)
-    vv = linear(x, kv_w("wv")).reshape(b, s, hkv, hd)
-    if cfg.qk_norm:
-        kk = rmsnorm(kk, k_norm, cfg.norm_eps)
+    wk, wv = (_weight(getw, p[n], n, reg) for n in ("wk", "wv"))
+
+    def project(rows, w_k, w_v, heads):
+        kk = linear(rows, w_k).reshape(b, rows.shape[1], heads, hd)
+        vv = linear(rows, w_v).reshape(b, rows.shape[1], heads, hd)
+        if cfg.qk_norm:
+            kk = rmsnorm(kk, k_norm, cfg.norm_eps)
+        return kk, vv
+
     window = cfg.local_window if kind in ("local", "chunked") else 0
     chunked = kind == "chunked"
     dev = x.device
+    n_kv = sharding.extent("kv_seq") if tables is None else 1
 
     if mode == "decode":
+        # the token's K/V of every KV head: the cache holds them all
+        kk, vv = project(x, wk, wv, cfg.hkv_eff)
         posn = torch.as_tensor(pos, device=dev)
         pos_rope = posn[None] if posn.dim() == 0 else posn[:, None]
         q = rope(q, pos_rope, cfg.rope_theta)
@@ -226,23 +265,40 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
             out = paged_decode_attention(
                 q, cache["k"], cache["v"], tables, pos_b.to(torch.int32),
                 window=window, chunked=chunked, cap=cfg.attn_softcap)
-        else:
-            if cache is not None:
-                if posn.dim() == 0:
-                    cache["k"][:, posn] = kk[:, 0].to(cache["k"].dtype)
-                    cache["v"][:, posn] = vv[:, 0].to(cache["v"].dtype)
+        elif cache is not None:
+            s_loc = cache["k"].shape[1]
+            off = sharding.kv_offset(s_loc)
+            idx = posn.long().expand(b) - off
+            for key, new in (("k", kk), ("v", vv)):
+                c, new = cache[key], new[:, 0].to(cache[key].dtype)
+                if n_kv > 1:
+                    # only the rank whose block holds the slot's
+                    # position writes
+                    own = ((idx >= 0) & (idx < s_loc))[:, None, None]
+                    at = idx.clamp(0, s_loc - 1)
+                    c[rows, at] = torch.where(own, new, c[rows, at])
                 else:
-                    cache["k"][rows, posn.long()] = kk[:, 0].to(
-                        cache["k"].dtype)
-                    cache["v"][rows, posn.long()] = vv[:, 0].to(
-                        cache["v"].dtype)
-                ck, cv = cache["k"], cache["v"]
+                    c[rows, idx] = new
+            if n_kv > 1:
+                qa = sharding.all_gather_cat(q, 2, reg.split)
+                m, l, acc = decode_attention_partial(
+                    qa, cache["k"], cache["v"], posn, offset=off,
+                    window=window, chunked=chunked, cap=cfg.attn_softcap)
+                o = sharding.merge_partials(m, l, acc,
+                                            sharding.axis_group("kv_seq"))
+                out = o[:, None, q0:q0 + h].to(q.dtype)
             else:
-                ck, cv = kk, vv
-            out = decode_attention(q, ck, cv, posn, window=window,
-                                   chunked=chunked, cap=cfg.attn_softcap)
-        new_cache = cache if cache is not None else {"k": ck, "v": cv}
+                out = decode_attention(q, local_kv(cache["k"]),
+                                       local_kv(cache["v"]), posn,
+                                       window=window, chunked=chunked,
+                                       cap=cfg.attn_softcap)
+        else:
+            out = decode_attention(q, local_kv(kk), local_kv(vv), posn,
+                                   window=window, chunked=chunked,
+                                   cap=cfg.attn_softcap)
+        new_cache = cache if cache is not None else {"k": kk, "v": vv}
     elif mode in ("prefill", "train"):
+        kk, vv = project(x, local_kv(wk), local_kv(wv), hkv)
         positions = torch.arange(s, device=dev)
         q = rope(q, positions, cfg.rope_theta)
         kk = rope(kk, positions, cfg.rope_theta)
@@ -267,7 +323,21 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
             out = flash_attention(q, kk, vv, causal=kind != "bidir",
                                   window=window, chunked=chunked,
                                   cap=cfg.attn_softcap)
-            new_cache = {"k": kk, "v": vv} if mode == "prefill" else None
+            new_cache = None
+            if mode == "prefill" and n_kv == 1 and hkv == cfg.hkv_eff:
+                new_cache = {"k": kk, "v": vv}
+            elif mode == "prefill":
+                # this rank's kv_seq block of positions, every KV head,
+                # from its own block of the input rows
+                if s % n_kv:
+                    raise ValueError(f"a prompt of {s} tokens does not "
+                                     f"split over {n_kv} cache blocks")
+                s_loc = s // n_kv
+                off = sharding.kv_offset(s_loc)
+                kc, vc = project(x[:, off:off + s_loc], wk, wv,
+                                 cfg.hkv_eff)
+                kc = rope(kc, positions[off:off + s_loc], cfg.rope_theta)
+                new_cache = {"k": kc, "v": vc}
     else:
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "
                          f"{mode!r}")
@@ -548,14 +618,18 @@ def mamba2_layer(p: dict, x: torch.Tensor, cfg, *, mode: str = "prefill",
     it.  The JAX package runs the same recurrence inline, one chunk per
     ``lax.scan`` step.
 
-    Under a mesh that splits ``ssm_inner`` (the training step) the layer
-    is a tensor-parallel region (``sharding.Region``) over ``H / tp``
-    heads a rank: ``in_z``, ``in_x``, ``conv_x``, ``ssm_norm`` and
-    ``out_proj`` are split, ``in_b``, ``in_c``, ``in_dt``, the B / C
-    conv kernels and the per-head vectors whole and used in part (their
-    gradients summed over the region; ``in_dt`` and the vectors sliced
-    to the local heads), the norm's sum of squares all-reduced over the
-    whole ``d_inner``, and K5 runs on the local heads.
+    Under a mesh that splits ``ssm_inner`` the layer is a
+    tensor-parallel region (``sharding.Region``) over ``H / tp`` heads a
+    rank: ``in_z``, ``in_x``, ``conv_x``, ``ssm_norm`` and ``out_proj``
+    are split, ``in_b``, ``in_c``, ``in_dt``, the B / C conv kernels and
+    the per-head vectors whole and used in part (their gradients summed
+    over the region; ``in_dt`` and the vectors sliced to the local
+    heads), the norm's sum of squares all-reduced over the whole
+    ``d_inner``, and K5 (prefill, train) and the one-token recurrence
+    (decode) run on the local heads.  ``state`` is then this rank's
+    shard of ``lm.cache_logical_axes``: ``ssm`` and ``conv["x"]`` its
+    ``ssm_inner`` block, ``conv["b"]`` / ``conv["c"]`` whole; the new
+    state comes back so.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be 'train', 'prefill' or 'decode', got "

@@ -45,6 +45,8 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.chaos, repro_torch.fleet\n"
         "import repro_torch.launch.fleet\n"
         "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.distributed.cost_analysis\n"
+        "import repro_torch.launch.dryrun\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.') or m == 'triton']\n"
         "assert not bad, bad\n")
@@ -299,6 +301,23 @@ def test_mesh_layer_stands_alone():
         "        assert f'need {n} ranks' in str(e), e\n"
         "    else:\n"
         "        raise AssertionError('no error')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+
+
+def test_dryrun_stands_alone():
+    """A dry-run cell traced on a fake group of four ranks (prefill of a
+    smoke arch on a (2, 2) mesh) loads neither JAX nor ``repro``."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import dryrun\n"
+        "rec, tally = dryrun.run_cell('llama3.2-1b-smoke', 'prefill_32k',\n"
+        "                             verbose=False, mesh=(2, 2), batch=4,\n"
+        "                             seq=32)\n"
+        "assert rec['ok'] and tally['ops'], rec\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n")
