@@ -353,9 +353,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
               background processes beside (a)-(c), stopped while the
               ranks profile: llama3.2-1b
               prefill_32k and decode_32k, mamba2-780m long_500k and
-              train_4k --search, each cell ok, its roofline printed.
-21. report -- one JSON line of kernels (with each kernel's launches on
-              paths 8 to 15), the card's name and power limit, and last
+              train_4k --search, and path 16's seamless-m4t-medium and
+              qwen2-vl-72b decode_32k and jamba-1.5-large-398b
+              long_500k, each cell ok, its roofline printed; joined
+              after path 16.
+21. mesh-families -- path 16, in path 15's spawn of ranks: the
+              enc-dec, VLM and hybrid families under the same
+              placements (stub frontends' embeddings cut to a rank's
+              rows of the sequence, the encoder and the cross attention
+              as regions, the cross attention's raw weights placed,
+              ``cross_kv`` whole on every rank, jamba's mixed cache
+              tree).  Every rank draws a run's tree leaf by leaf, each
+              leaf cut to its shard as it is drawn.  (a)
+              seamless-m4t-medium at published widths and full depth
+              (12 + 12 layers) trained on (2, 2), one search step of 4
+              x 256 stub-frontend embeddings, against its (1, 1) step
+              0 as path 14 holds its runs (K4 given the absmax on every
+              projection but the cross attention's raw ones); (b)
+              seamless prefill 4 x 512 embeddings (and the encoder's),
+              8 greedy decode steps on a 1024-position cache; (c)
+              qwen2-vl-72b at 2 of 80 layers, prefill 4 x 1024
+              embeddings, 8 decode steps; (d) jamba-1.5-large-398b, one
+              super-block at published widths and 4 of 16 experts (one
+              a rank), prefill 4 x 1024 tokens (four SSD chunks; K5
+              seven launches a rank on 32 of 128 heads), 8 decode
+              steps; (b)-(d) on (1, 4) held as path 15 holds its runs.
+              Each path's seconds are printed.
+22. report -- one JSON line of kernels (with each kernel's launches on
+              paths 8 to 16), the card's name and power limit, and last
               the JSON status line.
 
 Imports torch, numpy and the port (``src/repro_torch``) only.
@@ -6389,7 +6414,7 @@ def _ep_cli(dev, tmp):
 # path 14: tensor parallelism, FSDP and the split sequence
 # ---------------------------------------------------------------------------
 
-TP_RUNS = {"llama": ("llama3.2-1b", {}, (2, 2)),
+TP_RUNS = {"llama": ("llama3.2-1b", dict(n_layers=8), (2, 2)),  # of 16
            "mamba": ("mamba2-780m", dict(n_layers=8), (1, 4))}  # of 48
 TP_STEPS = 2         # step 1: updated shards, non-zero moments, profiled
 TP_DEVICE = "cuda"           # the ranks' device
@@ -6399,12 +6424,51 @@ TP_DEVICE = "cuda"           # the ranks' device
 TP_LOSS, TP_GRAD = 1e-4, 3e-2
 
 
+def _tp_spec(which):
+    """A training run of path 14 (``TP_RUNS``) or path 16 (``MF_TRAIN``):
+    ``(arch, cut, mesh)``, its step count, and the tag of its lines."""
+    if which in TP_RUNS:
+        return TP_RUNS[which], TP_STEPS, \
+            f"[tp] ({'ab'[list(TP_RUNS).index(which)]})"
+    return MF_TRAIN[which], MF_STEPS, f"[mesh-families] ({which})"
+
+
 def _tp_cfg(which):
     import dataclasses
 
     from repro_torch.configs import registry
-    arch, cut, _ = TP_RUNS[which]
+    arch, cut, _ = _tp_spec(which)[0]
     return dataclasses.replace(registry.get(arch), **cut)
+
+
+def _tp_batch(cfg, i, dev):
+    """Training batch ``i``, the keys of ``steps.batch_struct``:
+    ``lm_batch``'s tokens and targets on the card, a stub frontend's
+    ``embeddings`` (and an enc-dec's ``enc_embeddings``) in place of the
+    tokens, bf16 from a seeded generator on the card."""
+    from repro_torch.data import synthetic
+    batch = synthetic.lm_batch(cfg.vocab, TRAIN_SEQ + 1, TRAIN_BATCH, i,
+                               device=dev)
+    if cfg.frontend != "none":
+        del batch["tokens"]
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+        for k in ("embeddings", "enc_embeddings")[:1 + cfg.is_encdec]:
+            batch[k] = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+                                   generator=g, device=dev).to(
+                                       torch.bfloat16)
+    return batch
+
+
+def _k4_nodes(cfg):
+    """The Eq. 5 weights a search step's forward takes, each super-block
+    apart: every gamma-carrying projection of the decoder and the
+    encoder stacks but the cross attention's (raw weights, as in the
+    reference)."""
+    from repro_torch.models import lm
+    tree = lm.init_params(cfg, device="meta", mps_on=True)
+    return sum(t.shape[0] for k, t in _leaves(tree)
+               if k.endswith("gamma") and "cross" not in k
+               and "blocks" in k)
 
 
 def _tp_rules(cfg):
@@ -6519,9 +6583,10 @@ def _tp_rank(rank, world, tmp):
 
 
 def _tp_rank_train(which, rank, tmp):
-    """TP_STEPS search steps of one run on this rank under the
-    reference's rules: the whole seed-0 tree drawn on the card and cut
-    into this rank's shard, float32 masters, adam at 3e-4, remat.
+    """The run's search steps (TP_STEPS, path 16's MF_STEPS) on this rank
+    under the reference's rules: the seed-0 tree drawn on the card leaf
+    by leaf, each cut to this rank's shard as it is drawn, float32
+    masters, adam at 3e-4, remat.
     Records the losses and norms, step 0's clipped gradient shards (to
     ``tmp``), the digests after every step, the gammas' moves, the
     launches (K4 given the absmax apart), the collectives by kind, step
@@ -6530,7 +6595,6 @@ def _tp_rank_train(which, rank, tmp):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data import synthetic
     from repro_torch.distributed import sharding
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import steps as steps_lib
@@ -6539,7 +6603,8 @@ def _tp_rank_train(which, rank, tmp):
 
     dev = torch.device(TP_DEVICE)
     cfg = _tp_cfg(which)
-    mesh = meshlib.make_debug_mesh(*TP_RUNS[which][2], device=dev)
+    (_, _, shape), n_steps, _ = _tp_spec(which)
+    mesh = meshlib.make_debug_mesh(*shape, device=dev)
     torch.cuda.reset_peak_memory_stats()
     logical = lm.logical_axes(cfg, mps_on=True)
     counters = _counters()
@@ -6548,11 +6613,10 @@ def _tp_rank_train(which, rank, tmp):
     coll = _Collectives()
     try:
         with sharding.use_mesh(mesh, _tp_rules(cfg)):
-            whole = lm.init_params(cfg, torch.Generator(
-                device=dev).manual_seed(0), dev, mps_on=True)
-            params = steps_lib.shard_tree(whole, logical)
-            del whole
+            params = lm.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(0), dev, mps_on=True, sharded=True)
             _free(dev)
+            res["draw_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             res["shapes"] = {k: tuple(t.shape) for k, t in _leaves(params)}
             gamma0 = {k: t.clone() for k, t in _leaves(params)
                       if k.endswith("gamma")}
@@ -6565,10 +6629,9 @@ def _tp_rank_train(which, rank, tmp):
             for fn in counters.values():
                 fn.launches = 0
             counters["mps_combine"].given_launches = 0
-            for i in range(TP_STEPS):
-                batch = synthetic.lm_batch(cfg.vocab, TRAIN_SEQ + 1,
-                                           TRAIN_BATCH, i, device=dev)
-                last = i == TP_STEPS - 1
+            for i in range(n_steps):
+                batch = _tp_batch(cfg, i, dev)
+                last = i == n_steps - 1
                 torch.cuda.synchronize()
                 with (profile(activities=[ProfilerActivity.CUDA]) if last
                       else contextlib.nullcontext()) as prof:
@@ -6656,7 +6719,8 @@ def _tp_join(cfg, parts, logical, dev):
 
     from repro_torch.distributed import sharding
     shape = dict(zip(("data", "model"), next(
-        v[2] for v in TP_RUNS.values() if v[0] == cfg.name)))
+        v[2] for v in {**TP_RUNS, **MF_TRAIN}.values()
+        if v[0] == cfg.name)))
     grid = types.SimpleNamespace(axis_names=("data", "model"), shape=shape)
     axes_of = dict(_leaves(logical))
     out = {}
@@ -6688,19 +6752,18 @@ def _tp_check(which, tr, tmp, dev, smi):
     L2 (the ranks' shards joined); the ranks' losses equal, finite;
     every leaf the same on the ranks that share its shard after every
     step; every gamma moved; the launches."""
-    from repro_torch.data import synthetic
     from repro_torch.launch import steps as steps_lib
     from repro_torch.models import lm
     from repro_torch.optim import optimizers
 
     cfg = _tp_cfg(which)
-    shape = TP_RUNS[which][2]
-    tag = f"[tp] ({'ab'[list(TP_RUNS).index(which)]}) {cfg.name}"
+    (_, _, shape), n_steps, tag = _tp_spec(which)
+    tag = f"{tag} {cfg.name}"
     losses = tr[0]["losses"]
     if any(r["losses"] != losses for r in tr) or not all(
             np.isfinite(losses + tr[0]["norms"])):
         raise AssertionError(f"{tag}: losses {[r['losses'] for r in tr]}")
-    for step in range(TP_STEPS):
+    for step in range(n_steps):
         for key, (_, _, split) in tr[0]["digests"][step].items():
             for r in tr:
                 peers = [q for q in tr if all(
@@ -6719,8 +6782,7 @@ def _tp_check(which, tr, tmp, dev, smi):
                             dev, mps_on=True)
     opt = _KeepGrads(optimizers.make_optimizer(cfg.optimizer, 3e-4))
     step_fn = steps_lib.make_train_step(cfg, opt, search=True)
-    batch = synthetic.lm_batch(cfg.vocab, TRAIN_SEQ + 1, TRAIN_BATCH, 0,
-                               device=dev)
+    batch = _tp_batch(cfg, 0, dev)
     state0 = opt.init(params)
     _, st, loss = step_fn(params, state0, batch, 0)
     ref_loss, ref_norm = float(loss), float(step_fn.grad_norm)
@@ -6766,7 +6828,8 @@ def _tp_check(which, tr, tmp, dev, smi):
         f"({heads} a rank, the vocab's {lm.padded_vocab(cfg) // shape[1]} "
         f"rows a rank, the sequence's {TRAIN_SEQ // shape[1]} rows between "
         f"layers), float32 masters, {cfg.optimizer}, remat {cfg.remat}, "
-        f"{TP_STEPS} search steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"{n_steps} search step(s) of {TRAIN_BATCH} x {TRAIN_SEQ} tokens"
+        f"{' (stub frontend embeddings)' if cfg.frontend != 'none' else ''}: "
         f"losses {[round(v, 5) for v in losses]} (every rank), grad norms "
         f"{[round(v, 4) for v in r0['norms']]}; step 0 against the (1, 1) "
         f"step on the card: loss {losses[0]:.6f} vs {ref_loss:.6f} (gap "
@@ -6789,7 +6852,7 @@ def _tp_check(which, tr, tmp, dev, smi):
            if cfg.is_ssm else "")
         + f"; step ms a rank {[[round(x, 1) for x in r['ms']] for r in tr]} "
         f"(the last profiled on every rank); rank 0's collectives over the "
-        f"{TP_STEPS} steps (count, wall ms): "
+        f"{n_steps} step(s) (count, wall ms): "
         f"{ {k: (n, round(ms, 1)) for k, (n, ms) in coll.items()} }, "
         f"{sum(ms for _, ms in coll.values()):.1f} ms of "
         f"{sum(r0['ms']):.1f}; the last step's device ms a rank "
@@ -6797,20 +6860,22 @@ def _tp_check(which, tr, tmp, dev, smi):
         f"{ {k: round(v, 1) for k, v in r0['device_split'].items()} }), "
         f"card busy {100 * busy:.1f}% (their sum over the slowest rank's "
         f"wall; {100 * kern_busy:.1f}% without the staging copies); peak "
-        f"a rank {[round(r['peak_gib'], 2) for r in tr]} GiB; the (1, 1) "
+        f"a rank {[round(r['peak_gib'], 2) for r in tr]} GiB (after the "
+        f"sharded draw {[round(r['draw_peak_gib'], 2) for r in tr]}); the "
+        f"(1, 1) "
         f"reference {ref_s:.1f} s, peak {ref_peak:.2f} GiB; {smi}")
     nsb = lm.n_superblocks(cfg)
-    nodes = lm.mps_param_count(cfg) * nsb
+    nodes = _k4_nodes(cfg)
     remat = 2 if cfg.remat else 1
-    need = {"mps_combine": nodes * remat * TP_STEPS,
-            "mps_combine_bwd": nodes * TP_STEPS}
+    need = {"mps_combine": nodes * remat * n_steps,
+            "mps_combine_bwd": nodes * n_steps}
     # a projection's C_in split over a mesh axis of extent > 1: every
     # llama projection; mamba's out_proj alone (C_in ssm_inner on model)
     given = need["mps_combine"] if shape[0] > 1 else \
-        nsb * remat * TP_STEPS
+        nsb * remat * n_steps
     if cfg.is_ssm:
-        need.update(ssd_scan=nsb * remat * TP_STEPS,
-                    ssd_scan_bwd=nsb * TP_STEPS)
+        need.update(ssd_scan=nsb * remat * n_steps,
+                    ssd_scan_bwd=nsb * n_steps)
     for r in tr:
         got = r["launches"]
         if any(got[x] != v for x, v in need.items()) or any(
@@ -6860,14 +6925,47 @@ SM_PROFILED = 3
 DRYRUN_CELLS = ((("llama3.2-1b", "prefill_32k", False),),
                 (("llama3.2-1b", "decode_32k", False),
                  ("mamba2-780m", "long_500k", False),
-                 ("mamba2-780m", "train_4k", True)))
+                 ("mamba2-780m", "train_4k", True),
+                 # path 16's families, one uncut cell each (6-17 s on
+                 # one idle core)
+                 ("seamless-m4t-medium", "decode_32k", False),
+                 ("qwen2-vl-72b", "decode_32k", False),
+                 ("jamba-1.5-large-398b", "long_500k", False)))
+
+# path 16: the enc-dec, VLM and hybrid families under the placements, in
+# path 15's spawn of ranks.  (a) trains seamless-m4t-medium at published
+# widths and full depth on (2, 2), one search step against the (1, 1)
+# step 0 (path 14's checks; K4 given the absmax on every projection but
+# the cross attention's raw ones); (b)-(d) prefill with a stub
+# frontend's embeddings (jamba: tokens) and decode greedy tokens on
+# (1, 4), rows as in SM_RUNS, against one process (path 15's checks)
+MF_TRAIN = {"a": ("seamless-m4t-medium", {}, (2, 2))}
+MF_STEPS = 1
+MF_RUNS = {"b": ("seamless-m4t-medium", {}, (1, 4), "serve", 4, 512, 1024,
+                 8),
+           "c": ("qwen2-vl-72b", dict(n_layers=2), (1, 4), "serve", 4,
+                 1024, 2048, 8),                                # of 80
+           "d": ("jamba-1.5-large-398b", dict(n_layers=8, n_experts=4),
+                 (1, 4), "serve", 4, 1024, 2048, 8)}   # one super-block
+
+
+def _sm_spec(which):
+    """A serving run of path 15 (``SM_RUNS``) or path 16 (``MF_RUNS``,
+    keyed ``16b``-``16d``)."""
+    return MF_RUNS[which[2:]] if which.startswith("16") else SM_RUNS[which]
+
+
+def _sm_tag(which):
+    arch = _sm_spec(which)[0]
+    return f"[mesh-families] ({which[2:]}) {arch}" \
+        if which.startswith("16") else f"[serve-mesh] ({which}) {arch}"
 
 
 def _sm_cfg(which):
     import dataclasses
 
     from repro_torch.configs import registry
-    arch, cut = SM_RUNS[which][:2]
+    arch, cut = _sm_spec(which)[:2]
     return dataclasses.replace(registry.get(arch), **cut)
 
 
@@ -6877,7 +6975,7 @@ def _sm_rules(which, kind):
     from repro_torch.configs import registry
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps as steps_lib
-    arch, _, _, _, b, s, s_max, _ = SM_RUNS[which]
+    arch, _, _, _, b, s, s_max, _ = _sm_spec(which)
     rules = dict(registry.RULE_OVERRIDES.get(arch, {}))
     rules.update(steps_lib.shape_rules(ShapeConfig(
         kind, kind, s if kind == "prefill" else s_max, b)))
@@ -6885,14 +6983,21 @@ def _sm_rules(which, kind):
 
 
 def _sm_inputs(which, cfg, dev):
-    """The run's prompt (B, S) and, under ``long``, its whole cache of
-    S_MAX positions, from seeded generators on the card."""
+    """The run's prefill batch -- its prompt (B, S), or a stub frontend's
+    embeddings (B, S, D) in bf16 (and an enc-dec's encoder embeddings of
+    S positions) -- and, under ``long``, its whole cache of S_MAX
+    positions, from seeded generators on the card."""
     from repro_torch.models import lm
-    _, _, _, run, b, s, s_max, _ = SM_RUNS[which]
+    _, _, _, run, b, s, s_max, _ = _sm_spec(which)
     g = torch.Generator(device=dev).manual_seed(1)
+    if run == "serve" and cfg.frontend != "none":
+        keys = ("embeddings", "enc_embeddings")[:1 + cfg.is_encdec]
+        return {k: torch.randn((b, s, cfg.d_model), generator=g,
+                               device=dev).to(torch.bfloat16)
+                for k in keys}, None
     if run == "serve":
-        return torch.randint(cfg.vocab, (b, s), generator=g, device=dev), \
-            None
+        return {"tokens": torch.randint(cfg.vocab, (b, s), generator=g,
+                                        device=dev)}, None
     whole = lm.init_caches(cfg, b, s_max, device=dev)
     for leaf in _leaves(whole):
         leaf[1].copy_(torch.randn(leaf[1].shape, generator=g, device=dev))
@@ -6902,14 +7007,16 @@ def _sm_inputs(which, cfg, dev):
 def _sm_decode_cache(cfg, which, whole, dev):
     """A prefill's gathered caches in the decode run's tree: KV copied
     into S_MAX positions (so a kv_seq split of 2 leaves every new
-    position to the second rank), a Mamba-2 state as it is."""
+    position to the second rank), a Mamba-2 state and an enc-dec's
+    ``cross_kv`` (the encoder's S positions) as they are."""
     from repro_torch.models import lm
-    _, _, _, _, b, s, s_max, _ = SM_RUNS[which]
+    _, _, _, _, b, s, s_max, _ = _sm_spec(which)
     if not s_max:
         return whole
-    big = lm.init_caches(cfg, b, s_max, device=dev)
+    big = lm.init_caches(cfg, b, s_max, enc_len=s if cfg.is_encdec else 0,
+                         device=dev)
     for (k, dst), (_, src) in zip(_leaves(big), _leaves(whole)):
-        if k.endswith(("/k", "/v")):
+        if k.endswith(("/k", "/v")) and "cross_kv" not in k:
             dst[:, :, :s].copy_(src)
         else:
             dst.copy_(src)
@@ -6942,8 +7049,8 @@ def _sm_signal(pids, sig):
 
 def _sm_run(which, params, dev, forced=None, mesh=None, coll=None,
             quiet=()):
-    """One run of path 15 on this process: prefill (``serve``) then the
-    decode steps, greedy from the last logits or teacher-forced with
+    """One run of path 15 or 16 on this process: prefill (``serve``) then
+    the decode steps, greedy from the last logits or teacher-forced with
     ``forced`` (T, B, 1).  Under ``mesh`` the parameters are this rank's
     shards, the inputs global, and logits and caches are gathered; the
     last SM_PROFILED decode steps are profiled, each alone, with the
@@ -6962,7 +7069,7 @@ def _sm_run(which, params, dev, forced=None, mesh=None, coll=None,
     from repro_torch.models import lm
 
     cfg = _sm_cfg(which)
-    _, _, _, run, b, s, s_max, t = SM_RUNS[which]
+    _, _, _, run, b, s, s_max, t = _sm_spec(which)
     cache_log = lm.cache_logical_axes(cfg)
     logit_log = {"l": ("batch", None, "vocab")}
 
@@ -6985,7 +7092,7 @@ def _sm_run(which, params, dev, forced=None, mesh=None, coll=None,
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, caches = steps_lib.make_prefill_step(cfg)(
-                params, {"tokens": prompt})
+                params, prompt)
             torch.cuda.synchronize()
             out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
             if coll is not None:
@@ -7046,7 +7153,7 @@ def _sm_run(which, params, dev, forced=None, mesh=None, coll=None,
                            if j != i)]
         if not agreeing:
             raise AssertionError(
-                f"[serve-mesh] ({which}) every profiled decode step's trace "
+                f"{_sm_tag(which)}: every profiled decode step's trace "
                 f"lost launch records: kernel counts "
                 f"{[sum(c.values()) for c, _ in traces.values()]}")
         step_read = agreeing[0]
@@ -7064,11 +7171,15 @@ def _sm_run(which, params, dev, forced=None, mesh=None, coll=None,
 
 
 def _sm_rank(rank, world, tmp, quiet):
-    """One of the four ranks: path 15's three runs, teacher-forced with
-    the (1, 1) runs' inputs (``tmp/forced_<run>.pt``), the dry-run's
-    processes ``quiet`` stopped while the decode steps are profiled;
-    rank 0's results to ``tmp/sm_<run>.pt``, every rank's summary to
-    ``tmp/sm_rank<r>.pt``."""
+    """One of the four ranks: path 15's three runs, then path 16's
+    training run (``tmp/mf_rank<r>.pt``, its gradients beside it) and its
+    three serving runs, the serving runs teacher-forced with the (1, 1)
+    runs' inputs (``tmp/forced_<run>.pt``), the dry-run's processes
+    ``quiet`` stopped while the decode steps are profiled; rank 0's
+    serving results to ``tmp/sm_<run>.pt``, every rank's summary to
+    ``tmp/sm_rank<r>.pt`` (each path's seconds under ``path_s``).  Each
+    rank draws a run's tree leaf by leaf, cutting each to its shard
+    (``lm.init_params(sharded=True)``)."""
     import torch.distributed as dist
 
     from repro_torch.distributed import sharding
@@ -7081,24 +7192,31 @@ def _sm_rank(rank, world, tmp, quiet):
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
                             rank=rank, world_size=world)
     dev = torch.device(TP_DEVICE)
-    summary = {}
+    summary = {"path_s": {}}
+    runs = list(SM_RUNS) + ["train"] + [f"16{k}" for k in MF_RUNS]
     try:
-        for which in SM_RUNS:
+        t_path = time.perf_counter()
+        for which in runs:
+            if which == "train":
+                summary["path_s"][15] = time.perf_counter() - t_path
+                t_path = time.perf_counter()
+                mf = {w: _tp_rank_train(w, rank, tmp) for w in MF_TRAIN}
+                torch.save(mf, os.path.join(tmp, f"mf_rank{rank}.pt"))
+                _free(dev)
+                continue
             cfg = _sm_cfg(which)
-            mesh = meshlib.make_debug_mesh(*SM_RUNS[which][2], device=dev)
+            mesh = meshlib.make_debug_mesh(*_sm_spec(which)[2], device=dev)
             torch.cuda.reset_peak_memory_stats()
             counters = _counters()
             coll = _Collectives()
             try:
-                kind = "prefill" if SM_RUNS[which][3] == "serve" else \
+                kind = "prefill" if _sm_spec(which)[3] == "serve" else \
                     "decode"
                 with sharding.use_mesh(mesh, _sm_rules(which, kind)):
-                    whole = lm.init_params(cfg, torch.Generator(
-                        device=dev).manual_seed(0), dev)
-                    params = steps_lib.shard_tree(
-                        whole, lm.logical_axes(cfg))
-                    del whole
+                    params = lm.init_params(cfg, torch.Generator(
+                        device=dev).manual_seed(0), dev, sharded=True)
                     _free(dev)
+                draw_peak = torch.cuda.max_memory_allocated() / 2**30
                 forced = torch.load(os.path.join(tmp, f"forced_{which}.pt"))
                 torch.cuda.synchronize()
                 for fn in counters.values():
@@ -7117,12 +7235,13 @@ def _sm_rank(rank, world, tmp, quiet):
                 device_ms=res["device_ms"], profiled=res["profiled"],
                 unmatched=res["unmatched"],
                 device_split=res["device_split"], launches=launches,
-                shapes=res["shapes"], digest=digest,
+                shapes=res["shapes"], digest=digest, draw_peak_gib=draw_peak,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
             if rank == 0:
                 torch.save(res, os.path.join(tmp, f"sm_{which}.pt"))
             del params, res
             _free(dev)
+        summary["path_s"][16] = time.perf_counter() - t_path
         torch.save(summary, os.path.join(tmp, f"sm_rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -7190,10 +7309,14 @@ def _dryrun_check(procs, t0, tmp):
 
 
 def phase_serve_mesh(dev, counters, smi):
-    """Path 15: the dry-run started in the background; the prefill and
-    decode placements on four ranks sharing the card (gloo), each run
-    first on one process (the (1, 1) run, its greedy inputs then fed to
-    the ranks); then the dry-run's results."""
+    """Paths 15 and 16: the dry-run started in the background; the
+    prefill and decode placements (path 15), then the enc-dec, VLM and
+    hybrid families under the placements (path 16), on four ranks
+    sharing the card (gloo), one spawn for both: each serving run first
+    on one process (the (1, 1) run, its greedy inputs then fed to the
+    ranks), path 16's training run against its (1, 1) step 0 after the
+    ranks exit; then the dry-run's results.  Returns path 15's results
+    by run and path 16's under ``mf``."""
     import shutil
     import socket
     import tempfile
@@ -7209,9 +7332,11 @@ def phase_serve_mesh(dev, counters, smi):
     tmp = tempfile.mkdtemp(prefix="sm_")
     dry_tmp = tempfile.mkdtemp(prefix="dryrun_")
     dryrun = _dryrun_start(dry_tmp) + (dry_tmp,)
-    single, witness = {}, {}
+    single, witness, own_s = {}, {}, {15: 0.0, 16: 0.0}
+    serving = list(SM_RUNS) + [f"16{k}" for k in MF_RUNS]
     try:
-        for which in SM_RUNS:
+        for which in serving:
+            t_run = time.perf_counter()
             cfg = _sm_cfg(which)
             params = lm.init_params(cfg, torch.Generator(
                 device=dev).manual_seed(0), dev)
@@ -7228,20 +7353,48 @@ def phase_serve_mesh(dev, counters, smi):
                 witness[which] = _sm_run(which, params, dev, forced)
             del params
             _free(dev)
+            own_s[16 if which.startswith("16") else 15] += \
+                time.perf_counter() - t_run
         t0 = time.perf_counter()
         mp.spawn(_sm_rank, args=(4, tmp, [p.pid for p in dryrun[0]]),
                  nprocs=4, join=True)
         spawn_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(tmp, f"sm_rank{r}.pt"),
                             weights_only=False) for r in range(4)]
-        out = {"spawn_s": spawn_s}
+        out = {"spawn_s": spawn_s, "mf": {}}
+        t0 = time.perf_counter()
         for which in SM_RUNS:
             mesh = torch.load(os.path.join(tmp, f"sm_{which}.pt"),
                               weights_only=False)
             out[which] = _sm_check(which, mesh, [r[which] for r in ranks],
                                    single[which], witness[which], smi)
-        log(f"[serve-mesh] the three runs' ranks in {spawn_s:.1f} s (spawn "
+        check_s = {15: time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        mf_ranks = [torch.load(os.path.join(tmp, f"mf_rank{r}.pt"),
+                               weights_only=False) for r in range(4)]
+        for which in MF_TRAIN:
+            out["mf"][which] = _tp_check(which, [r[which] for r in mf_ranks],
+                                         tmp, dev, smi)
+            _free(dev)
+        for which in MF_RUNS:
+            key = f"16{which}"
+            mesh = torch.load(os.path.join(tmp, f"sm_{key}.pt"),
+                              weights_only=False)
+            out["mf"][which] = _sm_check(key, mesh, [r[key] for r in ranks],
+                                         single[key], witness[key], smi)
+        check_s[16] = time.perf_counter() - t0
+        rank_s = {p: [round(r["path_s"][p], 1) for r in ranks]
+                  for p in (15, 16)}
+        log(f"[serve-mesh] paths 15 and 16's ranks in {spawn_s:.1f} s (spawn "
             f"to exit)")
+        for p in (15, 16):
+            log(f"[{'serve-mesh' if p == 15 else 'mesh-families'}] path {p}: "
+                f"{own_s[p] + max(rank_s[p]) + check_s[p]:.1f} s -- its "
+                f"(1, 1) runs and witnesses {own_s[p]:.1f} s, the ranks "
+                f"{rank_s[p]} s, its checks {check_s[p]:.1f} s (with the "
+                f"(1, 1) training step)")
+        out["path_s"] = {p: own_s[p] + max(rank_s[p]) + check_s[p]
+                         for p in (15, 16)}
         out["dryrun"] = _dryrun_check(*dryrun)
     finally:
         for p in dryrun[0]:
@@ -7274,11 +7427,13 @@ def _sm_check(which, mesh, tr, single, witness, smi):
     mesh run's logits and caches against the (1, 1) run within SM_LOGITS
     / SM_CACHE and its argmax agreements at least SM_ARGMAX, beside the
     split-K witness; the cache shard shapes; K5's launches on the local
-    heads (mamba: one a layer a rank in the prefill, none in decode);
+    heads (one a Mamba-2 layer a rank in the prefill, none in decode);
     step ms a rank, collectives, busy share, peak memory."""
+    from repro_torch.models import lm
     cfg = _sm_cfg(which)
-    arch, _, shape, run, b, s, s_max, t = SM_RUNS[which]
-    tag = f"[serve-mesh] ({which}) {arch}"
+    arch, _, shape, run, b, s, s_max, t = _sm_spec(which)
+    tag = _sm_tag(which)
+    n_ssm = lm._n_layers(cfg, True)
     if any(r["digest"] != tr[0]["digest"] for r in tr):
         raise AssertionError(f"{tag}: the ranks' gathered logits differ: "
                              f"{[r['digest'] for r in tr]}")
@@ -7299,13 +7454,13 @@ def _sm_check(which, mesh, tr, single, witness, smi):
                              f"agreement {agree:.3f} (bound {SM_ARGMAX})")
     # K5: one launch a Mamba-2 layer a rank in the prefill, on its heads
     need = {k: 0 for k in tr[0]["launches"]}
-    if cfg.is_ssm:
-        need["ssd_scan"] = cfg.n_layers
+    if n_ssm:
+        need["ssd_scan"] = n_ssm
     for r in tr:
         if r["launches"] != need:
             raise AssertionError(f"{tag}: rank {r['coords']} launches "
                                  f"{r['launches']}, need {need}")
-    if cfg.is_ssm and single["launches"]["ssd_scan"] != cfg.n_layers:
+    if n_ssm and single["launches"]["ssd_scan"] != n_ssm:
         raise AssertionError(f"{tag}: the (1, 1) run launched K5 "
                              f"{single['launches']['ssd_scan']} times")
     dec = [r["ms"] for r in tr]
@@ -7316,11 +7471,18 @@ def _sm_check(which, mesh, tr, single, witness, smi):
     r0 = tr[0]
     coll = {ph: {k: (n, round(ms, 1)) for k, (n, ms) in c.items() if n}
             for ph, c in r0["coll"].items()}
-    heads = (f"{cfg.ssm_heads // shape[1]} of {cfg.ssm_heads} SSM heads "
-             f"(K5 on B * H = {b} x {cfg.ssm_heads // shape[1]})"
-             if cfg.is_ssm else f"{cfg.h_eff // shape[1]} of {cfg.h_eff} "
-             f"query heads")
-    what = (f"prefill {b} x {s} tokens, then {t} decode steps at batch {b}"
+    heads = ", ".join(
+        ([f"{cfg.ssm_heads // shape[1]} of {cfg.ssm_heads} SSM heads (K5 on "
+          f"B * H = {b} x {cfg.ssm_heads // shape[1]})"] if n_ssm else [])
+        + ([f"{cfg.h_eff // shape[1]} of {cfg.h_eff} query heads"]
+           if cfg.n_heads else [])
+        + ([f"{cfg.n_experts // shape[1]} of {cfg.n_experts} experts"]
+           if cfg.is_moe else []))
+    fed = "tokens" if cfg.frontend == "none" else (
+        "stub frontend embeddings" + (" (and the encoder's, whose cross_kv "
+                                      "every rank keeps whole)"
+                                      if cfg.is_encdec else ""))
+    what = (f"prefill {b} x {s} {fed}, then {t} decode steps at batch {b}"
             + (f" on a {s_max}-position cache" if s_max else "")
             if run == "serve" else
             f"batch 1 under the long_500k rules: a {s_max}-position cache "
@@ -7352,8 +7514,9 @@ def _sm_check(which, mesh, tr, single, witness, smi):
         f"card busy {100 * busy:.1f}% (their sum over the slowest rank's "
         f"wall; {100 * kern_busy:.1f}% without the staging copies); "
         f"launches a rank {r0['launches']}; peak a rank "
-        f"{[round(r['peak_gib'], 2) for r in tr]} GiB; the (1, 1) run "
-        f"{single['s']:.1f} s; {smi}")
+        f"{[round(r['peak_gib'], 2) for r in tr]} GiB (after the sharded "
+        f"draw {[round(r['draw_peak_gib'], 2) for r in tr]}); the (1, 1) "
+        f"run {single['s']:.1f} s; {smi}")
     return dict(gap_logits=gaps[worst_l], gap_cache=gaps[worst_c],
                 argmax=agree, witness_logits=wgaps[wl],
                 witness_cache=wgaps[wc], witness_argmax=wagree,
@@ -7361,7 +7524,8 @@ def _sm_check(which, mesh, tr, single, witness, smi):
                 single_ms=single["ms"], collectives=r0["coll"], busy=busy,
                 kernel_busy=kern_busy, device_split=r0["device_split"],
                 launches=r0["launches"],
-                rank_peak_gib=[r["peak_gib"] for r in tr])
+                rank_peak_gib=[r["peak_gib"] for r in tr],
+                draw_peak_gib=[r["draw_peak_gib"] for r in tr])
 
 
 
@@ -7480,7 +7644,8 @@ def main():
                        counters, smi, banks)
     ep = path("path 13 (expert parallel)", phase_ep, dev, counters, smi)
     tp = path("path 14 (tensor parallel)", phase_tp, dev, counters, smi)
-    sm = path("path 15 (prefill and decode placements, dry-run)",
+    sm = path("paths 15-16 (prefill and decode placements, dry-run; the "
+              "enc-dec, VLM and hybrid families under the placements)",
               phase_serve_mesh, dev, counters, smi)
 
     meta = {
@@ -7576,11 +7741,19 @@ def main():
         for which in SM_RUNS:
             row[f"launches_serve_mesh_{which}_a_rank"] = sm[which][
                 "launches"][k]
+        # path 16: each rank's launches in seamless's (2, 2) training
+        # step (K4 forward / backward) and the (1, 4) prefill / decode
+        # runs (K5 on jamba's local heads)
+        for which in list(MF_TRAIN) + list(MF_RUNS):
+            row[f"launches_mesh_families_{which}_a_rank"] = sm["mf"][
+                which]["launches"][k]
         if k == "mps_combine":
             row["launches_tp_given_absmax_a_rank"] = {
                 which: tp[which]["given"] for which in TP_RUNS}
             row["launches_ep_train_given_absmax_a_rank"] = ep["train"][
                 "given"]
+            row["launches_mesh_families_given_absmax_a_rank"] = {
+                which: sm["mf"][which]["given"] for which in MF_TRAIN}
             row["ep_max_allreduce_ms"] = ep["train"]["max_allreduce_ms"]
         if k == "quant_matmul":
             r["max_abs_err"] = max(r["max_abs_err"], jamba["k1_err"])

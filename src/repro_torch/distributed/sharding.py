@@ -87,8 +87,8 @@ DEFAULT_RULES: dict[str, object] = {
 }
 
 # the tensor-parallel axes: a mesh that splits one of them (or the
-# sequence) places the dense, SSM and MoE families only (ROADMAP section
-# 1, item 2)
+# sequence, the FSDP axis or the cache's sequence) is refused where the
+# port places nothing, a page pool (ROADMAP section 1, item 2)
 TP_AXES = ("heads", "heads_flat", "mlp", "vocab", "ssm_inner")
 
 
@@ -233,11 +233,35 @@ def group_of(mesh_axes):
     return mesh.group(tuple(mesh_axes))
 
 
+def shard_of(t: torch.Tensor, logical_axes) -> torch.Tensor:
+    """This rank's block of a whole tensor with these logical axes under
+    the installed mesh: each dimension the rules map cut into equal
+    contiguous blocks over its mesh axes, the rank's block kept (a copy;
+    ``t`` itself when nothing splits it)."""
+    mesh = get_mesh()
+    dims = dim_axes(*logical_axes)
+    if mesh is None or not dims:
+        return t
+    if len(dims) != t.dim():
+        raise ValueError(f"logical axes {logical_axes} for a tensor of "
+                         f"shape {tuple(t.shape)}")
+    for dim, axes in enumerate(dims):
+        n = mesh.size(axes) if axes else 1
+        if n == 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"axis {dim} of {tuple(t.shape)} does not "
+                             f"split {n} ways")
+        size = t.shape[dim] // n
+        t = t.narrow(dim, mesh.index(axes) * size, size).clone()
+    return t
+
+
 def tp_split(serving: bool = False) -> tuple:
     """The tensor-parallel axes (:data:`TP_AXES`), ``act_seq`` and the
     weights' FSDP axis ``w_embed`` that the installed mesh splits, and
     with ``serving`` the dense cache's ``kv_seq``: the placements the
-    port makes for the dense, SSM and MoE families only."""
+    port makes on dense caches, and a page pool refuses."""
     names = TP_AXES + ("act_seq", "w_embed") + (("kv_seq",) if serving
                                                 else ())
     return tuple(a for a in names if extent(a) > 1)
@@ -246,17 +270,16 @@ def tp_split(serving: bool = False) -> tuple:
 def refuse_split(what: str, serving: bool = False):
     """ValueError when the installed mesh splits a tensor-parallel,
     sequence, FSDP (or with ``serving`` a cache-sequence) axis
-    (:func:`tp_split`) under ``what``, which the port does not place
-    yet."""
+    (:func:`tp_split`) under ``what``, a page pool, which has no logical
+    axes (nor in the reference)."""
     split = tp_split(serving)
     if split:
         raise ValueError(
             f"{what} under a mesh that splits {', '.join(split)}: the port "
-            f"places these in the training, prefill and decode steps of "
-            f"the dense, SSM and MoE families on dense caches; the enc-dec, "
-            f"VLM and hybrid layers under tensor parallelism and a page "
-            f"pool under a mesh are not placed yet (ROADMAP section 1, "
-            f"items 2-3; unmap the axes through use_mesh's rules)")
+            f"places these in the training, prefill and decode steps on "
+            f"dense caches; a page pool has no logical axes and is not "
+            f"placed under a mesh (ROADMAP section 1, item 2; unmap the "
+            f"axes through use_mesh's rules)")
 
 
 def kv_offset(s_local: int) -> int:
@@ -356,6 +379,20 @@ class Region:
         ``axes_of_dims`` (:func:`dim_axes`) is split over the region."""
         return bool(self.axes) and any(set(self.axes) <= set(a)
                                        for a in axes_of_dims)
+
+
+def seq_block(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a whole sequence (dim 1) where ``act_seq``
+    splits the residual stream -- a stub frontend's embeddings, which
+    every rank is handed whole -- else ``x``."""
+    n = extent("act_seq")
+    if n == 1:
+        return x
+    if x.shape[1] % n:
+        raise ValueError(f"a sequence of {x.shape[1]} rows does not split "
+                         f"over {n} ranks")
+    m = x.shape[1] // n
+    return x.narrow(1, axis_index("act_seq") * m, m)
 
 
 def seq_gather(x: torch.Tensor) -> torch.Tensor:

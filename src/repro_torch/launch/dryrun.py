@@ -28,10 +28,8 @@ tally and the collective ledger, from which ``--reanalyze`` recomputes
 of re-analysing the stored HLO).  The roofline is a model from the
 H100's datasheet peaks (``cost_analysis.Roofline``), not a measurement.
 
-Cells that ``cell_applicable`` skips are skipped.  The enc-dec, VLM and
-hybrid families are not placed under tensor parallelism yet: their cells
-are recorded ``ok: false`` with ``refused`` and the reason, and count as
-no failure (under ``--all`` the exit code is 1 only when another cell
+Cells that ``cell_applicable`` skips are skipped; every other cell of
+every family traces (under ``--all`` the exit code is 1 when one
 fails).
 """
 from __future__ import annotations
@@ -55,11 +53,6 @@ from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import steps as steps_lib
 
 OUT = "artifacts/dryrun_torch"
-PLACED = ("dense", "ssm", "moe")
-REFUSED = ("the {family} family's layers under tensor parallelism are not "
-           "placed yet: ROADMAP section 1, item 2 (the enc-dec, VLM and "
-           "hybrid layers under tensor parallelism, with their dry-run "
-           "cells)")
 
 
 def fake_group(n: int):
@@ -137,13 +130,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         rec.update(global_batch=shape.global_batch, seq_len=shape.seq_len)
     if not ok:
         rec["skipped"] = reason
-        return rec, None
-    if cfg.family not in PLACED:
-        rec.update(ok=False, refused=True,
-                   error=REFUSED.format(family=cfg.family))
-        if verbose:
-            print(f"[dryrun] {arch} x {shape_name} x {rec['mesh']}: "
-                  f"refused ({rec['error']})")
         return rec, None
     n = (mesh[0] * mesh[1]) if mesh is not None else \
         (512 if multi_pod else 256)
@@ -308,7 +294,7 @@ def main(argv=None):
                                   search=search, mesh=mesh,
                                   batch=args.batch, seq=args.seq)
             write(path, rec, tally)
-            if rec.get("ok") is False and not rec.get("refused"):
+            if rec.get("ok") is False:
                 n_fail += 1
     finally:
         if dist.is_initialized():

@@ -10,10 +10,12 @@ axes and the experts on ``model``, the residual stream's sequence
 (``act_seq``) and the dense cache's (``kv_seq``) where the shape's rules
 (:func:`shape_rules`) put them.  The three steps take the global batch
 and cut this rank's rows themselves; parameters, optimizer state and
-caches are this rank's shards (:func:`shard_tree`).  The paged prefill
-step, a decode step on page pools and the enc-dec, VLM and hybrid
-families refuse a mesh that splits a tensor-parallel, sequence, FSDP or
-cache-sequence axis (ROADMAP section 1, items 2-3).  :func:`batch_struct`
+caches are this rank's shards (:func:`shard_tree`); a stub frontend's
+``embeddings`` / ``enc_embeddings`` are global too, their sequence cut
+by the model where ``act_seq`` splits it.  Every family is placed; the
+paged prefill step and a decode step on page pools refuse a mesh that
+splits a tensor-parallel, sequence, FSDP or cache-sequence axis (a page
+pool has no logical axes; ROADMAP section 1, item 2).  :func:`batch_struct`
 and :func:`cell_artifacts` are the dry-run's inputs
 (``launch/dryrun.py``): meta tensors of a cell's step arguments and
 their placements.
@@ -147,7 +149,7 @@ def make_paged_prefill_step(cfg: ArchConfig):
     from zero and return their new state in the tree.  A page pool has
     no logical axes (nor in the reference): a ValueError under a mesh
     that splits a tensor-parallel, sequence, FSDP or cache-sequence axis
-    (ROADMAP section 1, items 2-3)."""
+    (ROADMAP section 1, item 2)."""
     sharding.refuse_split("the paged prefill step", serving=True)
 
     def step_fn(params, batch, kv_caches, tables, lens):
@@ -341,20 +343,8 @@ def shard_tree(tree, logical_tree):
     dimension whose logical axis the rules map cut into equal contiguous
     blocks over its mesh axes, the rank's block kept (a copy); a whole
     leaf as it is."""
-    mesh = sharding.get_mesh()
-
-    def cut(axes, leaf):
-        for dim, mesh_axes in _placed(axes, leaf):
-            n = mesh.size(mesh_axes)
-            if leaf.shape[dim] % n:
-                raise ValueError(f"axis {dim} of {tuple(leaf.shape)} does "
-                                 f"not split {n} ways")
-            size = leaf.shape[dim] // n
-            leaf = leaf.narrow(dim, mesh.index(mesh_axes) * size,
-                               size).clone()
-        return leaf
-
-    return tree_map_axes(cut, logical_tree, tree)
+    return tree_map_axes(lambda axes, leaf: sharding.shard_of(leaf, axes),
+                         logical_tree, tree)
 
 
 def gather_tree(tree, logical_tree):

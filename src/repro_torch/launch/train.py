@@ -50,15 +50,18 @@ every batch (``batch`` on ``data``), its block of every weight's
 ``w_embed`` axis (FSDP on ``data``), its heads, FFN columns, vocab rows,
 Mamba-2 heads and experts (tensor and expert parallelism on ``model``),
 and the residual stream's rows of the sequence between layers
-(``act_seq`` on ``model``); the dense, SSM and MoE families train so::
+(``act_seq`` on ``model``); every family trains so, the enc-dec one
+(its encoder, cross attention and raw cross weights placed as the
+decoder's) included::
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m repro_torch.launch.train --device cpu --dist-backend gloo \
         --arch llama3.2-1b-smoke --search --mesh 2,2 --steps 2
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --device cpu --dist-backend gloo \
+        --arch seamless-m4t-medium-smoke --search --mesh 2,2 --steps 2
 
-(the enc-dec, VLM and hybrid families refuse a mesh that splits more
-than ``batch`` and ``experts``: ROADMAP section 1, items 2-3).  Every
-rank draws the whole seed-0 tree and keeps its shard.  ``--dist-backend``: ``nccl`` by
+Every rank draws the whole seed-0 tree and keeps its shard.  ``--dist-backend``: ``nccl`` by
 default on ``cuda``, ``gloo`` on the CPU; NCCL takes one rank a device,
 so ranks sharing a card need ``--dist-backend gloo`` (asked, never
 switched to).  Rank 0 prints.  Checkpoints are mesh-agnostic: the

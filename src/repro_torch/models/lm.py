@@ -148,7 +148,8 @@ def _split(tree):
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
-                device=None, mps_on: bool = False) -> dict:
+                device=None, mps_on: bool = False,
+                sharded: bool = False) -> dict:
     """Random parameters with ``lm.init_params``' tree and shapes (not its
     numbers: ``jax.random`` and ``torch.Generator`` differ), drawn on
     ``device`` (default ``cuda``) from ``generator`` (default seed 0).
@@ -156,8 +157,13 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     attention's too) its float32 selection logits ``gamma (nsb, C_out,
     |P_W|)`` at the paper's Eq. 13 init (the reference's values);
     ``embed`` and ``lm_head`` carry none.  On the ``meta`` device the tree
-    has its shapes and no numbers (no generator)."""
-    return _build(cfg, generator, device, mps_on)[0]
+    has its shapes and no numbers (no generator).  ``sharded``: under an
+    installed mesh, each leaf is cut to this rank's shard of
+    :func:`logical_axes` as soon as it is drawn (``sharding.shard_of``):
+    the draws and their order are the whole tree's, so the shards hold
+    its bits, and the rank never holds more than one whole leaf beside
+    its shards."""
+    return _build(cfg, generator, device, mps_on, sharded)[0]
 
 
 def logical_axes(cfg: ArchConfig, mps_on: bool = False) -> dict:
@@ -170,10 +176,15 @@ def logical_axes(cfg: ArchConfig, mps_on: bool = False) -> dict:
     return _build(cfg, None, "meta", mps_on)[1]
 
 
-def _build(cfg: ArchConfig, generator, device, mps_on: bool):
+def _build(cfg: ArchConfig, generator, device, mps_on: bool,
+           sharded: bool = False):
     """(parameters, logical axes) of :func:`init_params` and
     :func:`logical_axes`, one walk."""
     dev = resolve_device(device)
+
+    def leaf(t, axes):
+        return _Leaf(sharding.shard_of(t, axes) if sharded else t, axes)
+
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = torch.float32 if cfg.param_dtype == "float32" \
@@ -199,16 +210,17 @@ def _build(cfg: ArchConfig, generator, device, mps_on: bool):
         else:
             arr = torch.randn(full, generator=generator, device=dev,
                               dtype=torch.float32).to(dtype) * scale
-        out = {"w": _Leaf(arr, lead + tuple(logical))}
+        out = {"w": leaf(arr, lead + tuple(logical))}
+        del arr
         if mps_on and n and gamma:
-            out["gamma"] = _Leaf(sampling.init_selection_logits(
+            out["gamma"] = leaf(sampling.init_selection_logits(
                 cfg.mps_precisions, (n, shape[-1]), dev), lead + (None, None))
         return out
 
     def vec(shape, logical, init=0.0, n=nsb):
         full = ((n,) if n else ()) + shape
-        return _Leaf(torch.full(full, init, dtype=dtype, device=dev),
-                     (("layers",) if n else ()) + tuple(logical))
+        return leaf(torch.full(full, init, dtype=dtype, device=dev),
+                    (("layers",) if n else ()) + tuple(logical))
 
     params = {"embed": w((v, d), ("vocab", "w_embed"), scale=0.02, n=0)}
     params["blocks"] = {f"l{i}": _layer_params(cfg, spec, w, vec, nsb)
@@ -295,14 +307,17 @@ def _mamba_params(cfg: ArchConfig, w, vec) -> dict:
 # forward
 # ---------------------------------------------------------------------------
 
-def _make_getw(cfg: ArchConfig, ctx: Optional[mps.SearchCtx]):
+def _make_getw(cfg: Optional[ArchConfig], ctx: Optional[mps.SearchCtx],
+               cast: bool = True):
     """Weight provider (``lm._make_effective_w``): ``getw(pp, axes,
     region)`` gives the weight of node ``pp`` as this rank computes with
     it.  A :class:`PackedLinear` goes through untouched; under a
     ``SearchCtx`` a weight with a gamma becomes its Eq. 5 effective
     weight (``core.mps.effective_weight``, kernel K4 on the card, its
     output channels on the last axis); every dense weight is cast to
-    bf16 at the point of use.
+    bf16 at the point of use.  ``cast=False`` (no ``ctx``) is the cross
+    attention's provider (:data:`_RAW`): the raw weight, an f32 master
+    as it is, placed as below.
 
     Under a mesh, ``axes`` (the weight's logical axes, ``blocks.AXES``)
     say how the rank's shard is cut.  Eq. 5 runs on the shard where the
@@ -330,7 +345,7 @@ def _make_getw(cfg: ArchConfig, ctx: Optional[mps.SearchCtx]):
         if not any(dims):
             dims = []
         if ctx is None or "gamma" not in pp:
-            out = w.to(torch.bfloat16)
+            out = w.to(torch.bfloat16) if cast else w
         else:
             out = _effective(cfg, ctx, w, pp["gamma"], dims)
         if region is not None and not region.splits(dims):
@@ -342,6 +357,11 @@ def _make_getw(cfg: ArchConfig, ctx: Optional[mps.SearchCtx]):
                 out = sharding.gather(out, d, sharding.group_of(ax))
         return out
     return getw
+
+
+# the cross attention's weights: raw (the reference passes its branch no
+# weight hook), placed under a mesh as the dense ones are
+_RAW = _make_getw(None, None, cast=False)
 
 
 def _effective(cfg, ctx, w, gamma, dims):
@@ -400,6 +420,9 @@ def _store(dst, src):
 def _embed_in(cfg, params, batch) -> torch.Tensor:
     """The decoder's input: a stub frontend's ``embeddings`` cast to bf16
     (no scale), else the embedding rows of ``tokens`` times sqrt(d).
+    Both end on the stream's layout: under a mesh that splits
+    ``act_seq`` this rank's rows of the sequence (the embeddings, handed
+    whole to every rank, cut by ``sharding.seq_block``).
 
     Under a mesh the table ``(vocab, w_embed)`` is this rank's shard: it
     is gathered over the data axes (FSDP, float32: the rows' gradient is
@@ -409,7 +432,7 @@ def _embed_in(cfg, params, batch) -> torch.Tensor:
     (reduce-scattered along a split sequence): one rank's row plus exact
     zeros, the single device's values."""
     if "embeddings" in batch:
-        return batch["embeddings"].to(torch.bfloat16)
+        return sharding.seq_block(batch["embeddings"].to(torch.bfloat16))
     table, tokens = params["embed"]["w"], batch["tokens"].long()
     dims = sharding.dim_axes("vocab", "w_embed")
     if dims and dims[1]:
@@ -440,12 +463,14 @@ def _superblock(cfg: ArchConfig, pattern, blk, x, s, *, mode, caches, j,
 
     The stream is bf16, except after a float tree's cross attention: its
     projections take the raw weights (the reference passes the cross
-    branch no weight hook), f32 masters give f32 products, and JAX
-    promotes ``x + yc`` and everything after it in the layer to f32.
+    branch no weight hook; :data:`_RAW` places them under a mesh), f32
+    masters give f32 products, and JAX promotes ``x + yc`` and
+    everything after it in the layer to f32.
     Under a mesh that splits ``act_seq`` the stream holds this rank's
     rows of the sequence: the norms run on them (their weights' gradients
     summed over the sequence's group) and each mixer and FFN is a
-    tensor-parallel region between them."""
+    tensor-parallel region between them; so is the cross attention,
+    which brings the encoder's whole sequence in for its K/V."""
     new = {}
     for i, spec in enumerate(pattern):
         p = blk[f"l{i}"]
@@ -468,11 +493,12 @@ def _superblock(cfg: ArchConfig, pattern, blk, x, s, *, mode, caches, j,
         s = x.float() + y.float()
         x = s.to(x.dtype)
         if spec.cross and (enc_out is not None or mode == "decode"):
-            hc = blocks.rmsnorm(s, p["norm_cross"], cfg.norm_eps).to(x.dtype)
+            hc = blocks.rmsnorm(s, sharding.seq_shared(p["norm_cross"]),
+                                cfg.norm_eps).to(x.dtype)
             ckv = None if c is None else _index(c["cross_kv"], j)
             yc, nc["cross_kv"] = blocks.attention_layer(
                 p["cross"], hc, cfg, kind="cross", mode=mode, cache=ckv,
-                kv_input=enc_out)
+                kv_input=enc_out, effective_w=_RAW)
             s = x.float() + yc.float()
             x = s.to(torch.promote_types(x.dtype, yc.dtype))
         if spec.ffn is None:
@@ -526,16 +552,20 @@ def _encode(cfg: ArchConfig, params, batch, getw, remat: bool):
     """The encoder (``lm._encode``): ``enc_embeddings`` cast to bf16, or
     else :func:`_embed_in` of the batch (the decoder's ``embeddings`` when
     the batch holds them, else its tokens), through the stacked
-    ``enc_blocks`` in train mode, then ``enc_norm``."""
+    ``enc_blocks`` in train mode, then ``enc_norm``.  Under a mesh that
+    splits ``act_seq`` the encoder's stream holds this rank's rows of its
+    sequence, as the decoder's does (its bidirectional attention a
+    region over the whole sequence), and so does its output."""
     if "enc_embeddings" in batch:
-        xe = batch["enc_embeddings"].to(torch.bfloat16)
+        xe = sharding.seq_block(batch["enc_embeddings"].to(torch.bfloat16))
     else:
         xe = _embed_in(cfg, params, batch)
     xe, s, _ = _run_stack(cfg, enc_pattern(cfg), params["enc_blocks"],
                           n_enc_superblocks(cfg), xe, mode="train",
                           caches=None, pos=None, getw=getw, tables=None,
                           enc_out=None, remat=remat)
-    return blocks.rmsnorm(s, params["enc_norm"], cfg.norm_eps).to(xe.dtype)
+    return blocks.rmsnorm(s, sharding.seq_shared(params["enc_norm"]),
+                          cfg.norm_eps).to(xe.dtype)
 
 
 def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
@@ -565,13 +595,13 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     Hkv, D)`` in the projections' dtype, and for a Mamba-2 layer its SSM
     state ``(nsb, B, H, P, N)`` and conv windows ``(nsb, B, K-1, C)``.
     Under a mesh that splits a tensor-parallel, sequence, FSDP or (outside
-    training) cache-sequence axis (``sharding.tp_split``) the dense, SSM
-    and MoE families are placed in every mode on dense caches (the
-    enc-dec, VLM and hybrid families and page pools raise a ValueError
-    naming ROADMAP section 1, items 2-3).  ``batch`` holds this rank's
-    rows of the global batch (``launch/steps`` cuts them); ``caches``
+    training) cache-sequence axis (``sharding.tp_split``) every family is
+    placed in every mode on dense caches (page pools raise a ValueError
+    naming ROADMAP section 1, item 2).  ``batch`` holds this rank's
+    rows of the global batch (``launch/steps`` cuts them), a stub
+    frontend's embeddings their whole sequence; ``caches``
     this rank's shards of :func:`cache_logical_axes` (a prefill returns
-    them so).
+    them so: an enc-dec ``cross_kv`` whole but for its batch rows).
     ``logits_mode="hidden"`` gives this rank's rows of the batch, the
     whole sequence (gathered once after the final norm); ``"last"`` and
     ``"full"`` give this rank's vocab shard of ``("batch", None,
@@ -589,15 +619,9 @@ def forward(cfg: ArchConfig, params, batch, *, mode: str = "prefill",
     does not run the encoder: the reference runs it over the step's one
     token and uses none of its output.
     """
-    serving = mode != "train"
-    if sharding.tp_split(serving):
-        if cfg.family not in ("dense", "ssm", "moe"):
-            step = "training" if mode == "train" else mode
-            sharding.refuse_split(f"the {cfg.family} family's {step} step",
-                                  serving)
-        if tables is not None:
-            sharding.refuse_split(f"lm.forward(mode={mode!r}) on a page "
-                                  f"pool", serving)
+    if tables is not None:
+        sharding.refuse_split(f"lm.forward(mode={mode!r}) on a page pool",
+                              mode != "train")
     pattern = block_pattern(cfg)
     missing = [] if caches is None else [
         f"l{i}" for i in range(len(pattern)) if f"l{i}" not in caches]

@@ -145,7 +145,13 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
     ``bidir`` (the encoder) is full attention without the causal mask.
     ``cross`` takes no rope: train and prefill attend over the keys and
     values of ``kv_input`` (the encoder's output; prefill returns them as
-    the new cache), decode over the cached ones (every position).
+    the new cache), decode over the cached ones (every position).  Under
+    a mesh the cross attention is the same region: ``kv_input`` enters
+    it as the stream does (the encoder's whole sequence gathered where
+    ``act_seq`` splits it), its weights come from the caller's provider
+    (raw, placed: ``models.lm._RAW``), and a prefill's cache holds every
+    KV head and every encoder position (``lm.cache_logical_axes``'
+    ``cross_kv``), from which decode reads its own heads.
 
     Under a mesh that splits ``heads_flat`` the layer is a
     tensor-parallel region (``sharding.Region``): ``wq`` is split by
@@ -209,37 +215,43 @@ def attention_layer(p: dict, x: torch.Tensor, cfg, *, kind: str = "full",
             return w[:, kv0 * hd:(kv0 + hkv) * hd]
         return w[:, :, kv0:kv0 + hkv]
 
-    def kv_w(name):
-        return local_kv(_weight(getw, p[name], name, reg))
-    if kind == "cross":
-        if mode == "decode":
-            # the encoder's K/V, cached at prefill; the step's own
-            # projections of the encoder output are never read
-            new_cache = cache
-            out = decode_attention(q, cache["k"], cache["v"], None,
-                                   cap=cfg.attn_softcap)
-        elif mode in ("prefill", "train"):
-            skv = kv_input.shape[1]
-            kk = linear(kv_input, kv_w("wk")).reshape(b, skv, hkv, hd)
-            vv = linear(kv_input, kv_w("wv")).reshape(b, skv, hkv, hd)
-            if cfg.qk_norm:
-                kk = rmsnorm(kk, k_norm, cfg.norm_eps)
-            out = flash_attention(q, kk, vv, causal=False,
-                                  cap=cfg.attn_softcap)
-            new_cache = {"k": kk, "v": vv} if mode == "prefill" else None
-        else:
-            raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
-                             f"got {mode!r}")
-        return reg.exit(linear(out.reshape(b, s, h * hd),
-                               _weight(getw, p["wo"], "wo", reg))), new_cache
-    wk, wv = (_weight(getw, p[n], n, reg) for n in ("wk", "wv"))
-
     def project(rows, w_k, w_v, heads):
         kk = linear(rows, w_k).reshape(b, rows.shape[1], heads, hd)
         vv = linear(rows, w_v).reshape(b, rows.shape[1], heads, hd)
         if cfg.qk_norm:
             kk = rmsnorm(kk, k_norm, cfg.norm_eps)
         return kk, vv
+
+    if kind == "cross":
+        if mode == "decode":
+            # the encoder's K/V, cached at prefill (every KV head); the
+            # step's own projections of the encoder output are never read
+            new_cache = cache
+            out = decode_attention(q, local_kv(cache["k"]),
+                                   local_kv(cache["v"]), None,
+                                   cap=cfg.attn_softcap)
+        elif mode in ("prefill", "train"):
+            # the encoder's whole sequence (this rank's rows of it under
+            # a split sequence; its gradient summed back onto them)
+            kv_input = reg.enter(kv_input)
+            wk, wv = (_weight(getw, p[n], n, reg) for n in ("wk", "wv"))
+            if mode == "prefill":
+                # the cache holds every KV head on every rank
+                # (``cache_logical_axes``); the attention reads its own
+                kc, vc = project(kv_input, wk, wv, cfg.hkv_eff)
+                kk, vv = local_kv(kc), local_kv(vc)
+                new_cache = {"k": kc, "v": vc}
+            else:
+                kk, vv = project(kv_input, local_kv(wk), local_kv(wv), hkv)
+                new_cache = None
+            out = flash_attention(q, kk, vv, causal=False,
+                                  cap=cfg.attn_softcap)
+        else:
+            raise ValueError(f"mode must be 'train', 'prefill' or 'decode', "
+                             f"got {mode!r}")
+        return reg.exit(linear(out.reshape(b, s, h * hd),
+                               _weight(getw, p["wo"], "wo", reg))), new_cache
+    wk, wv = (_weight(getw, p[n], n, reg) for n in ("wk", "wv"))
 
     window = cfg.local_window if kind in ("local", "chunked") else 0
     chunked = kind == "chunked"

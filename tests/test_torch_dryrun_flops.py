@@ -13,20 +13,16 @@ head into its cache block beside the flash pass's local heads), 1.056
 long-context decode cell lies outside it (scout 1.31 at 64 positions,
 1.18 at 1024): the JAX partitioner contracts each projection over the
 data-split ``d_model`` where the port gathers the weight and repeats
-the projection on both data ranks (ROADMAP section 3)."""
-import json
-import os
-import subprocess
-import sys
-import tempfile
-
+the projection on both data ranks (ROADMAP section 3).  The enc-dec,
+VLM and hybrid families' cells are
+``tests/test_torch_dryrun_flops_families.py``."""
 import pytest
 
 torch = pytest.importorskip("torch")  # the port's optional dependency
 
+import torch_dryrun_cases as dc
 from torch_threads import _one_torch_thread  # noqa: F401
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 CELLS = [["llama3.2-1b-smoke", "train_4k", 8, 64, False],
          ["llama3.2-1b-smoke", "train_4k", 8, 64, True],
          ["llama3.2-1b-smoke", "prefill_32k", 8, 64, False],
@@ -37,37 +33,11 @@ CELLS = [["llama3.2-1b-smoke", "train_4k", 8, 64, False],
          ["arctic-480b-smoke", "prefill_32k", 8, 64, False],
          ["arctic-480b-smoke", "decode_32k", 8, 64, False]]
 TOL = 0.10
-_PORT = (
-    "import json, sys\n"
-    "from repro_torch.launch import dryrun\n"
-    "out = {}\n"
-    "for a, s, b, n, srch in json.loads(sys.argv[1]):\n"
-    "    rec, _ = dryrun.run_cell(a, s, search=srch, verbose=False,\n"
-    "                             mesh=(2, 2), batch=b, seq=n)\n"
-    "    assert rec.get('ok'), rec\n"
-    "    out['|'.join(map(str, (a, s, b, n, srch)))] = rec\n"
-    "print(json.dumps(out))\n")
 
 
 @pytest.fixture(scope="module")
 def both():
-    tmp = tempfile.mkdtemp()
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        [HERE, os.path.join(HERE, "..", "src"),
-         os.environ.get("PYTHONPATH", "")])}
-    jax = subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "torch_dryrun_jax.py"),
-         os.path.join(tmp, "jax.json"), json.dumps(CELLS)],
-        env={**env, "XLA_FLAGS": "--xla_force_host_platform_device_count=4"},
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    port = subprocess.run([sys.executable, "-c", _PORT, json.dumps(CELLS)],
-                          env=env, capture_output=True, text=True,
-                          timeout=600)
-    log, _ = jax.communicate(timeout=600)
-    assert jax.returncode == 0, log[-3000:]
-    assert port.returncode == 0, port.stderr[-3000:]
-    with open(os.path.join(tmp, "jax.json")) as f:
-        return json.loads(port.stdout.strip().splitlines()[-1]), json.load(f)
+    return dc.flops_views(CELLS)
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=lambda c: f"{c[0]}-{c[1]}"

@@ -17,7 +17,10 @@ process: the fake group is process-wide, and JAX must see 256 devices
 before it is imported.
 """
 import json
+import os
+import subprocess
 import sys
+import tempfile
 
 AXES = ("data", "model")
 
@@ -111,6 +114,45 @@ def jax_view():
                         rec[tag][f"{i}/{k}"] = place(ns)
             out[f"{arch}|{name}"] = rec
     return out
+
+
+_PORT_FLOPS = (
+    "import json, sys\n"
+    "from repro_torch.launch import dryrun\n"
+    "out = {}\n"
+    "for a, s, b, n, srch in json.loads(sys.argv[1]):\n"
+    "    rec, _ = dryrun.run_cell(a, s, search=srch, verbose=False,\n"
+    "                             mesh=(2, 2), batch=b, seq=n)\n"
+    "    assert rec.get('ok'), rec\n"
+    "    out['|'.join(map(str, (a, s, b, n, srch)))] = rec\n"
+    "print(json.dumps(out))\n")
+
+
+def flops_views(cells):
+    """The port's dry-run records of small cells (``[arch, shape, batch,
+    seq, search]``) on a (2, 2) debug mesh over a fake group of four
+    ranks, and the JAX package's ``hlo_analysis`` of the same cells
+    compiled on a four-device CPU mesh (``torch_dryrun_jax.py``), each
+    side a process of its own: ``(port, jax)``, keyed by
+    ``"|".join(cell)``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [here, os.path.join(here, "..", "src"),
+         os.environ.get("PYTHONPATH", "")])}
+    jax = subprocess.Popen(
+        [sys.executable, os.path.join(here, "torch_dryrun_jax.py"),
+         os.path.join(tmp, "jax.json"), json.dumps(cells)],
+        env={**env, "XLA_FLAGS": "--xla_force_host_platform_device_count=4"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    port = subprocess.run([sys.executable, "-c", _PORT_FLOPS,
+                           json.dumps(cells)], env=env, capture_output=True,
+                          text=True, timeout=600)
+    log, _ = jax.communicate(timeout=600)
+    assert jax.returncode == 0, log[-3000:]
+    assert port.returncode == 0, port.stderr[-3000:]
+    with open(os.path.join(tmp, "jax.json")) as f:
+        return json.loads(port.stdout.strip().splitlines()[-1]), json.load(f)
 
 
 if __name__ == "__main__":

@@ -21,8 +21,12 @@ tree as numpy, float32 masters, the arch's optimizer at ``LR`` and
 ``train_microbatches`` 2 (``dataclasses.replace``; the smoke config has
 1, and two micro-batches hold the row order: the global batch is split
 into micro-batches first, then each micro-batch's rows over ``data``).
+The batch (:func:`batch`) is ``steps.batch_struct``'s: ``lm_batch``'s
+tokens and targets, a stub frontend's ``embeddings`` (and an enc-dec's
+``enc_embeddings``) in place of the tokens, drawn with numpy.
 This module imports no JAX: the ranks import it.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -64,6 +68,30 @@ def step_cfg(cfg):
     return dataclasses.replace(cfg, train_microbatches=2)
 
 
+def batch(cfg):
+    """The step's global batch as numpy, the keys of
+    ``steps.batch_struct``: ``lm_batch``'s targets, and its tokens or a
+    stub frontend's ``embeddings`` (B, SEQ - 1, D) float32 drawn from
+    seed 1, with an enc-dec's ``enc_embeddings`` of the same shape
+    beside them (each package casts them to bf16)."""
+    from repro_torch.data import synthetic
+    out = {k: v.numpy() for k, v in
+           synthetic.lm_batch(cfg.vocab, SEQ, B, 0).items()}
+    if cfg.frontend != "none":
+        rng = np.random.default_rng(1)
+        del out["tokens"]
+        keys = ("embeddings", "enc_embeddings") if cfg.is_encdec else \
+            ("embeddings",)
+        for k in keys:
+            out[k] = rng.standard_normal(
+                (B, SEQ - 1, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def torch_batch(cfg):
+    return {k: torch.from_numpy(v) for k, v in batch(cfg).items()}
+
+
 def rules(arch, layout=FULL):
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import steps
@@ -95,6 +123,32 @@ class _Capturing:
         return p, {"inner": s, "grads": grads}
 
 
+@contextlib.contextmanager
+def routes():
+    """Every MoE routing of the block, in call order: each call's
+    ``(E, C)`` table of the tokens each expert keeps
+    (``nn.blocks.moe_route``'s ``top_i``), as numpy."""
+    from repro_torch.nn import blocks
+    inner, got = blocks.moe_route, []
+
+    def recorded(*args, **kw):
+        out = inner(*args, **kw)
+        got.append(out[3].detach().numpy().copy())
+        return out
+
+    blocks.moe_route = recorded
+    try:
+        yield got
+    finally:
+        blocks.moe_route = inner
+
+
+def rerouted(a, b) -> int:
+    """How many (expert, token) assignments of one routing table are not
+    in the other's (an expert keeps a token or not)."""
+    return sum(len(set(x.tolist()) - set(y.tolist())) for x, y in zip(a, b))
+
+
 def _rank(rank, world, arch, mesh, layout, init, out_dir):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank,
@@ -121,7 +175,6 @@ def _rank_step(arch, shape, layout, out_dir):
     checkpoint: rank 0 saves the gathered state, and every rank restores
     it under the other mesh (``OTHER``) into its shard."""
     from repro_torch.checkpoint.checkpoint import CheckpointManager
-    from repro_torch.data import synthetic
     from repro_torch.distributed import sharding
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import steps
@@ -132,7 +185,7 @@ def _rank_step(arch, shape, layout, out_dir):
     mesh = meshlib.make_debug_mesh(*shape, device="cpu")
     logical = tlm.logical_axes(cfg, mps_on=True)
     opt = _Capturing(optimizers.make_optimizer(cfg.optimizer, LR))
-    batch = synthetic.lm_batch(cfg.vocab, SEQ, B, 0)
+    batch = torch_batch(cfg)
     slog = {"params": logical, "opt": optimizers.state_logical_axes(
         cfg.optimizer, logical)}
     coords = [dict(zip(("data", "model"), np.unravel_index(r, shape)))
@@ -145,8 +198,10 @@ def _rank_step(arch, shape, layout, out_dir):
             **{f"o/{k}": tuple(v.shape)
                for k, v in flat_t(st0["inner"]).items()}}}
         step = steps.make_train_step(cfg, opt, search=True)
-        new, st, loss = step(params, st0, batch, 0)
-        out.update(loss=float(loss), norm=float(step.grad_norm))
+        with routes() as routed:
+            new, st, loss = step(params, st0, batch, 0)
+        out.update(loss=float(loss), norm=float(step.grad_norm),
+                   routes=routed)
         # every rank's digest of every leaf: the ranks that share this
         # rank's coordinates on the axes that split a leaf hold its shard
         same = []
@@ -232,7 +287,6 @@ def shard_reference(arch, dp):
     d``), the shards' gradients averaged and clipped by their global
     norm: ``(shard losses, clipped gradients)``."""
     from repro_torch.core import mps
-    from repro_torch.data import synthetic
     from repro_torch.optim import grad as gradlib
     from repro_torch.optim import optimizers
 
@@ -240,46 +294,54 @@ def shard_reference(arch, dp):
     k = cfg.train_microbatches
     params = lm_params_from_jax(tree(arch), cfg=cfg)
     ctx = mps.SearchCtx(tau=1.0)
-    batch = synthetic.lm_batch(cfg.vocab, SEQ, B, 0)
+    batch = torch_batch(cfg)
     micro = {x: v.reshape((k, B // k) + v.shape[1:]) for x, v in
              batch.items()}
     n = B // k // dp
     grads, losses = [], []
-    for d in range(dp):
-        g, loss = gradlib.accumulate_grads(
-            lambda p, b: tlm.loss_fn(cfg, p, b, ctx=ctx, lam=1e-9), params,
-            {x: v[:, d * n:(d + 1) * n] for x, v in micro.items()})
-        grads.append(g)
-        losses.append(float(loss))
+    with routes() as routed:
+        for d in range(dp):
+            g, loss = gradlib.accumulate_grads(
+                lambda p, b: tlm.loss_fn(cfg, p, b, ctx=ctx, lam=1e-9),
+                params, {x: v[:, d * n:(d + 1) * n] for x, v in
+                         micro.items()})
+            grads.append(g)
+            losses.append(float(loss))
     mean = optimizers.tree_map(lambda *gs: (sum(x.float() for x in gs) / dp)
                                .to(gs[0].dtype), *grads)
-    return losses, flat(gradlib.clip_by_global_norm(mean, 1.0)[0])
+    return losses, flat(gradlib.clip_by_global_norm(mean, 1.0)[0]), routed
 
 
-def mesh_world(arch, mesh=(2, 2), layout=EP):
+def mesh_world(arch, mesh=(2, 2), layout=EP, split_jax=False):
     """The port's ranks on ``mesh`` under ``layout`` and the JAX
-    subprocess, for one arch."""
+    subprocess, for one arch; ``split_jax``: two JAX subprocesses at
+    once, the mesh step in one and the ``shards`` function in the other
+    (the hybrid's, each ~70 s of XLA compiling)."""
     tmp = tempfile.mkdtemp()
-    jax_out = os.path.join(tmp, "jax.npz")
     env = {**os.environ, "XLA_FLAGS":
            "--xla_force_host_platform_device_count=4",
            "PYTHONPATH": os.pathsep.join(
                [str(HERE), str(HERE.parent / "src"),
                 os.environ.get("PYTHONPATH", "")])}
-    jax_proc = subprocess.Popen(
-        [sys.executable, str(HERE / "torch_mesh_train_jax.py"), jax_out,
-         arch, label(mesh), json.dumps(NO_FSDP if layout == TP else {})],
+    jobs = ("mesh", "shards") if split_jax else ("mesh,shards",)
+    jax_procs = [(os.path.join(tmp, f"jax{i}.npz"), subprocess.Popen(
+        [sys.executable, str(HERE / "torch_mesh_train_jax.py"),
+         os.path.join(tmp, f"jax{i}.npz"), arch, label(mesh),
+         json.dumps(NO_FSDP if layout == TP else {}), runs],
         env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+        stderr=subprocess.STDOUT, text=True))
+        for i, runs in enumerate(jobs)]
     n = mesh[0] * mesh[1]
     mp.spawn(_rank, args=(n, arch, tuple(mesh), layout, f"file://{tmp}/rdv",
                           tmp), nprocs=n)
     ranks = [torch.load(os.path.join(tmp, f"{r}.pt"), weights_only=False)
              for r in range(n)]
-    log, _ = jax_proc.communicate()
-    assert jax_proc.returncode == 0, log[-3000:]
-    with np.load(jax_out) as z:
-        jax_res = {k: z[k] for k in z.files}
+    jax_res = {}
+    for out, proc in jax_procs:
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, log[-3000:]
+        with np.load(out) as z:
+            jax_res.update({k: z[k] for k in z.files})
     return {"arch": arch, "mesh": tuple(mesh), "label": label(mesh),
             "layout": layout, "ranks": ranks, "jax": jax_res, "dir": tmp,
             "tree": tree(arch), "reference": shard_reference(arch, mesh[0])}
@@ -318,7 +380,7 @@ def _bound(step_grad, key):
     return next(b for s, b in step_grad.items() if s in key)
 
 
-def check_step(w, step_grad=STEP_GRAD, step_loss=0.0):
+def check_step(w, step_grad=STEP_GRAD, step_loss=0.0, jax_grad=None):
     """The mesh step: (a) against the same port step run shard by shard
     on one process: every rank's step-0 loss the mean of the shards'
     losses -- bit for bit under ``EP`` (``step_loss`` 0), within relative
@@ -336,7 +398,9 @@ def check_step(w, step_grad=STEP_GRAD, step_loss=0.0):
     single-device bounds widened by 1.5x that spread (the largest leaf's
     for every gradient leaf), under ``FULL`` and ``TP`` -- the same
     placements, the same sums split -- within the single-device bounds
-    themselves.  The parameters moved as (b)'s (Adam's first step: where
+    themselves, or per leaf within ``jax_grad`` (a ``{substring:
+    bound}`` dict) where the two mesh steps route a token at an expert's
+    capacity otherwise (a witness shows it).  The parameters moved as (b)'s (Adam's first step: where
     its gradient is a quarter of its leaf's largest or more, the same
     way, never the other, at most 1% staying put) and every gamma moved.
     Returns the readings."""
@@ -345,7 +409,7 @@ def check_step(w, step_grad=STEP_GRAD, step_loss=0.0):
     r0 = w["ranks"][0]
     assert all(r["loss"] == r0["loss"] and r["norm"] == r0["norm"]
                for r in w["ranks"])
-    losses, ref = w["reference"]
+    losses, ref = w["reference"][:2]
     mean = np.float32(sum(losses) / len(losses))
     if step_loss:
         assert abs(r0["loss"] / mean - 1) <= step_loss, (r0["loss"], losses)
@@ -372,8 +436,11 @@ def check_step(w, step_grad=STEP_GRAD, step_loss=0.0):
         assert len(gaps) == sum(1 for k in j if k.startswith(
             f"{a}|{run}|g/"))
         worst = max(gaps, key=gaps.get)
-        over = {k: v for k, v in gaps.items() if v > GRAD_MAX + widen * (
-            spread["grad"] if ep else spread["leaves"][k])}
+        limit = {k: GRAD_MAX + widen * (
+            spread["grad"] if ep else spread["leaves"][k]) for k in gaps}
+        if jax_grad is not None and run == w["label"]:
+            limit = {k: _bound(jax_grad, k) for k in gaps}
+        over = {k: v for k, v in gaps.items() if v > limit[k]}
         assert not over, (run, over, spread)
         out[run] = dict(loss=loss_gap, norm=norm_gap, grad=gaps[worst],
                         worst=worst)

@@ -2,7 +2,7 @@
 the mesh training suites (``torch_mesh_train_cases.py``):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
-        python tests/torch_mesh_train_jax.py OUT.npz ARCH [D,M [RULES]]
+        python tests/torch_mesh_train_jax.py OUT.npz ARCH [D,M [RULES [RUNS]]]
 
 For the arch (smoke size, float32 masters, its optimizer at ``LR``,
 ``train_microbatches`` 2 through ``dataclasses.replace``) it runs one
@@ -17,6 +17,8 @@ For the arch (smoke size, float32 masters, its optimizer at ``LR``,
   before the clip; beside it ``shape/p/<leaf>`` and ``shape/o/<leaf>``,
   the shard shape each parameter and optimizer-state leaf has under the
   mesh (``NamedSharding.shard_shape``);
+* the batch is ``torch_mesh_train_cases.batch``'s (a stub frontend's
+  embeddings where the arch has one);
 * ``shards``: the same function with no mesh -- the step run on each
   of the D data shards' rows alone (micro-batch ``i`` of shard ``d`` is global
   row ``i * B / k + d``, as the mesh splits them), unclipped, then the
@@ -24,7 +26,8 @@ For the arch (smoke size, float32 masters, its optimizer at ``LR``,
   optimizer's update from it, and the shards' mean loss.
 
 Writes ``{arch|run|leaf: array}``: ``loss``, ``norm``, ``g/<leaf>`` and
-``p/<leaf>``, the new parameters.  JAX must see four devices
+``p/<leaf>``, the new parameters.  ``RUNS`` (default ``mesh,shards``)
+names the runs to make: two processes may make one each at once.  JAX must see four devices
 before it is imported, hence a process of its own.
 """
 import json
@@ -44,6 +47,7 @@ from repro.models import lm as jlm
 from repro.optim import grad as jgrad
 from repro.optim import optimizers as jopt
 from torch_mesh_train_cases import B, LR, SEQ, step_cfg, tree
+from torch_mesh_train_cases import batch as mesh_batch
 
 
 def _mesh_step(arch, np_tree, shape, extra):
@@ -72,7 +76,7 @@ def _mesh_step(arch, np_tree, shape, extra):
                 jax.tree.map(jnp.asarray, np_tree),
                 jsteps.resolve_shardings(mesh, jlm.logical_axes(cfg, True)))
             b = jax.device_put(
-                jax.tree.map(jnp.asarray, tc.batch(cfg, 0, B, SEQ)[0]),
+                jax.tree.map(jnp.asarray, mesh_batch(cfg)),
                 jsteps.resolve_shardings(mesh,
                                          jsteps.batch_logical(cfg, train)))
             step = jax.jit(jsteps.make_train_step(cfg, opt, search=True))
@@ -115,7 +119,7 @@ def _shard_steps(arch, np_tree, dp):
     step = jax.jit(jsteps.make_train_step(cfg, opt, search=True,
                                           clip_norm=1e30))
     p = jax.tree.map(jnp.asarray, np_tree)
-    batch = tc.batch(cfg, 0, B, SEQ)[0]
+    batch = mesh_batch(cfg)
     n = B // k
     grads, losses = [], []
     for d in range(dp):
@@ -142,18 +146,19 @@ def _shard_steps(arch, np_tree, dp):
     return out
 
 
-def main(path, arch, mesh="2,2", extra="{}"):
+def main(path, arch, mesh="2,2", extra="{}", runs="mesh,shards"):
     assert len(jax.devices()) >= 4, jax.devices()
     shape = tuple(int(v) for v in mesh.split(","))
     np_tree = tree(arch)
     res = {}
-    for run, got in ((mesh, _mesh_step(arch, np_tree, shape,
-                                       json.loads(extra))),
-                     ("shards", _shard_steps(arch, np_tree, shape[0]))):
+    for run in runs.split(","):
+        got = _mesh_step(arch, np_tree, shape, json.loads(extra)) \
+            if run == "mesh" else _shard_steps(arch, np_tree, shape[0])
         for key, v in got.items():
-            res[f"{arch}|{run}|{key}"] = np.asarray(v)
+            res[f"{arch}|{mesh if run == 'mesh' else run}|{key}"] = \
+                np.asarray(v)
     np.savez(path, **res)
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:5])
+    main(*sys.argv[1:6])

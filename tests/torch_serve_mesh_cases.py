@@ -20,9 +20,14 @@ Two runs:
   the last ``T`` positions, so only the last rank writes.
 
 Every input is drawn with numpy from the case's seed; the parameters
-are the port's seed-0 ``init_params`` as numpy.  This module imports no
-JAX: the ranks import it.
+are the port's seed-0 ``init_params`` as numpy.  A stub frontend's arch
+(VLM, enc-dec) is fed ``embeddings`` in place of tokens, prompt and
+decode steps alike, and an enc-dec's prefill also ``enc_embeddings`` of
+``S`` positions (``steps.batch_struct``'s keys): its decode cache holds
+the ``cross_kv`` of those positions beside the self attention's.  This
+module imports no JAX: the ranks import it.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -36,6 +41,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+import torch_mesh_train_cases as mc
 from repro_torch.bridge import (lm_params_from_jax, lm_shard_from_jax,
                                 tree_to_numpy)
 from repro_torch.configs import registry as treg
@@ -90,13 +96,25 @@ def tree(arch):
 
 def inputs(case):
     """``prompt`` (B, S) int32, ``tokens`` (T, B, 1) int32 and, under
-    ``long``, the filled cache tree as numpy (bf16 values as float32)."""
+    ``long``, the filled cache tree as numpy (bf16 values as float32);
+    for a stub frontend's arch also ``prompt_emb`` (B, S, D) and ``emb``
+    (T, B, 1, D), for an enc-dec ``enc_emb`` (B, S, D), float32 (each
+    package casts them to bf16)."""
     cfg = treg.get(case.arch)
     rng = np.random.default_rng(case.seed)
     out = {"prompt": rng.integers(0, cfg.vocab, (case.b, case.s),
                                   dtype=np.int32),
            "tokens": rng.integers(0, cfg.vocab, (case.t, case.b, 1),
                                   dtype=np.int32)}
+    if cfg.frontend != "none":
+        d = cfg.d_model
+        out["prompt_emb"] = rng.standard_normal(
+            (case.b, case.s, d)).astype(np.float32)
+        out["emb"] = rng.standard_normal(
+            (case.t, case.b, 1, d)).astype(np.float32)
+        if cfg.is_encdec:
+            out["enc_emb"] = rng.standard_normal(
+                (case.b, case.s, d)).astype(np.float32)
     if case.run == "long":
         whole = tlm.init_caches(cfg, case.b, case.s_max, device="cpu")
         out["cache"] = {k: v for k, v in _flat(whole).items()}
@@ -104,6 +122,36 @@ def inputs(case):
             fill = rng.standard_normal(v.shape).astype(np.float32)
             out["cache"][k] = torch.from_numpy(fill).to(v.dtype).float() \
                 .numpy()
+    return out
+
+
+def prefill_batch(cfg, data):
+    """The prefill step's batch (numpy): the prompt's tokens, or a stub
+    frontend's embeddings (and an enc-dec's encoder embeddings)."""
+    if cfg.frontend == "none":
+        return {"tokens": data["prompt"]}
+    out = {"embeddings": data["prompt_emb"]}
+    if cfg.is_encdec:
+        out["enc_embeddings"] = data["enc_emb"]
+    return out
+
+
+def decode_batch(cfg, data, i):
+    """Decode step ``i``'s batch (numpy): its tokens, or embeddings."""
+    if cfg.frontend == "none":
+        return {"tokens": data["tokens"][i]}
+    return {"embeddings": data["emb"][i]}
+
+
+def cut_rows(data, rows):
+    """The inputs of the batch rows ``rows`` alone (the (T, B, ...)
+    decode inputs and the cache along their dim 1)."""
+    out = {}
+    for k, v in data.items():
+        if k == "cache":
+            out[k] = {c: x[:, rows] for c, x in v.items()}
+        else:
+            out[k] = v[:, rows] if k in ("tokens", "emb") else v[rows]
     return out
 
 
@@ -123,14 +171,17 @@ def _np(t):
 def decode_cache(cfg, case, whole):
     """The decode run's whole cache: a prefill's gathered ``whole``
     (attention layers' S positions) copied into ``S_MAX`` positions; a
-    Mamba-2 state as it is."""
-    big = tlm.init_caches(cfg, case.b, case.s_max, device="cpu")
+    Mamba-2 state and an enc-dec's ``cross_kv`` (the encoder's S
+    positions) as they are."""
+    big = tlm.init_caches(cfg, case.b, case.s_max,
+                          enc_len=case.s if cfg.is_encdec else 0,
+                          device="cpu")
 
-    def put(dst, src):
+    def put(dst, src, cross=False):
         for k in dst:
             if isinstance(dst[k], dict):
-                put(dst[k], src[k])
-            elif dst[k].dim() == 5 and k in ("k", "v"):
+                put(dst[k], src[k], k == "cross_kv")
+            elif dst[k].dim() == 5 and k in ("k", "v") and not cross:
                 dst[k][:, :, :src[k].shape[2]] = src[k]
             else:
                 dst[k].copy_(src[k])
@@ -146,19 +197,15 @@ def port_run(case, mesh=None, rows=None):
     decode steps, ``final/<leaf>`` the gathered caches after them, and
     the shard shapes of the caches (``shape/prefill/<leaf>``,
     ``shape/decode/<leaf>``)."""
-    import contextlib
-
     from repro_torch.distributed import sharding
     from repro_torch.launch import steps
 
     cfg = treg.get(case.arch)
     np_tree, data = tree(case.arch), inputs(case)
+    routed = contextlib.ExitStack()
+    got_routes = routed.enter_context(mc.routes()) if cfg.is_moe else []
     if rows is not None:
-        data = {"prompt": data["prompt"][rows],
-                "tokens": data["tokens"][:, rows],
-                **({"cache": {k: v[:, rows] for k, v in
-                              data["cache"].items()}}
-                   if "cache" in data else {})}
+        data = cut_rows(data, rows)
         case = dataclasses.replace(case, b=data["prompt"].shape[0])
     cache_log = tlm.cache_logical_axes(cfg)
     logit_log = {"l": ("batch", None, "vocab")}
@@ -181,7 +228,8 @@ def port_run(case, mesh=None, rows=None):
             lm_params_from_jax(np_tree, "cpu", cfg)
         if case.run == "serve":
             logits, caches = steps.make_prefill_step(cfg)(
-                params, {"tokens": torch.from_numpy(data["prompt"])})
+                params, {k: torch.from_numpy(v) for k, v in
+                         prefill_batch(cfg, data).items()})
             out["prefill"] = _np(gather({"l": logits}, logit_log)["l"])
             out.update({f"shape/prefill/{k}": np.asarray(v.shape)
                         for k, v in _flat(caches).items()})
@@ -201,12 +249,15 @@ def port_run(case, mesh=None, rows=None):
         step = steps.make_decode_step(cfg)
         got = []
         for i in range(case.t):
-            logits, caches = step(params, {"tokens": torch.from_numpy(
-                data["tokens"][i])}, caches, start + i)
+            logits, caches = step(params, {
+                k: torch.from_numpy(v) for k, v in
+                decode_batch(cfg, data, i).items()}, caches, start + i)
             got.append(_np(gather({"l": logits}, logit_log)["l"]))
         out["logits"] = np.stack(got)
         out.update({f"final/{k}": _np(v) for k, v in
                     _flat(gather(caches, cache_log)).items()})
+    routed.close()
+    out["routes"] = got_routes
     return out
 
 
@@ -217,7 +268,9 @@ def _rank(rank, world, case, init, out_dir):
     try:
         from repro_torch.launch import mesh as meshlib
         mesh = meshlib.make_debug_mesh(*case.mesh, device="cpu")
-        torch.save(port_run(case, mesh), os.path.join(out_dir, f"{rank}.pt"))
+        out = port_run(case, mesh)
+        out["coords"] = mesh.coords
+        torch.save(out, os.path.join(out_dir, f"{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -259,9 +312,9 @@ def shard_by_shard(case):
     n = case.b // dp
     parts = [port_run(case, rows=slice(d * n, (d + 1) * n))
              for d in range(dp)]
-    out = {}
+    out = {"routes": [p["routes"] for p in parts]}
     for k, v in parts[0].items():
-        if k.startswith("shape/"):
+        if k.startswith(("shape/", "routes")):
             continue
         axis = 0 if k == "prefill" else 1
         out[k] = np.concatenate([p[k] for p in parts], axis=axis)
@@ -321,9 +374,32 @@ def check_shapes(w):
 def check_gaps(w, against, bound):
     """The mesh run's logits and gathered caches within ``bound`` relative
     L2 of the port's (1, 1) steps (``against="single"``) or of the JAX
-    mesh steps (``"jax"``); returns the gaps."""
+    mesh steps (``"jax"``); ``bound`` a number, or a ``{substring:
+    bound}`` dict whose first entry in a key bounds it (``""`` matches
+    every key).  Returns the gaps."""
     want = w["single"] if against == "single" else {
-        k: v for k, v in w["jax"].items() if "|" not in k}
+        k: v for k, v in w["jax"].items() if "|" not in k and k != "routes"}
     got = gaps(w["ranks"][0], want)
-    assert max(got.values()) <= bound, got
+    over = {k: v for k, v in got.items() if v > (
+        bound if not isinstance(bound, dict) else
+        next(b for s, b in bound.items() if s in k))}
+    assert not over, (over, got)
     return got
+
+
+def rerouted(w):
+    """Per data shard: how many (expert, token) assignments of the mesh
+    run's MoE routings (prefill and decode steps, on its first model
+    rank) differ from the same shard's (1, 1) run, and how many it
+    keeps; every model rank of a data shard routes alike."""
+    out = []
+    for part, ref in enumerate(w["single"]["routes"]):
+        ranks = [r for r in w["ranks"] if len(w["single"]["routes"]) == 1
+                 or r["coords"]["data"] == part]
+        mine = ranks[0]["routes"]
+        assert len(mine) == len(ref) and all(
+            all(np.array_equal(a, b) for a, b in zip(mine, r["routes"]))
+            for r in ranks)
+        out.append((sum(mc.rerouted(a, b) for a, b in zip(mine, ref)),
+                    sum(a.size for a in mine)))
+    return out

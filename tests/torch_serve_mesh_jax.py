@@ -5,7 +5,8 @@ for the serving mesh suites (``torch_serve_mesh_cases.py``):
         python tests/torch_serve_mesh_jax.py OUT.npz CASE_JSON
 
 For one case (its arch at smoke size, the port's seed-0 tree as numpy,
-the case's numpy inputs) it runs, on a mesh of the case's shape built
+the case's numpy inputs: ``prefill_batch`` / ``decode_batch``, a stub
+frontend's embeddings where the arch has one) it runs, on a mesh of the case's shape built
 with ``Auto`` axes and under the arch's ``RULE_OVERRIDES`` and
 ``steps.shape_rules`` of the run's shapes, the run of
 ``torch_serve_mesh_cases.port_run``: ``make_prefill_step`` jitted with
@@ -76,8 +77,8 @@ def run(case):
         if case.run == "serve":
             b_sh = jsteps.resolve_shardings(mesh,
                                             jsteps.batch_logical(cfg, pre))
-            batch = jax.device_put({"tokens": jnp.asarray(data["prompt"])},
-                                   b_sh)
+            batch = jax.device_put(
+                jax.tree.map(jnp.asarray, sc.prefill_batch(cfg, data)), b_sh)
             logits_sh = NamedSharding(mesh, jsh.spec("batch", None, "vocab"))
             step = jax.jit(jsteps.make_prefill_step(cfg),
                            out_shardings=(logits_sh, caches_sh()))
@@ -114,8 +115,8 @@ def run(case):
                        donate_argnums=(2,))
         got = []
         for i in range(case.t):
-            tok = jax.device_put({"tokens": jnp.asarray(data["tokens"][i])},
-                                 b_sh)
+            tok = jax.device_put(jax.tree.map(
+                jnp.asarray, sc.decode_batch(cfg, data, i)), b_sh)
             logits, caches = step(p, tok, caches, jnp.int32(start + i))
             got.append(_np(logits))
         out["logits"] = np.stack(got)

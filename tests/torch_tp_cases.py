@@ -67,10 +67,10 @@ def _like(tree):
     return torch.empty_like(tree)
 
 
-def world(arch, mesh, layout=mc.FULL):
+def world(arch, mesh, layout=mc.FULL, split_jax=False):
     """``mc.mesh_world`` under the full placements (or ``layout``), with
     the whole tree's leaf shapes."""
-    w = mc.mesh_world(arch, mesh, layout)
+    w = mc.mesh_world(arch, mesh, layout, split_jax)
     w["tree_shapes"] = {k: tuple(v.shape)
                         for k, v in mc.flat_t(w["tree"]).items()}
     return w
